@@ -1,0 +1,140 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled on first use, with ``nvcc`` alone, into
+a shared library with a plain C interface and loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu
+
+The output lands in ``build/repro_torch/`` at the root of the checkout
+(git-ignored), named by a hash of every source under ``csrc/`` so that a
+stale library is never loaded.  Without ``nvcc`` this raises: there is no
+fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Dict, List
+
+__all__ = ["build_all", "library", "BUILD_DIR", "CSRC"]
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+_c = ctypes
+# argtypes of every C entry point, by library.  Pointers and the stream are
+# c_void_p so that 64-bit addresses are never cut to 32 bits.
+_SIGNATURES = {
+    "fp_par": {
+        "fp_par_sf_launch": [
+            _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p,
+            _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_longlong,
+            _c.c_longlong, _c.c_int, _c.c_float, _c.c_float, _c.c_int,
+            _c.c_int, _c.c_void_p],
+        "bp_par_sf_launch": [
+            _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p,
+            _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_longlong,
+            _c.c_longlong, _c.c_int, _c.c_float, _c.c_float, _c.c_int,
+            _c.c_int, _c.c_int, _c.c_void_p],
+    },
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [shutil.which("nvcc")]
+    if cuda_home:
+        candidates.append(os.path.join(cuda_home, "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, in $CUDA_HOME/bin and "
+        "/usr/local/cuda/bin); the CUDA kernels are built from source on "
+        "first use and need the CUDA toolkit")
+
+
+def _sources_hash() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _target(name: str) -> pathlib.Path:
+    return BUILD_DIR / f"{name}-{_sources_hash()}.so"
+
+
+def _compile(names: List[str]) -> None:
+    """Start one ``nvcc`` per source, all together, and wait for them."""
+    todo = [n for n in names if not _target(n).exists()]
+    if not todo:
+        return
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for n in todo:
+        out = _target(n)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs.append((n, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failed = []
+    for n, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu:\n{log.decode(errors='replace')}")
+            continue
+        os.replace(tmp, out)             # atomic against concurrent builds
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_target(name)))
+    for fn, argtypes in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def check(name: str, rc: int, what: str) -> None:
+    """Raise when a C entry point of library ``name`` returned a CUDA error."""
+    if rc != 0:
+        msg = getattr(library(name), f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def build_all() -> None:
+    """Build (where needed) and load every kernel library."""
+    with _LOCK:
+        names = [n for n in _SIGNATURES if n not in _LIBS]
+        _compile(names)
+        for n in names:
+            _LIBS[n] = _load(n)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu``."""
+    if name not in _LIBS:
+        build_all()
+    return _LIBS[name]

@@ -20,6 +20,8 @@ def _isolated_tune_cache(tmp_path, monkeypatch):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (deselect with '-m \"not slow\"')")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
     # keep smoke tests on the single real device; the dry-run sets its own
     # XLA_FLAGS before importing jax (see launch/dryrun.py)
     assert jax.device_count() >= 1
