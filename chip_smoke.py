@@ -3,31 +3,48 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version on the card at the shapes of
-both cells below and of a reduced 128^3 cell (f32 within 2e-4, bf16 within
-``BF16_KERNEL_REL_TOL``), then drives the port's main path through its
-public API at the paper's sizes:
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one nvcc per source, all started together), holds each against its plain
+PyTorch version on the card (f32 within 2e-4, bf16 within
+``BF16_KERNEL_REL_TOL``) at the shapes of every cell below and of reduced
+cells, with its time, its bound and the time of ``torch.sparse.mm`` on the
+CSR system matrix wherever its nonzeros fit int32 indices, then drives each
+path through the public API at the paper's sizes:
 
-* main cell — the limited-angle training shape of the reference package's
-  ``configs/leap_ct.py:22`` ``limited_angle_geometry(512, 720)``: a 512x512x1
-  volume, 720 views over 180 degrees, a 1x768 detector, at batch 8
-  (random ellipse phantoms, seeds 0-7, f32).  Dot tests (f32, bf16), the
-  autograd gradient against A^T(Ax - y), Shepp-Logan against its analytic
-  projection, FBP of a uniform disk, and 50 SIRT iterations.
-* 3D cell — ``configs/leap_ct.py:6`` ``table1_geometries()["parallel_512_180"]``:
-  a 512^3 volume, 180 views, a 512x768 detector.  One FP, one BP and the dot
-  test.
+* main cell (parallel) — the limited-angle training shape of the reference
+  package's ``configs/leap_ct.py:22`` ``limited_angle_geometry(512, 720)``:
+  a 512x512x1 volume, 720 views over 180 degrees, a 1x768 detector, at
+  batch 8 (random ellipse phantoms, seeds 0-7, f32).  Dot tests (f32,
+  bf16), the autograd gradient against A^T(Ax - y), Shepp-Logan against its
+  analytic projection, FBP of a uniform disk, and 50 SIRT iterations.
+* 3D cell (parallel) — ``configs/leap_ct.py:6``
+  ``table1_geometries()["parallel_512_180"]``: a 512^3 volume, 180 views, a
+  512x768 detector.  One FP, one BP and the dot test.
+* fan cell — the sparse-view fan class of the reference's
+  ``launch/ct_train.py:189-192`` at n = 512: a 512x512x1 volume, 768 views
+  over 360 degrees, a 1x1126 detector, sod 1024, sdd 1536, at batch 8, on a
+  flat and on a curved detector.  Dot tests (f32, bf16), the gradient, FBP
+  of a uniform disk, a Parker short scan against naive weighting, SIRT-50.
+* cone cell — ``configs/leap_ct.py:16-18``
+  ``table1_geometries()["cone_512_180"]``: a 512^3 volume, 180 views, a
+  512x768 detector of 2 mm pixels, sod 1024, sdd 2048.  One FP, one BP, the
+  dot test and FDK of a uniform cylinder.  Its kernels are held against the
+  plain versions on two of its views (one per view group; with the library
+  time) and on seven views at the axes and at both sides of the 45 and 135
+  degree view-group edges, where the FP's voxel window is tightest.
 
-Last, a torch.profiler breakdown of one main-cell projector pair and of the
-3D cell's FP and BP says where the device time goes.
+Each path runs with every kernel launch count set to 0 just before it and
+read just after; a kernel of the path that was not launched fails the run.
+Last, a torch.profiler breakdown of one projector pair of the main and fan
+cells and of the 3D and cone cells' FP and BP says where the device time
+goes.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it exits non-zero
 and prints no result.  Its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it lists every ported kernel with its launches on the main
-path, its error against its plain version, and its times.  Details go to
+the line before it lists every ported kernel with its launches on its path,
+its error against its plain version, and its times.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 import dataclasses
@@ -37,6 +54,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -64,7 +82,7 @@ def log(*a) -> None:
 
 
 def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of one call (CUDA events, warm)."""
+    """Median device time of one call (CUDA events; warm unless warmup=0)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -96,105 +114,236 @@ def vdot64(a, b) -> float:
     return float((a.double() * b.double()).sum())
 
 
-def system_matrix(torch, plan, transpose: bool = False):
-    """The transaxial SF system matrix (n_angles*n_cols, nx*ny) — or its
-    transpose — as CSR, from the plain version's weights.  Used only as the
-    library yardstick (torch.sparse.mm); the port never calls it."""
-    from repro_torch.kernels.fp_par import _group_weights
-    geom = plan.geom
-    nu, ny = geom.n_cols, geom.vol.ny
+def lane_entries(torch, plan):
+    """The nonzeros of a lane-packed pair's (parallel, fan) transaxial
+    system matrix (rows: view x column, columns: x x y), chunk by chunk,
+    from the plain version's weights: yields (row, column, value)."""
+    nu, ny = plan.geom.n_cols, plan.geom.vol.ny
     dt = plan.on(torch.device("cuda"))
-    idx, vals = [], []
     for grp in (0, 1):
         ng, nl, _, _ = plan.group(grp, 1)
         table, rows = dt.tables[grp], dt.rows[grp].long()
-        if table.shape[0] == 0:
-            continue
         gi = torch.arange(ng, device="cuda")[:, None]
         li = torch.arange(nl, device="cuda")[None, :]
         vox = (gi * ny + li if grp == 0 else li * ny + gi).reshape(1, -1)
         for a0 in range(0, table.shape[0], 64):
             a1 = min(table.shape[0], a0 + 64)
             base = (rows[a0:a1] * nu)[:, None]
-            for u, w in _group_weights(plan, table[a0:a1], ng, nl):
+            for u, w in plan.weights(table[a0:a1], ng, nl):
                 keep = w != 0
-                r = (base + u)[keep]
-                c = vox.expand_as(u)[keep]
-                idx.append(torch.stack([c, r]) if transpose else torch.stack([r, c]))
-                vals.append(w[keep])
-    shape = (geom.n_angles * nu, geom.vol.nx * ny)
-    if transpose:
-        shape = shape[::-1]
-    coo = torch.sparse_coo_tensor(torch.cat(idx, 1), torch.cat(vals), shape)
-    del idx, vals
-    return coo.coalesce().to_sparse_csr()
+                yield (base + u)[keep], vox.expand_as(u)[keep], w[keep]
+
+
+def cone_entries(torch, plan):
+    """The nonzeros of the exact cone pair's system matrix (rows: view x
+    detector row x column, columns: x x y x z), chunk by chunk, from the
+    plain version's weights: yields (row, column, value)."""
+    from repro_torch.kernels.fp_cone import _chunks, chunk_taps
+    geom = plan.geom
+    ny, nz = geom.vol.ny, geom.vol.nz
+    npix = geom.n_rows * geom.n_cols
+    dt = plan.on(torch.device("cuda"))
+    tile = torch.empty(0, device="cuda")
+    for grp in (0, 1):
+        ng, nl = plan.group(grp)[:2]
+        table, rows = dt.tables[grp], dt.rows[grp].long()
+        gi = torch.arange(ng, device="cuda")[:, None]
+        li = torch.arange(nl, device="cuda")[None, :]
+        vox = (gi * ny + li if grp == 0 else li * ny + gi).reshape(1, -1, 1)
+        for a0, a1, z0, z1 in _chunks(plan, 1, table.shape[0], ng * nl):
+            col = vox * nz + torch.arange(z0, z1, device="cuda").reshape(1, 1, -1)
+            base = (rows[a0:a1] * npix).reshape(-1, 1, 1)
+            for pix, wu, wz in chunk_taps(plan, table[a0:a1], ng, nl, z0,
+                                          z1 - z0, tile):
+                w = wu * wz
+                keep = w != 0
+                yield (base + pix)[keep], col.expand_as(pix)[keep], w[keep]
+
+
+def cone_nnz(torch, plan) -> int:
+    """The exact cone pair's nonzero weights, counted one view at a time
+    (cheaper than counting cone_entries: no indices are made)."""
+    from repro_torch.kernels.fp_cone import chunk_taps
+    dt = plan.on(torch.device("cuda"))
+    tile = torch.empty(0, device="cuda")
+    nnz = 0
+    for grp in (0, 1):
+        ng, nl = plan.group(grp)[:2]
+        table = dt.tables[grp]
+        for a in range(table.shape[0]):
+            for _, wu, wz in chunk_taps(plan, table[a:a + 1], ng, nl, 0,
+                                        plan.geom.vol.nz, tile):
+                nnz += int(torch.count_nonzero(wu * wz))
+    return nnz
+
+
+# Nonzeros of the library matrix built per pass (see csr_matrix): a pass
+# holds ~60 bytes of device memory per nonzero at its peak (indices, sort
+# keys, permutation, values), the finished matrix 8.
+PASS_NNZ = 3e8
+# CSR with int32 indices holds fewer nonzeros than this.
+LIB_NNZ_MAX = 2 ** 31 - 1
+
+
+def csr_matrix(torch, entries, shape, nnz: int, transpose: bool = False):
+    """The matrix of ``shape`` whose nonzeros ``entries()`` yields as (row,
+    column, value) chunks — or its transpose — as CSR with int32 indices,
+    columns sorted within each row.  Used only as the library yardstick
+    (torch.sparse.mm); the port never calls it.  Built in blocks of rows of
+    about PASS_NNZ nonzeros: each pass runs ``entries()`` again and keeps
+    its block's, so that device memory holds one block's sort at a time."""
+    n_rows, n_cols = shape[::-1] if transpose else shape
+    check(nnz <= LIB_NNZ_MAX and n_cols <= LIB_NNZ_MAX,
+          f"{nnz} nonzeros do not fit int32 CSR indices")
+    passes = max(1, -(-nnz // int(PASS_NNZ)))
+    bounds = [n_rows * i // passes for i in range(passes + 1)]
+    counts, cols, vals = [], [], []
+    for r0, r1 in zip(bounds, bounds[1:]):
+        keys, vs = [], []
+        for r, c, v in entries():
+            if transpose:
+                r, c = c, r
+            m = (r >= r0) & (r < r1)
+            keys.append((r[m] - r0) * n_cols + c[m])
+            vs.append(v[m])
+        keys, order = torch.sort(torch.cat(keys))
+        vals.append(torch.cat(vs)[order])
+        del vs, order
+        counts.append(torch.bincount(keys // n_cols, minlength=r1 - r0))
+        cols.append((keys % n_cols).to(torch.int32))
+        del keys
+    crow = torch.cumsum(torch.cat([counts[0].new_zeros(1)] + counts), 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)      # CSR is "beta"
+        return torch.sparse_csr_tensor(
+            crow.to(torch.int32), torch.cat(cols), torch.cat(vals),
+            (n_rows, n_cols), check_invariants=False)
+
+
+def families():
+    """Per kernel family: its plan, its two kernel wrappers and their plain
+    versions, its kernel names and source, and the TPU kernels it replaces."""
+    from repro_torch.kernels import fp_cone, fp_fan, fp_par
+    return {
+        "par": dict(plan=fp_par.ParallelPlan, fp=fp_par.fp_lanes,
+                    bp=fp_par.bp_lanes, fp_plain=fp_par.fp_lanes_plain,
+                    bp_plain=fp_par.bp_lanes_plain, names=("fp_par_sf", "bp_par_sf"),
+                    source="src/repro_torch/kernels/csrc/fp_par.cu",
+                    replaces=("src/repro/kernels/fp_par.py:122",
+                              "src/repro/kernels/fp_par.py:264")),
+        "fan": dict(plan=fp_fan.FanPlan, fp=fp_fan.fp_lanes,
+                    bp=fp_fan.bp_lanes, fp_plain=fp_fan.fp_lanes_plain,
+                    bp_plain=fp_fan.bp_lanes_plain, names=("fp_fan_sf", "bp_fan_sf"),
+                    source="src/repro_torch/kernels/csrc/fp_fan.cu",
+                    replaces=("src/repro/kernels/fp_fan.py:94",
+                              "src/repro/kernels/fp_fan.py:247")),
+        "cone": dict(plan=fp_cone.ConePlan, fp=fp_cone.fp_batch,
+                     bp=fp_cone.bp_batch, fp_plain=fp_cone.fp_batch_plain,
+                     bp_plain=fp_cone.bp_batch_plain,
+                     names=("fp_cone_sf", "bp_cone_sf"),
+                     source="src/repro_torch/kernels/csrc/fp_cone.cu",
+                     replaces=("src/repro/kernels/fp_cone.py:183",
+                               "src/repro/kernels/fp_cone.py:346")),
+    }
 
 
 def kernel_phase(torch, cells, results):
-    """Each kernel against its plain version on the card, with times."""
-    from repro_torch.kernels import fp_par, precision, tune
-    from repro_torch.kernels.fp_par import ParallelPlan
-    for cell, (geom, batch, make_g) in cells.items():
-        plan = ParallelPlan(geom)
-        cfg = tune.heuristic_config(geom, batch)
-        lanes = batch * geom.n_rows
-        vol_f32 = make_g()                                  # (nx, ny, lanes)
-        A = system_matrix(torch, plan)
-        nnz = A.values().numel()
+    """Each kernel against its plain version on the card, with times.
+    ``cells``: name -> (family, geometry, batch, make_x, plain_reps, note);
+    make_x gives the FP's f32 input at the kernel's interface; plain_reps 0
+    times the plain version's comparison call alone (where it is slow)."""
+    from repro_torch.kernels import precision, tune
+    fams = families()
+    for cell, (fam, geom, batch, make_x, plain_reps, note) in cells.items():
+        F = fams[fam]
+        plan = F["plan"](geom)
+        lane = fam != "cone"
+        # the cone launch derives its block from the shapes
+        cfg = tune.heuristic_config(geom, batch) if lane else None
+        args = (plan, cfg) if lane else (plan,)
+        mult = batch * geom.n_rows if lane else batch   # outputs per weight
+
+        def entries(plan=plan, lane=lane):
+            return lane_entries(torch, plan) if lane else cone_entries(torch, plan)
+
+        if lane:
+            shape = (geom.n_angles * geom.n_cols, geom.vol.nx * geom.vol.ny)
+            nnz = sum(int(v.numel()) for *_, v in entries())
+        else:
+            shape = (geom.n_angles * geom.n_rows * geom.n_cols,
+                     geom.vol.nx * geom.vol.ny * geom.vol.nz)
+            nnz = cone_nnz(torch, plan)
+        library = nnz <= LIB_NNZ_MAX
+        x_f32 = make_x()
+        log(f"cell {cell}: nnz {nnz}" + (f" ({note})" if note else ""))
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).removeprefix("torch.")
             tol = F32_TOL if dtype == torch.float32 else precision.BF16_KERNEL_REL_TOL
-            g = vol_f32.to(dtype)
-            sino_f32 = fp_par.fp_lanes(vol_f32, plan, cfg)
-            q = sino_f32.to(dtype)
-            esize = g.element_size()
-            for kname, run, plain, x, out_bytes in (
-                    ("fp_par_sf", fp_par.fp_lanes, fp_par.fp_lanes_plain, g,
-                     geom.n_angles * geom.n_cols * lanes * 4),
-                    ("bp_par_sf", fp_par.bp_lanes, fp_par.bp_lanes_plain, q,
-                     geom.vol.nx * geom.vol.ny * lanes * 4)):
-                k_out = run(x, plan, cfg)
+            x = x_f32.to(dtype)
+            q = F["fp"](x_f32, *args).to(dtype)
+            in_tables = sum(t.nbytes for t in plan.tables)
+            for kname, run, plain, inp in (
+                    (F["names"][0], F["fp"], F["fp_plain"], x),
+                    (F["names"][1], F["bp"], F["bp_plain"], q)):
+                k_out = run(inp, *args)
                 torch.cuda.synchronize()
-                p_out = plain(x, plan)
+                if plain_reps:
+                    p_out = plain(inp, plan)
+                    plain_ms = cuda_ms(torch, lambda: plain(inp, plan),
+                                       reps=plain_reps, warmup=1)
+                else:                      # time the comparison call itself
+                    torch.cuda.synchronize()
+                    s_ev = torch.cuda.Event(enable_timing=True)
+                    e_ev = torch.cuda.Event(enable_timing=True)
+                    s_ev.record()
+                    p_out = plain(inp, plan)
+                    e_ev.record()
+                    e_ev.synchronize()
+                    plain_ms = s_ev.elapsed_time(e_ev)
                 err = rel_err(k_out, p_out)
                 abs_err = float((k_out - p_out).abs().max())
                 check(bool(torch.isfinite(k_out).all()), f"{kname} {cell} {name}: non-finite")
                 check(err <= tol, f"{kname} {cell} {name}: |kernel-plain|/|plain| "
                                   f"= {err:.3g} > {tol:.3g}")
-                ms = cuda_ms(torch, lambda: run(x, plan, cfg), reps=20)
-                plain_ms = cuda_ms(torch, lambda: plain(x, plan), reps=3, warmup=1)
+                del p_out
+                ms = cuda_ms(torch, lambda: run(inp, *args), reps=20)
                 lib_ms = None
-                if dtype == torch.float32:
-                    mat = (A if kname == "fp_par_sf"
-                           else system_matrix(torch, plan, transpose=True))
-                    dense = x.reshape(-1, lanes)
+                if dtype == torch.float32 and library:
+                    fwd = kname == F["names"][0]
+                    mat = csr_matrix(torch, entries, shape, nnz, transpose=not fwd)
+                    dense = (inp.reshape(-1, mult) if lane
+                             else inp.reshape(batch, -1).T.contiguous())
                     lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(mat, dense))
-                    lib = torch.sparse.mm(mat, dense).reshape(k_out.shape)
-                    del mat
+                    lib = torch.sparse.mm(mat, dense)
+                    lib = lib.reshape(k_out.shape) if lane else lib.T.reshape(k_out.shape)
+                    del mat, dense
                     lib_err = rel_err(k_out, lib)
                     check(lib_err <= tol, f"{kname} {cell}: kernel vs sparse "
                                           f"matrix {lib_err:.3g}")
-                del k_out, p_out
-                in_bytes = x.numel() * esize + plan.tables[0].nbytes + plan.tables[1].nbytes
-                nbytes = in_bytes + out_bytes
-                ops = 2.0 * nnz * lanes
+                    del lib
+                    torch.cuda.empty_cache()
+                nbytes = (inp.numel() * inp.element_size() + in_tables
+                          + k_out.numel() * 4)
+                del k_out
+                ops = 2.0 * nnz * mult
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = ops / PEAK_OPS[name] * 1e3
                 row = {"kernel": kname, "cell": cell, "dtype": name,
-                       "shape": {"nx": geom.vol.nx, "ny": geom.vol.ny,
-                                 "n_angles": geom.n_angles,
-                                 "n_cols": geom.n_cols, "lanes": lanes},
-                       "config": dataclasses.asdict(cfg),
+                       "shape": {"vol": list(geom.vol.shape), "sino": list(geom.sino_shape),
+                                 "batch": batch, "detector": geom.detector_type},
+                       "config": dataclasses.asdict(cfg) if lane else None,
                        "rel_err": err, "max_abs_err": abs_err, "tol": tol,
                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                       "bytes": nbytes, "ops": ops, "nnz": nnz}
+                       "bytes": nbytes, "ops": ops, "nnz": nnz,
+                       "library_note": None if library else
+                       f"not built: {nnz} nonzeros > {LIB_NNZ_MAX} (int32 CSR)"}
                 results["kernels"].append(row)
-                log(f"kernel {kname:9s} {cell:5s} {name:8s} rel_err {err:.3g} "
+                log(f"kernel {kname:10s} {cell:10s} {name:8s} rel_err {err:.3g} "
                     f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms} "
                     f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
-        del A, vol_f32, g, q, sino_f32
+        del x_f32, x, q
         torch.cuda.empty_cache()
 
 
@@ -304,12 +453,160 @@ def cell_3d(torch, results):
         f"(first calls {t_fp:.3f} s / {t_bp:.3f} s)")
 
 
-def breakdown(torch, name: str, fn, results, reps: int = 3) -> None:
+def fan_geometry(det: str, n_angles: int = 768, angular_range: float = 360.0):
+    """The sparse-view fan class of the reference's launch/ct_train.py:189-192
+    at n = 512: fan_beam(1.5n, 1, 2.2n, n x n x 1, sod=2n, sdd=3n)."""
+    from repro_torch import VolumeGeometry, fan_beam
+    return fan_beam(n_angles, 1, 1126, VolumeGeometry(512, 512, 1), sod=1024.0,
+                    sdd=1536.0, angular_range=angular_range, detector_type=det)
+
+
+def cone_geometry():
+    """configs/leap_ct.py:16-18 table1_geometries()["cone_512_180"]."""
+    from repro_torch import VolumeGeometry, cone_beam
+    return cone_beam(180, 512, 768, VolumeGeometry(512, 512, 512), sod=1024.0,
+                     sdd=2048.0, pixel_width=2.0, pixel_height=2.0,
+                     angular_range=360.0)
+
+
+def disk_volume(torch, vol, radius: float = 80.0, value: float = 0.02):
+    X, Y = np.meshgrid(vol.x_coords(), vol.y_coords(), indexing="ij")
+    d = (value * ((X ** 2 + Y ** 2) <= radius ** 2)).astype(np.float32)
+    return torch.from_numpy(d).cuda()[:, :, None].expand(vol.shape).contiguous()
+
+
+def fan_path(torch, results, det: str):
+    """The fan path through the public API, on one detector type."""
+    from repro_torch import Projector, ProjectorSpec
+    from repro_torch.core.fbp import _fan_gamma
+    from repro_torch.data.metrics import psnr
+    from repro_torch.data.phantoms import random_ellipse_phantom, shepp_logan_2d
+    from repro_torch.kernels import precision
+    from repro_torch.recon import sirt
+
+    geom = fan_geometry(det)
+    vol = geom.vol
+    dev = torch.device("cuda")
+    out = {}
+    x = torch.from_numpy(np.stack([random_ellipse_phantom(s, vol)[0]
+                                   for s in range(8)])[..., None]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    y = torch.randn((8,) + geom.sino_shape, generator=gen, device=dev)
+    t_start = time.perf_counter()
+    proj = Projector(ProjectorSpec(geom))
+    for cdt, tol in ((None, 1e-4), ("bfloat16", precision.BF16_DOT_TOL)):
+        p = proj if cdt is None else Projector(ProjectorSpec(geom, compute_dtype=cdt))
+        lhs, rhs = vdot64(p(x), y), vdot64(x, p.T(y))
+        rel = abs(lhs - rhs) / abs(lhs)
+        out[f"dot_{cdt or 'float32'}"] = rel
+        log(f"fan {det} dot test {cdt or 'float32'}: {rel:.3g} (tol {tol:.3g})")
+        check(rel < tol, f"fan {det} dot test {cdt}: {rel:.3g} >= {tol:.3g}")
+
+    sino, t_fp = host_s(torch, lambda: proj(x))
+    _, t_bp = host_s(torch, lambda: proj.T(sino))
+    out["fp_s"], out["bp_s"] = t_fp, t_bp
+    check(tuple(sino.shape) == (8,) + geom.sino_shape and bool(torch.isfinite(sino).all()),
+          f"fan {det} sinogram shape/finite")
+    xg = (0.5 * x).requires_grad_()
+    loss = 0.5 * torch.sum((proj(xg) - sino) ** 2)
+    (grad,) = torch.autograd.grad(loss, xg)
+    expected = proj.T(proj(xg.detach()) - sino)
+    gerr = float((grad - expected).abs().max() / expected.abs().max())
+    out["grad_rel_err"] = gerr
+    check(torch.allclose(grad, expected, rtol=1e-4,
+                         atol=1e-5 * float(expected.abs().max())),
+          f"fan {det}: autograd gradient != A^T(Ax - y) (rel {gerr:.3g})")
+    log(f"fan {det} gradient == A^T(Ax-y): rel {gerr:.3g}")
+
+    rec = proj.fbp(proj(disk_volume(torch, vol)))
+    centre = float(rec[224:288, 224:288, 0].mean())
+    out["fbp_disk_centre_rel"] = centre / 0.02 - 1.0
+    log(f"fan {det} FBP disk centre {centre:.6f} (1/mm), rel "
+        f"{out['fbp_disk_centre_rel']:.4f}")
+    check(abs(out["fbp_disk_centre_rel"]) < 0.02, f"fan {det} FBP disk centre off by >= 2 %")
+
+    # Parker short scan: pi + 2 x the half fan angle, the full scan's step
+    delta = float(np.abs(_fan_gamma(geom)).max())
+    short = fan_geometry(det, 470, float(np.degrees(np.pi + 2.0 * delta)))
+    ps = Projector(ProjectorSpec(short))
+    f_sl = torch.from_numpy(shepp_logan_2d(vol)[:, :, None]).to(dev) * 0.02
+    s_sl = ps(f_sl)
+    out["short_scan_deg"] = float(np.degrees(np.pi + 2.0 * delta))
+    out["parker_psnr"] = psnr(ps.fbp(s_sl), f_sl)
+    out["naive_psnr"] = psnr(ps.fbp(s_sl, short_scan=False), f_sl)
+    log(f"fan {det} short scan {out['short_scan_deg']:.2f} deg / 470 views: Parker "
+        f"{out['parker_psnr']:.2f} dB, naive {out['naive_psnr']:.2f} dB")
+    check(out["parker_psnr"] > out["naive_psnr"] + 4.0,
+          f"fan {det}: Parker does not beat naive weighting by 4 dB")
+
+    if det == "flat":
+        res, t_sirt = host_s(torch, lambda: sirt(proj, sino, n_iters=50))
+        hist = res.residual_history
+        check(tuple(hist.shape) == (8, 50), f"residual history shape {tuple(hist.shape)}")
+        check(bool((hist[:, -1] < 0.5 * hist[:, 0]).all()), "fan SIRT residual did not halve")
+        out["sirt50_s"] = t_sirt
+        out["sirt_psnr"] = float(np.mean([psnr(res.image[i], x[i]) for i in range(8)]))
+        out["sirt_residual_ratio"] = float((hist[:, -1] / hist[:, 0]).max())
+        log(f"fan {det} SIRT-50 PSNR {out['sirt_psnr']:.2f} dB ({t_sirt:.3f} s), "
+            f"residual ratio {out['sirt_residual_ratio']:.3g}")
+    out["path_s"] = time.perf_counter() - t_start
+    results[f"fan_{det}"] = out
+
+
+def cone_path(torch, results):
+    """The cone path through the public API at the 512^3 Table-1 cell."""
+    from repro_torch import Projector, ProjectorSpec
+    from repro_torch.kernels.fp_cone import ConePlan
+    geom = cone_geometry()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.rand(geom.vol.shape, generator=gen, device="cuda")
+    y = torch.randn(geom.sino_shape, generator=gen, device="cuda")
+    proj = Projector(ProjectorSpec(geom))
+    ax, t_fp = host_s(torch, lambda: proj(x))
+    aty, t_bp = host_s(torch, lambda: proj.T(y))
+    check(tuple(ax.shape) == geom.sino_shape and tuple(aty.shape) == geom.vol.shape,
+          "cone shapes")
+    check(bool(torch.isfinite(ax).all() and torch.isfinite(aty).all()), "cone non-finite")
+    lhs, rhs = vdot64(ax, y), vdot64(x, aty)
+    rel = abs(lhs - rhs) / abs(lhs)
+    log(f"cone dot test {rel:.3g} (first calls FP {t_fp:.3f} s, BP {t_bp:.3f} s)")
+    check(rel < 1e-4, f"cone dot test {rel:.3g}")
+    del ax, aty
+    fp_ms = cuda_ms(torch, lambda: proj(x), reps=3, warmup=1)
+    bp_ms = cuda_ms(torch, lambda: proj.T(y), reps=3, warmup=1)
+    del x, y
+    cyl = disk_volume(torch, geom.vol)
+    sino = proj(cyl)
+    del cyl
+    rec, t_fdk = host_s(torch, lambda: proj.fbp(sino))
+    centre = float(rec[224:288, 224:288, 256].mean())
+    del rec, sino
+    torch.cuda.empty_cache()
+    # the cell's bound, as the kernel phase computes it for its cells
+    plan = ConePlan(geom)
+    nnz = cone_nnz(torch, plan)
+    nbytes = 4 * (geom.vol.nx * geom.vol.ny * geom.vol.nz + int(np.prod(geom.sino_shape)))
+    nbytes += sum(t.nbytes for t in plan.tables)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * nnz / PEAK_OPS["float32"] * 1e3
+    results["cone"] = {"dot": rel, "fp_first_s": t_fp, "bp_first_s": t_bp,
+                       "fp_ms": fp_ms, "bp_ms": bp_ms, "fdk_s": t_fdk,
+                       "fdk_centre_rel": centre / 0.02 - 1.0, "nnz": nnz,
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    log(f"cone 512^3/180 views: FP {fp_ms:.1f} ms, BP {bp_ms:.1f} ms, nnz {nnz}, "
+        f"bound {max(t_bytes, t_ops):.4f} ms; FDK {t_fdk:.2f} s, cylinder centre "
+        f"{centre:.6f} (rel {centre / 0.02 - 1.0:.4f})")
+    check(abs(centre / 0.02 - 1.0) < 0.05, "FDK cylinder centre off by >= 5 %")
+
+
+def breakdown(torch, name: str, fn, results, reps: int = 3,
+              ms_reps: int = 5) -> None:
     """Where the time of ``fn`` goes: its median device time (CUDA events),
     then a torch.profiler window over ``reps`` calls — device time by
     kernel and the device's busy share of the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    ms = cuda_ms(torch, fn, reps=5, warmup=1)
+    ms = cuda_ms(torch, fn, reps=ms_reps, warmup=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -340,26 +637,51 @@ def breakdown(torch, name: str, fn, results, reps: int = 3) -> None:
 
 
 def profile_cells(torch, results) -> None:
-    """Device-time breakdown of the main cell's projector pair (one training
-    step's A then A^T on the batch of 8) and of the 3D cell's FP and BP."""
+    """Device-time breakdown of the main and fan cells' projector pair (one
+    training step's A then A^T on the batch of 8) and of the 3D and cone
+    cells' FP and BP."""
     from repro_torch import Projector, ProjectorSpec, VolumeGeometry, parallel_beam
     from repro_torch.data.phantoms import random_ellipse_phantom
     vol = VolumeGeometry(512, 512, 1)
-    geom = parallel_beam(720, 1, 768, vol, angular_range=180.0)
-    proj = Projector(ProjectorSpec(geom))
     x = torch.from_numpy(np.stack([random_ellipse_phantom(s, vol)[0]
                                    for s in range(8)])[..., None]).cuda()
-    y = proj(x)
-    breakdown(torch, "main_pair", lambda: proj.T(proj(x) - y), results)
-    del x, y
-    vol3 = VolumeGeometry(512, 512, 512)
-    geom3 = parallel_beam(180, 512, 768, vol3, angular_range=180.0)
-    proj3 = Projector(ProjectorSpec(geom3))
-    x3 = torch.rand(vol3.shape, device="cuda")
-    breakdown(torch, "3d_fp", lambda: proj3(x3), results, reps=2)
-    y3 = proj3(x3)
-    del x3
-    breakdown(torch, "3d_bp", lambda: proj3.T(y3), results, reps=2)
+    for name, geom in (("main_pair", parallel_beam(720, 1, 768, vol,
+                                                   angular_range=180.0)),
+                       ("fan_pair", fan_geometry("flat"))):
+        proj = Projector(ProjectorSpec(geom))
+        y = proj(x)
+        breakdown(torch, name, lambda: proj.T(proj(x) - y), results)
+        del y
+    del x
+    for name, geom, reps in (
+            ("3d", parallel_beam(180, 512, 768, VolumeGeometry(512, 512, 512),
+                                 angular_range=180.0), 2),
+            ("cone", cone_geometry(), 1)):
+        proj3 = Projector(ProjectorSpec(geom))
+        x3 = torch.rand(geom.vol.shape, device="cuda")
+        breakdown(torch, f"{name}_fp", lambda: proj3(x3), results, reps=reps,
+                  ms_reps=reps + 1)
+        y3 = proj3(x3)
+        del x3
+        breakdown(torch, f"{name}_bp", lambda: proj3.T(y3), results, reps=reps,
+                  ms_reps=reps + 1)
+        del y3
+        torch.cuda.empty_cache()
+
+
+def run_path(torch, results, name: str, kernels, fn) -> dict:
+    """Run one path with every launch count set to 0 just before it and read
+    just after; fail if a kernel of the path was not launched.  Returns the
+    counts of the path's own kernels."""
+    from repro_torch import kernels as K
+    K.reset_launches()
+    fn()
+    launches = K.launches()
+    results.setdefault("path_launches", {})[name] = launches
+    log(f"{name} path launches {launches}")
+    for k in kernels:
+        check(launches[k] > 0, f"kernel {k} was not launched on the {name} path")
+    return {k: launches[k] for k in kernels}
 
 
 def main() -> int:
@@ -383,10 +705,11 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     results = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                "kernels": []}
+    t_start = time.perf_counter()
 
-    from repro_torch import VolumeGeometry, parallel_beam
+    from repro_torch import VolumeGeometry, cone_beam, parallel_beam
     from repro_torch.data.phantoms import random_ellipse_phantom
-    from repro_torch.kernels import build, fp_par
+    from repro_torch.kernels import build
 
     t = time.perf_counter()
     build.build_all()
@@ -394,49 +717,72 @@ def main() -> int:
     log(f"build {results['build_s']:.1f} s")
 
     main_vol = VolumeGeometry(512, 512, 1)
-    main_geom = parallel_beam(720, 1, 768, main_vol, angular_range=180.0)
-    red_geom = parallel_beam(45, 128, 192, VolumeGeometry(128, 128, 128),
-                             angular_range=180.0)
-    geom_3d = parallel_beam(180, 512, 768, VolumeGeometry(512, 512, 512),
-                            angular_range=180.0)
     gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def phantom_lanes():                    # (512, 512, 8): seeds 0-7 as lanes
+        return torch.from_numpy(np.stack(
+            [random_ellipse_phantom(s, main_vol)[0] for s in range(8)], -1)).cuda()
+
+    def rand(*shape):
+        return lambda: torch.rand(shape, generator=gen, device="cuda")
+
+    cone = cone_geometry()
+    # one view of each view group: 14 degrees (y-gathered), 62 (x-gathered)
+    cone_two = cone.subset([7, 31])
+    # the axes and both sides of the 45 and 135 degree group boundaries
+    cone_edges = cone.subset([0, 22, 23, 45, 67, 68, 90])
+    cone128 = cone_beam(45, 128, 192, VolumeGeometry(128, 128, 128), sod=256.0,
+                        sdd=512.0, pixel_width=2.0, pixel_height=2.0,
+                        angular_range=360.0)
     cells = {
-        "main": (main_geom, 8, lambda: torch.from_numpy(np.stack(
-            [random_ellipse_phantom(s, main_vol)[0] for s in range(8)], -1)).cuda()),
-        "3d128": (red_geom, 1, lambda: torch.rand((128, 128, 128), generator=gen,
-                                                  device="cuda")),
-        "3d": (geom_3d, 1, lambda: torch.rand((512, 512, 512), generator=gen,
-                                              device="cuda")),
+        "main": ("par", parallel_beam(720, 1, 768, main_vol, angular_range=180.0),
+                 8, phantom_lanes, 3, ""),
+        "3d128": ("par", parallel_beam(45, 128, 192, VolumeGeometry(128, 128, 128),
+                                       angular_range=180.0), 1, rand(128, 128, 128), 3, ""),
+        "3d": ("par", parallel_beam(180, 512, 768, VolumeGeometry(512, 512, 512),
+                                    angular_range=180.0), 1, rand(512, 512, 512), 3, ""),
+        "fan": ("fan", fan_geometry("flat"), 8, phantom_lanes, 3, ""),
+        "fan_curved": ("fan", fan_geometry("curved"), 8, phantom_lanes,
+                       3, ""),
+        "cone": ("cone", cone_two, 1, rand(1, 512, 512, 512), 0,
+                 "2 of the 180 views: the plain version cannot run all 180 at "
+                 "512^3 in this run's time"),
+        "cone_edges": ("cone", cone_edges, 1, rand(1, 512, 512, 512), 0,
+                       "views at 0, 44, 46, 90, 134, 136, 180 degrees: the FP's "
+                       "voxel window at the group edges; no library matrix"),
+        "cone128": ("cone", cone128, 1, rand(1, 128, 128, 128), 2, ""),
     }
     kernel_phase(torch, cells, results)
 
-    fp_par.reset_launches()
-    main_cell(torch, results)
-    launches = dict(fp_par.LAUNCHES)
-    results["main_launches"] = launches
-    log(f"main-path launches {launches}")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
-
-    fp_par.reset_launches()
-    cell_3d(torch, results)
-    results["cell_3d"]["launches"] = dict(fp_par.LAUNCHES)
+    launches = run_path(torch, results, "main", ("fp_par_sf", "bp_par_sf"),
+                        lambda: main_cell(torch, results))
+    run_path(torch, results, "3d", ("fp_par_sf", "bp_par_sf"),
+             lambda: cell_3d(torch, results))
+    launches.update(run_path(
+        torch, results, "fan", ("fp_fan_sf", "bp_fan_sf"),
+        lambda: [fan_path(torch, results, d) for d in ("flat", "curved")]))
+    launches.update(run_path(torch, results, "cone", ("fp_cone_sf", "bp_cone_sf"),
+                             lambda: cone_path(torch, results)))
     profile_cells(torch, results)
     torch.cuda.synchronize()
 
-    replaces = {"fp_par_sf": "src/repro/kernels/fp_par.py:122",
-                "bp_par_sf": "src/repro/kernels/fp_par.py:264"}
+    fams = families()
+    own_cell = {"par": "main", "fan": "fan", "cone": "cone"}
     line = []
-    for row in results["kernels"]:
-        if row["cell"] != "main" or row["dtype"] != "float32":
-            continue
-        line.append({"name": row["kernel"], "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/fp_par.cu",
-                     "replaces": replaces[row["kernel"]],
-                     "launches": launches[row["kernel"]],
-                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                     "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    for fam in ("par", "fan", "cone"):
+        F = fams[fam]
+        for row in results["kernels"]:
+            if row["cell"] != own_cell[fam] or row["dtype"] != "float32":
+                continue
+            i = F["names"].index(row["kernel"])
+            line.append({"name": row["kernel"], "route": "cuda", "source": F["source"],
+                         "replaces": F["replaces"][i],
+                         "launches": launches[row["kernel"]],
+                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    results["wall_s"] = time.perf_counter() - t_start
+    log(f"wall {results['wall_s']:.1f} s")
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     (outdir / "chip_smoke.json").write_text(json.dumps(results, indent=1))

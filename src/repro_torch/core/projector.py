@@ -80,8 +80,12 @@ class Projector:
         return self.backproject
 
     # -- analytic reconstruction ------------------------------------------ #
-    def fbp(self, sino: torch.Tensor, filter_name: str = "ramp") -> torch.Tensor:
-        return _fbp(self._on_device(sino), self.geom, filter_name=filter_name)
+    def fbp(self, sino: torch.Tensor, filter_name: str = "ramp",
+            short_scan: Optional[bool] = None) -> torch.Tensor:
+        """``short_scan`` applies Parker weighting for fan beams (``None``
+        auto-detects from the geometry's angular span)."""
+        return _fbp(self._on_device(sino), self.geom, filter_name=filter_name,
+                    short_scan=short_scan)
 
     # -- DL integration ---------------------------------------------------- #
     def data_consistency(self, volume, measured, mask=None) -> torch.Tensor:

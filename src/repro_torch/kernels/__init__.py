@@ -2,9 +2,30 @@
 
 Importing this package registers every ported kernel pair with the dispatch
 table in ``repro_torch.kernels.ops``.  It neither builds nor loads the
-compiled library: ``kernels/build.py`` does that on the first launch.
+compiled libraries: ``kernels/build.py`` does that on the first launch.
+
+:func:`launches` merges the launch counts of every kernel module;
+:func:`reset_launches` sets them all to 0.
 """
-from repro_torch.kernels import fp_par, ops, ref, tune  # noqa: F401
+from typing import Dict
+
+from repro_torch.kernels import fp_cone, fp_fan, fp_par, ops, ref, tune  # noqa: F401
 from repro_torch.kernels.tune import KernelConfig  # noqa: F401
 
-fp_par.register()
+_MODULES = (fp_par, fp_fan, fp_cone)
+
+for _m in _MODULES:
+    _m.register()
+
+
+def launches() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launches`, by kernel."""
+    out: Dict[str, int] = {}
+    for m in _MODULES:
+        out.update(m.LAUNCHES)
+    return out
+
+
+def reset_launches() -> None:
+    for m in _MODULES:
+        m.reset_launches()

@@ -48,6 +48,33 @@ _SIGNATURES = {
             _c.c_longlong, _c.c_int, _c.c_float, _c.c_float, _c.c_int,
             _c.c_int, _c.c_int, _c.c_void_p],
     },
+    "fp_fan": {
+        "fp_fan_sf_launch": [
+            _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p,
+            _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_longlong,
+            _c.c_longlong, _c.c_int, _c.c_float, _c.c_float, _c.c_float,
+            _c.c_float, _c.c_float, _c.c_int, _c.c_int, _c.c_int,
+            _c.c_void_p],
+        "bp_fan_sf_launch": [
+            _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p,
+            _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_longlong,
+            _c.c_longlong, _c.c_int, _c.c_float, _c.c_float, _c.c_float,
+            _c.c_float, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p],
+    },
+    "fp_cone": {
+        "fp_cone_sf_launch": [
+            _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
+            _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
+            _c.c_longlong, _c.c_longlong, _c.c_int, _c.c_int, _c.c_float,
+            _c.c_float, _c.c_float, _c.c_float, _c.c_float, _c.c_float,
+            _c.c_float, _c.c_float, _c.c_float, _c.c_void_p],
+        "bp_cone_sf_launch": [
+            _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
+            _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
+            _c.c_longlong, _c.c_longlong, _c.c_int, _c.c_int, _c.c_float,
+            _c.c_float, _c.c_float, _c.c_float, _c.c_float, _c.c_float,
+            _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
+    },
 }
 
 

@@ -37,24 +37,9 @@
 #include <stdint.h>
 
 #include "footprint.cuh"
+#include "tile.cuh"
 
 #define LPT 8  // lanes per thread; kernels/tune.py LANES_PER_THREAD
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_like(float w);
-template <>
-__device__ __forceinline__ float round_like<float>(float w) {
-  return w;
-}
-template <>
-__device__ __forceinline__ float round_like<__nv_bfloat16>(float w) {
-  return __bfloat162float(__float2bfloat16(w));
-}
 
 // FP: one thread per (view a, detector column u, LPT lanes).  For each loop
 // index li it sums weight x volume over the gathered voxels whose

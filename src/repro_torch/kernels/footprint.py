@@ -58,3 +58,41 @@ def rect_overlap(lo, hi, edge_lo, edge_hi):
     ov = torch.clamp(torch.minimum(hi, edge_hi) - torch.maximum(lo, edge_lo),
                      min=0.0)
     return ov / torch.clamp(edge_hi - edge_lo, min=_EPS)
+
+
+def fan_transaxial_footprint(x, y, cos_a, sin_a, sod, sdd, dx,
+                             curved: bool = False):
+    """Exact corner-projection trapezoid for a divergent (fan / cone
+    transaxial) beam, in world coordinates.
+
+    x, y: voxel center world coordinates (broadcastable tensors).
+    ``curved=False`` projects corners onto a flat detector
+    (``u = sdd * q / ell``, equispaced columns); ``curved=True`` onto an
+    equiangular arc (``u = sdd * atan2(q, ell)``, u = arc length).
+    Returns (t0, t1, t2, t3, h, ell) where ell is the distance from the
+    source plane to the voxel along the central-ray direction.  The kernels
+    and the plain versions evaluate the same trapezoid from per-view affine
+    tables (``fp_cone._corner_trapezoid``); this world-space form is the
+    tests' independent witness of those tables (fan and flat cone alike)."""
+    hx = 0.5 * dx
+    taus = []
+    for sx in (-hx, hx):
+        for sy in (-hx, hx):
+            xx = x + sx
+            yy = y + sy
+            ell = sod - (xx * cos_a + yy * sin_a)
+            q = yy * cos_a - xx * sin_a
+            if curved:
+                taus.append(sdd * torch.atan2(q, torch.clamp(ell, min=_EPS)))
+            else:
+                taus.append(sdd * q / torch.clamp(ell, min=_EPS))
+    taus = torch.sort(torch.stack(taus, dim=-1), dim=-1).values
+    t0, t1, t2, t3 = taus[..., 0], taus[..., 1], taus[..., 2], taus[..., 3]
+    # Amplitude: path length of the central ray through the voxel footprint.
+    ell_c = sod - (x * cos_a + y * sin_a)
+    # transaxial direction of the ray through the voxel center
+    rx = x - sod * cos_a
+    ry = y - sod * sin_a
+    rt = torch.sqrt(rx * rx + ry * ry)
+    h = dx / torch.maximum(torch.abs(rx), torch.abs(ry)) * rt
+    return t0, t1, t2, t3, h, ell_c

@@ -1,0 +1,486 @@
+"""Exact cone-beam (flat detector) Separable-Footprint forward/back
+projection pair, and the divergent-beam weight math it shares with the fan
+pair (``fp_fan.py``).
+
+CUDA tensors run the hand-written kernels of ``csrc/fp_cone.cu`` (which
+replace the TPU kernels ``repro/kernels/fp_cone.py`` ``_fp_cone_kernel`` and
+``_bp_cone_kernel``); CPU tensors run their plain PyTorch versions
+(:func:`fp_batch_plain`, :func:`bp_batch_plain`), which evaluate the same
+weights from the same per-view tables.  The plain BP is the VJP of the
+plain FP, taken chunk by chunk, so the port has one plain implementation of
+the pair.
+
+**Weights.**  The transaxial footprint of a voxel is the trapezoid spanned
+by the projections of its four corners (:func:`_corner_trapezoid`, the
+float expressions of ``csrc/footprint.cuh`` ``sf_corner_trapezoid``); the
+axial footprint is the rectangle ``[(z - dz/2), (z + dz/2)] * sdd / ell``
+with ``ell`` the voxel centre's distance from the source along the central
+ray, times the obliquity ``sqrt(1 + z^2 / rt2)``.  The axial magnification
+depends on the voxel, so the batch and the detector rows cannot share one
+lane axis as in the parallel and fan pairs: the kernels take the volume
+``(batch, nx, ny, nz)`` and give the sinogram ``(batch, n_angles, n_rows,
+n_cols)`` as they are.
+
+**View groups.**  :func:`_view_params_cone` splits the views into an
+x-gathered group (|sin| >= |cos|) and a y-gathered group and gives, per
+view, 20 floats: the affines of the centre's (q, ell) in the voxel indices,
+the corner offsets and the affines of the transaxial ray.  The tables are
+bit-identical to the reference package's.
+
+Curved-detector cone is not ported (ROADMAP.md queue 1): its plan raises.
+Each kernel wrapper counts its launches in :data:`LAUNCHES`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.geometry import CTGeometry
+from repro_torch.kernels import precision, tune
+from repro_torch.kernels.footprint import trapezoid_pixel_weight
+
+_EPS = 1e-9
+
+# Each plain-version step keeps its (batch x views x voxels x z) temporaries
+# under this many elements.
+_CHUNK_ELEMS = 1 << 25
+
+# Kernel launches since the last reset_launches(), by kernel.  One call of a
+# wrapper launches once per non-empty view group.
+LAUNCHES: Dict[str, int] = {"fp_cone_sf": 0, "bp_cone_sf": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# --------------------------------------------------------------------------- #
+# Divergent-beam weight math (shared with fp_fan.py)
+# --------------------------------------------------------------------------- #
+def _mag_bounds(geom: CTGeometry) -> Tuple[float, float]:
+    """(mag_min, mag_max) transaxial magnification over the volume disk."""
+    r = geom.vol.radius
+    mag_max = geom.sdd / max(geom.sod - r, 1e-3)
+    mag_min = geom.sdd / (geom.sod + r)
+    return mag_min, mag_max
+
+
+def footprint_halfwidth(geom: CTGeometry) -> float:
+    """A bound, in detector mm, on how far any corner of a voxel projects
+    from its centre.  Every point of the volume lies within its radius r of
+    the axis, so ell >= sod - r: on the curved detector du = sdd * d(angle)
+    moves at most sdd / ell <= mag_max per mm; on the flat one du = sdd *
+    d(q / ell) moves at most mag_max * sqrt(1 + (q / ell)^2) per mm, with
+    |q| / ell <= r / (sod - r).  A corner lies dx * sqrt(2) / 2 from the
+    centre."""
+    _, mag_max = _mag_bounds(geom)
+    hw = math.sqrt(2.0) / 2.0 * geom.vol.dx * mag_max
+    if geom.detector_type != "curved":
+        t = geom.vol.radius / max(geom.sod - geom.vol.radius, 1e-3)
+        hw *= math.sqrt(1.0 + t * t)
+    return hw
+
+
+def _corner_trapezoid(P: torch.Tensor, gi: torch.Tensor, li: torch.Tensor,
+                      sdd: float, dxv: float, curved: bool):
+    """Corner-projection trapezoid of the voxels (gi, li) in the views of
+    the 20-float rows ``P`` (n_views, 20); ``gi``, ``li`` broadcast against
+    ``P[:, k]``-shaped columns.  Returns (t0, t1, t2, t3, h, rt2, ell): the
+    sorted breakpoints, the plateau, the squared transaxial length of the
+    ray through the centre and the centre's distance along the central ray.
+    Each product and sum is its own rounding, as in the kernels."""
+    col = [P[:, k].reshape((-1,) + (1,) * (gi.dim() - 1)) for k in range(20)]
+    Aq, Bq, Cq, Al, Bl, Cl, Arx, Brx, Crx, Ary, Bry, Cry = col[:12]
+    q0 = Bq * li + Cq
+    l0 = Bl * li + Cl
+    q = Aq * gi + q0
+    ell = Al * gi + l0
+    taus = []
+    for k in range(4):
+        qk = q + col[12 + 2 * k]
+        lc = torch.clamp(ell + col[13 + 2 * k], min=_EPS)
+        taus.append(sdd * torch.atan2(qk, lc) if curved else (sdd * qk) / lc)
+    m1, M1 = torch.minimum(taus[0], taus[1]), torch.maximum(taus[0], taus[1])
+    m2, M2 = torch.minimum(taus[2], taus[3]), torch.maximum(taus[2], taus[3])
+    ta, tb = torch.maximum(m1, m2), torch.minimum(M1, M2)
+    t0, t3 = torch.minimum(m1, m2), torch.maximum(M1, M2)
+    t1, t2 = torch.minimum(ta, tb), torch.maximum(ta, tb)
+    rx = (Arx * gi + Brx * li) + Crx
+    ry = (Ary * gi + Bry * li) + Cry
+    rt2 = rx * rx + ry * ry
+    h = (dxv * torch.sqrt(rt2)) / torch.clamp(
+        torch.maximum(torch.abs(rx), torch.abs(ry)), min=_EPS)
+    return t0, t1, t2, t3, h, rt2, ell
+
+
+def _view_params_cone(geom: CTGeometry) -> Tuple[np.ndarray, np.ndarray,
+                                                 np.ndarray]:
+    """Per-view affine coefficients of q(gi, li) and ell(gi, li) plus the
+    four corner offsets (dq_k, dl_k) and the rx/ry affines, split into the
+    x-gathered (|sin|>=|cos|) and y-gathered groups.
+
+    Layout per view (20 floats):
+      [Aq, Bq, Cq, Al, Bl, Cl, Arx, Brx, Crx, Ary, Bry, Cry,
+       dq0, dl0, dq1, dl1, dq2, dl2, dq3, dl3]
+    """
+    v = geom.vol
+    ang = geom.angles_array()
+    c, s = np.cos(ang), np.sin(ang)
+    x0, y0 = float(v.x_coords()[0]), float(v.y_coords()[0])
+    sod = geom.sod
+    hx, hy = v.dx / 2.0, v.dy / 2.0
+
+    def grp(gathered_x: bool):
+        if gathered_x:
+            # gi -> x, li -> y
+            Aq, Bq = -s * v.dx, c * v.dy
+            Al, Bl = -c * v.dx, -s * v.dy
+            Arx, Brx = v.dx * np.ones_like(c), np.zeros_like(c)
+            Ary, Bry = np.zeros_like(c), v.dy * np.ones_like(c)
+        else:
+            Aq, Bq = c * v.dy, -s * v.dx
+            Al, Bl = -s * v.dy, -c * v.dx
+            Arx, Brx = np.zeros_like(c), v.dx * np.ones_like(c)
+            Ary, Bry = v.dy * np.ones_like(c), np.zeros_like(c)
+        Cq = c * y0 - s * x0
+        Cl = sod - (c * x0 + s * y0)
+        Crx = x0 - sod * c
+        Cry = y0 - sod * s
+        cols = [Aq, Bq, Cq, Al, Bl, Cl, Arx, Brx, Crx, Ary, Bry, Cry]
+        for sx in (-hx, hx):
+            for sy in (-hy, hy):
+                cols.append(c * sy - s * sx)            # dq
+                cols.append(-(c * sx + s * sy))         # dl
+        return np.stack(cols, -1).astype(np.float32)
+
+    gx = np.abs(s) >= np.abs(c)
+    px, py = grp(True), grp(False)
+    idx_x = np.nonzero(gx)[0]
+    idx_y = np.nonzero(~gx)[0]
+    return px[idx_x], py[idx_y], np.concatenate([idx_x, idx_y])
+
+
+# --------------------------------------------------------------------------- #
+# Plan
+# --------------------------------------------------------------------------- #
+class _DeviceTables:
+    """The plan's tables on one device."""
+
+    def __init__(self, plan: "ConePlan", device: torch.device):
+        self.tables = tuple(torch.from_numpy(t).to(device) for t in plan.tables)
+        self.rows = tuple(torch.from_numpy(r).to(device) for r in plan.rows)
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+class ConePlan:
+    """What the exact cone pair derives from a geometry, once per cached op
+    bundle: the two view groups' 20-float tables, the sinogram row of each
+    group view, the detector and volume grids as the f32 values the kernels
+    receive, and the tables' copies on each device they were used on."""
+
+    def __init__(self, geom: CTGeometry):
+        if geom.geom_type != "cone":
+            raise ValueError(f"the cone SF pair needs a cone geometry, got "
+                             f"{geom.geom_type!r}")
+        if geom.detector_type != "flat":
+            raise NotImplementedError(
+                "curved-detector cone is not ported to the PyTorch port yet "
+                "(the reference runs it on its Joseph projector); ROADMAP.md "
+                "queue 1 lists it")
+        self.geom = geom
+        px, py, order = _view_params_cone(geom)
+        self.tables = (px, py)
+        nax = px.shape[0]
+        self.rows = (order[:nax].astype(np.int32), order[nax:].astype(np.int32))
+        v = geom.vol
+        du, dv = geom.pixel_width, geom.pixel_height
+        self.e0 = _f32(float(geom.u_coords()[0]) - du / 2.0)
+        self.du = _f32(du)
+        self.ev0 = _f32(float(geom.v_coords()[0]) - dv / 2.0)
+        self.dv = _f32(dv)
+        self.z0 = float(v.z_coords()[0])
+        self.dz = _f32(v.dz)
+        self.sdd = _f32(geom.sdd)
+        self.dxv = _f32(v.dx)
+        self.hw = _f32(footprint_halfwidth(geom))
+        self.taps_u = geom.max_footprint_cols()
+        self.taps_v = geom.max_footprint_rows()
+        self._on: Dict[str, _DeviceTables] = {}
+
+    def on(self, device: torch.device) -> _DeviceTables:
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = _DeviceTables(self, device)
+        return self._on[key]
+
+    def group(self, grp: int) -> Tuple[int, int, int, int]:
+        """(ng, nl, gather stride, loop stride) of view group ``grp`` (0: x-
+        gathered, 1: y-gathered) in an (nx, ny, nz) volume."""
+        nx, ny, nz = self.geom.vol.shape
+        if grp == 0:
+            return nx, ny, ny * nz, nz
+        return ny, nx, nz, ny * nz
+
+
+# --------------------------------------------------------------------------- #
+# Plain versions of the kernels (CPU path and reference on the card)
+# --------------------------------------------------------------------------- #
+def chunk_taps(plan: ConePlan, table: torch.Tensor, ng: int, nl: int,
+               z0: int, nzc: int, tile: torch.Tensor):
+    """The cone pair's weights for the voxels of one view group in z slices
+    ``z0 .. z0 + nzc`` and the views of ``table`` (nvw, 20), one footprint
+    tap (detector column x row) at a time: yields ``(pix, wu, wz)`` with
+    ``pix`` (nvw, ng * nl, nzc) the pixel ``v * n_cols + u`` within its view
+    (clamped into range), ``wu`` (nvw, ng * nl, 1) the transaxial weight
+    and ``wz`` (nvw, ng * nl, nzc) the axial weight (zero off the
+    detector), rounded to ``tile``'s dtype as the kernels round it.  The
+    voxel's weight at ``pix`` is ``wu * wz``."""
+    geom = plan.geom
+    nu, nv = geom.n_cols, geom.n_rows
+    nvw = table.shape[0]
+    dev = table.device
+    gi = torch.arange(ng, device=dev, dtype=torch.float32)[None, :, None]
+    li = torch.arange(nl, device=dev, dtype=torch.float32)[None, None, :]
+    t0, t1, t2, t3, h, rt2, ell = (
+        t.reshape(nvw, ng * nl, 1) for t in _corner_trapezoid(
+            table, gi, li, plan.sdd, plan.dxv, False))
+    k = torch.arange(z0, z0 + nzc, device=dev, dtype=torch.float32)
+    zt = plan.z0 + k * plan.dz                              # (nzc,)
+    hdz = plan.dz / 2.0
+    # a tensor numerator: scalar / tensor would multiply by a reciprocal
+    mag = ell.new_full((), plan.sdd) / torch.clamp(ell, min=_EPS)
+    obl = torch.sqrt(1.0 + (zt * zt) / torch.clamp(rt2, min=_EPS))
+    vlo = (zt - hdz) * mag                                  # (nvw, N, nzc)
+    vhi = (zt + hdz) * mag
+    v_first = torch.floor((vlo - plan.ev0) / plan.dv).to(torch.int64)
+    u_first = torch.floor((t0 - plan.e0) / plan.du).to(torch.int64)
+    for ku in range(plan.taps_u):
+        u = u_first + ku                                    # (nvw, N, 1)
+        el = plan.e0 + u.to(torch.float32) * plan.du
+        wu = trapezoid_pixel_weight(el, el + plan.du, t0, t1, t2, t3, h)
+        wu = torch.where((u >= 0) & (u < nu), wu, 0.0)
+        uc = u.clamp(0, nu - 1)
+        for kv in range(plan.taps_v):
+            v = v_first + kv                                # (nvw, N, nzc)
+            elv = plan.ev0 + v.to(torch.float32) * plan.dv
+            ov = torch.clamp(torch.minimum(vhi, elv + plan.dv)
+                             - torch.maximum(vlo, elv), min=0.0) / plan.dv
+            wz = precision.cast_like(ov * obl, tile)
+            wz = torch.where((v >= 0) & (v < nv), wz, 0.0)
+            yield v.clamp(0, nv - 1) * nu + uc, wu, wz
+
+
+def _fp_chunk(vox: torch.Tensor, plan: ConePlan, table: torch.Tensor,
+              ng: int, nl: int, z0: int, tile: torch.Tensor) -> torch.Tensor:
+    """The cone FP of volume slab ``vox`` (batch, ng * nl, nzc) — z slices
+    ``z0 .. z0 + nzc`` of one view group, gathered-index major — in the
+    views of ``table`` (nvw, 20): a (batch, nvw, n_rows, n_cols) f32
+    sinogram.  Linear and differentiable in ``vox``."""
+    geom = plan.geom
+    nu, nv = geom.n_cols, geom.n_rows
+    batch, _, nzc = vox.shape
+    nvw = table.shape[0]
+    view = torch.arange(batch * nvw, device=vox.device).reshape(batch, nvw, 1, 1)
+    out = vox.new_zeros(batch * nvw * nv * nu)
+    for pix, wu, wz in chunk_taps(plan, table, ng, nl, z0, nzc, tile):
+        val = wu * (wz * vox[:, None])                      # (B, nvw, N, nzc)
+        # index_put_ keeps only the index and the weights for the backward
+        out.index_put_(((view * (nv * nu) + pix).reshape(-1),),
+                       val.reshape(-1), accumulate=True)
+    return out.reshape(batch, nvw, nv, nu)
+
+
+def _chunks(plan: ConePlan, batch: int, n_views: int, n_vox: int):
+    """(a0, a1, z0, z1) steps whose temporaries stay under _CHUNK_ELEMS."""
+    nz = plan.geom.vol.nz
+    zstep = max(1, min(nz, _CHUNK_ELEMS // max(batch * n_vox, 1)))
+    astep = max(1, _CHUNK_ELEMS // max(batch * n_vox * zstep, 1))
+    for a0 in range(0, n_views, astep):
+        for z0 in range(0, nz, zstep):
+            yield a0, min(n_views, a0 + astep), z0, min(nz, z0 + zstep)
+
+
+def _group_volume(f: torch.Tensor, grp: int) -> torch.Tensor:
+    """(batch, nx, ny, nz) -> the group's (batch, ng * nl, nz) voxel rows."""
+    g = f if grp == 0 else f.transpose(1, 2)
+    return g.reshape(f.shape[0], -1, f.shape[3])
+
+
+def fp_batch_plain(f: torch.Tensor, plan: ConePlan) -> torch.Tensor:
+    """Plain version of the FP kernel: volume (batch, nx, ny, nz), f32 or
+    bf16 -> sinogram (batch, n_angles, n_rows, n_cols) f32."""
+    geom = plan.geom
+    dt = plan.on(f.device)
+    f32 = f.to(torch.float32)
+    out = f32.new_zeros((f.shape[0],) + geom.sino_shape)
+    for grp in (0, 1):
+        ng, nl = plan.group(grp)[:2]
+        table, rows = dt.tables[grp], dt.rows[grp].to(torch.int64)
+        vox = _group_volume(f32, grp)
+        for a0, a1, z0, z1 in _chunks(plan, f.shape[0], table.shape[0], ng * nl):
+            out.index_add_(1, rows[a0:a1], _fp_chunk(
+                vox[:, :, z0:z1], plan, table[a0:a1], ng, nl, z0, f))
+    return out
+
+
+def bp_batch_plain(q: torch.Tensor, plan: ConePlan) -> torch.Tensor:
+    """Plain version of the BP kernel: sinogram (batch, n_angles, n_rows,
+    n_cols), f32 or bf16 -> volume (batch, nx, ny, nz) f32.  The FP is a sum
+    of the :func:`_fp_chunk` terms; this is the sum of their vector-Jacobian
+    products, the exact transpose, taken one term at a time so that
+    autograd never holds more than one term's graph."""
+    geom = plan.geom
+    dt = plan.on(q.device)
+    q32 = q.to(torch.float32)
+    batch = q.shape[0]
+    nx, ny, nz = geom.vol.shape
+    out = q32.new_zeros((batch, nx, ny, nz))
+    for grp in (0, 1):
+        ng, nl = plan.group(grp)[:2]
+        table, rows = dt.tables[grp], dt.rows[grp].to(torch.int64)
+        acc = q32.new_zeros((batch, ng * nl, nz))
+        for a0, a1, z0, z1 in _chunks(plan, batch, table.shape[0], ng * nl):
+            g0 = q32.new_zeros((batch, ng * nl, z1 - z0), requires_grad=True)
+            with torch.enable_grad():
+                term = _fp_chunk(g0, plan, table[a0:a1], ng, nl, z0, q)
+                (grad,) = torch.autograd.grad(term, g0, q32[:, rows[a0:a1]])
+            acc[:, :, z0:z1] += grad
+        acc = acc.reshape(batch, ng, nl, nz)
+        out += acc if grp == 0 else acc.transpose(1, 2)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Kernel wrappers
+# --------------------------------------------------------------------------- #
+def fp_batch(f: torch.Tensor, plan: ConePlan) -> torch.Tensor:
+    """FP at the kernel's interface: (batch, nx, ny, nz) -> (batch, n_angles,
+    n_rows, n_cols) f32.  A CUDA tensor launches the kernel (its launch
+    derives the block from the shapes); a CPU tensor runs
+    :func:`fp_batch_plain`."""
+    if f.device.type == "cpu":
+        return fp_batch_plain(f, plan)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fp_par import _DTYPE_CODE, _check_tile
+    geom = plan.geom
+    batch = f.shape[0]
+    _check_tile(f, (batch,) + geom.vol.shape, "fp_cone_sf")
+    out = torch.empty((batch,) + geom.sino_shape, dtype=torch.float32,
+                      device=f.device)
+    dt = plan.on(f.device)
+    lib = build.library("fp_cone")
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for grp in (0, 1):
+            n = dt.tables[grp].shape[0]
+            if n == 0:
+                continue
+            ng, nl, gs, ls = plan.group(grp)
+            rc = lib.fp_cone_sf_launch(
+                _DTYPE_CODE[f.dtype], dt.tables[grp].data_ptr(),
+                dt.rows[grp].data_ptr(), n, geom.n_angles, batch,
+                f.data_ptr(), out.data_ptr(), ng, nl, geom.vol.nz, gs, ls,
+                geom.n_cols, geom.n_rows, plan.e0, plan.du, plan.ev0, plan.dv,
+                plan.z0, plan.dz, plan.sdd, plan.dxv, plan.hw, stream)
+            build.check("fp_cone", rc, "fp_cone_sf launch")
+            LAUNCHES["fp_cone_sf"] += 1
+    return out
+
+
+def bp_batch(q: torch.Tensor, plan: ConePlan) -> torch.Tensor:
+    """BP at the kernel's interface: (batch, n_angles, n_rows, n_cols) ->
+    (batch, nx, ny, nz) f32.  A CUDA tensor launches the kernel; a CPU
+    tensor runs :func:`bp_batch_plain`."""
+    if q.device.type == "cpu":
+        return bp_batch_plain(q, plan)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fp_par import _DTYPE_CODE, _check_tile
+    geom = plan.geom
+    batch = q.shape[0]
+    _check_tile(q, (batch,) + geom.sino_shape, "bp_cone_sf")
+    out = torch.empty((batch,) + geom.vol.shape, dtype=torch.float32,
+                      device=q.device)
+    dt = plan.on(q.device)
+    lib = build.library("fp_cone")
+    accumulate = 0
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for grp in (0, 1):
+            n = dt.tables[grp].shape[0]
+            if n == 0:
+                continue
+            ng, nl, gs, ls = plan.group(grp)
+            rc = lib.bp_cone_sf_launch(
+                _DTYPE_CODE[q.dtype], dt.tables[grp].data_ptr(),
+                dt.rows[grp].data_ptr(), n, geom.n_angles, batch,
+                q.data_ptr(), out.data_ptr(), ng, nl, geom.vol.nz, gs, ls,
+                geom.n_cols, geom.n_rows, plan.e0, plan.du, plan.ev0, plan.dv,
+                plan.z0, plan.dz, plan.sdd, plan.dxv, accumulate, stream)
+            build.check("fp_cone", rc, "bp_cone_sf launch")
+            LAUNCHES["bp_cone_sf"] += 1
+            accumulate = 1
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Public entry points (3D or leading-batch 4D)
+# --------------------------------------------------------------------------- #
+def _as_batch(x: torch.Tensor, what: str) -> torch.Tensor:
+    if x.dim() not in (3, 4):
+        raise ValueError(f"expected a 3D or batched 4D {what}, got "
+                         f"{tuple(x.shape)}")
+    return x if x.dim() == 4 else x[None]
+
+
+def fp_unpacked(f: torch.Tensor, plan: ConePlan, cdt: torch.dtype,
+                run: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """Around a batch-level FP ``run`` (kernel or plain): f (nx, ny, nz), or
+    (batch, nx, ny, nz) -> sino (n_angles, n_rows, n_cols), or (batch, ...).
+    The volume is cast to ``cdt``; the result comes back in ``f.dtype``."""
+    fb = _as_batch(f, "volume")
+    out = run(precision.cast_in(fb, cdt).contiguous()).to(f.dtype)
+    return out if f.dim() == 4 else out[0]
+
+
+def bp_unpacked(sino: torch.Tensor, plan: ConePlan, cdt: torch.dtype,
+                run: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """The transpose of :func:`fp_unpacked` around a batch-level BP."""
+    qb = _as_batch(sino, "sinogram")
+    out = run(precision.cast_in(qb, cdt).contiguous()).to(sino.dtype)
+    return out if sino.dim() == 4 else out[0]
+
+
+def fp_cone_sf(f: torch.Tensor, plan: ConePlan,
+               config: Optional[tune.KernelConfig] = None,
+               compute_dtype=None) -> torch.Tensor:
+    """f: (nx, ny, nz) -> sino (n_angles, n_rows, n_cols), or batched f:
+    (batch, nx, ny, nz) -> (batch, n_angles, n_rows, n_cols).
+    ``compute_dtype`` selects the volume's dtype in the kernel (None =
+    follow ``f.dtype``); accumulation is f32 and the result comes back in
+    ``f.dtype``.  ``config`` holds the lane-packed kernels' block shapes and
+    is not read here: the cone launch derives its block from the shapes."""
+    return fp_unpacked(f, plan, precision.resolve(compute_dtype, f.dtype),
+                       lambda x: fp_batch(x, plan))
+
+
+def bp_cone_sf(sino: torch.Tensor, plan: ConePlan,
+               config: Optional[tune.KernelConfig] = None,
+               compute_dtype=None) -> torch.Tensor:
+    """sino: (n_angles, n_rows, n_cols) -> volume (nx, ny, nz), or batched
+    (batch, ...) -> (batch, nx, ny, nz).  Exact transpose of
+    :func:`fp_cone_sf` (``config`` is not read, as there)."""
+    return bp_unpacked(sino, plan, precision.resolve(compute_dtype, sino.dtype),
+                       lambda q: bp_batch(q, plan))
+
+
+def register() -> None:
+    from repro_torch.kernels import ops
+    ops.register_kernel("cone", "sf", ConePlan, fp_cone_sf, bp_cone_sf,
+                        fp_batched=fp_cone_sf, bp_batched=bp_cone_sf)

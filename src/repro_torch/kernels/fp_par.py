@@ -22,7 +22,10 @@ affine ``uc = P*gi + Q*li + R`` of the voxel centre plus the trapezoid
 (hs, hd, h).  The tables are bit-identical to the reference package's.  The
 kernels read both groups from the one buffer through strides.
 
-Each kernel wrapper counts its launches in :data:`LAUNCHES`.
+The lane packing, the plain versions and the kernel wrappers serve every
+lane-packed pair through its :class:`LanePlan` (the fan pair's is
+``fp_fan.FanPlan``); a wrapper counts its launches in the ``LAUNCHES`` of
+the plan's module, here :data:`LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -90,23 +93,29 @@ def _view_params(geom: CTGeometry) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 class _DeviceTables:
     """The plan's tables on one device."""
 
-    def __init__(self, plan: "ParallelPlan", device: torch.device):
+    def __init__(self, plan: "LanePlan", device: torch.device):
         self.tables = tuple(torch.from_numpy(t).to(device) for t in plan.tables)
         self.rows = tuple(torch.from_numpy(r).to(device) for r in plan.rows)
         self.fz = torch.from_numpy(plan.fz).to(device)
 
 
-class ParallelPlan:
-    """What the pair derives from a geometry, once per cached op bundle: the
-    two view groups' tables, the sinogram row of each group view, the axial
-    overlap matrix, and their copies on each device they were used on."""
+class LanePlan:
+    """What a lane-packed pair (parallel here, fan in ``fp_fan.py``) derives
+    from a geometry, once per cached op bundle: the two view groups' tables,
+    the sinogram row of each group view, the axial overlap matrix, and their
+    copies on each device they were used on.
 
-    def __init__(self, geom: CTGeometry):
-        if geom.geom_type != "parallel":
-            raise ValueError(f"the parallel SF pair needs a parallel "
-                             f"geometry, got {geom.geom_type!r}")
+    A subclass names its kernel library and kernels, the launch counts they
+    add to, the extra launch arguments of its kernels, and :meth:`weights`,
+    the plain version's footprint weights."""
+
+    LIB = ""
+    KERNELS: Tuple[str, str] = ("", "")
+    launches: Dict[str, int] = {}
+
+    def __init__(self, geom: CTGeometry, px: np.ndarray, py: np.ndarray,
+                 order: np.ndarray):
         self.geom = geom
-        px, py, order = _view_params(geom)
         self.tables = (px, py)
         nax = px.shape[0]
         self.rows = (order[:nax].astype(np.int32), order[nax:].astype(np.int32))
@@ -132,6 +141,34 @@ class ParallelPlan:
         if grp == 0:
             return nx, ny, ny * lanes, lanes
         return ny, nx, lanes, ny * lanes
+
+    def fp_args(self) -> tuple:
+        """Launch arguments of the FP kernel after the column pitch."""
+        return ()
+
+    def bp_args(self) -> tuple:
+        """Launch arguments of the BP kernel after the column pitch."""
+        return ()
+
+    def weights(self, table: torch.Tensor, ng: int, nl: int):
+        raise NotImplementedError
+
+
+class ParallelPlan(LanePlan):
+    """The parallel SF pair's plan (tables of :func:`_view_params`)."""
+
+    LIB = "fp_par"
+    KERNELS = ("fp_par_sf", "bp_par_sf")
+    launches = LAUNCHES
+
+    def __init__(self, geom: CTGeometry):
+        if geom.geom_type != "parallel":
+            raise ValueError(f"the parallel SF pair needs a parallel "
+                             f"geometry, got {geom.geom_type!r}")
+        super().__init__(geom, *_view_params(geom))
+
+    def weights(self, table: torch.Tensor, ng: int, nl: int):
+        return _group_weights(self, table, ng, nl)
 
 
 # --------------------------------------------------------------------------- #
@@ -163,11 +200,12 @@ def _chunks(n_views: int, per_view: int):
         yield a0, min(n_views, a0 + step)
 
 
-def _fp_plain(g: torch.Tensor, plan: ParallelPlan,
+def _fp_plain(g: torch.Tensor, plan: LanePlan,
               tile: torch.Tensor) -> torch.Tensor:
-    """The one plain implementation of the pair: f32 volume (nx, ny, lanes)
-    -> f32 sinogram (n_angles, n_cols, lanes), with the weights rounded to
-    ``tile``'s dtype as the kernels round them.  Differentiable in ``g``."""
+    """The one plain implementation of a lane-packed pair (parallel, fan),
+    with the plan's weights: f32 volume (nx, ny, lanes) -> f32 sinogram
+    (n_angles, n_cols, lanes), with the weights rounded to ``tile``'s dtype
+    as the kernels round them.  Differentiable in ``g``."""
     lanes = g.shape[2]
     nu = plan.geom.n_cols
     dt = plan.on(g.device)
@@ -178,7 +216,7 @@ def _fp_plain(g: torch.Tensor, plan: ParallelPlan,
         vox = (g if grp == 0 else g.transpose(0, 1)).reshape(ng * nl, lanes)
         for a0, a1 in _chunks(table.shape[0], ng * nl * lanes):
             base = (rows[a0:a1] * nu)[:, None]
-            for u, w in _group_weights(plan, table[a0:a1], ng, nl):
+            for u, w in plan.weights(table[a0:a1], ng, nl):
                 w = precision.cast_like(w, tile)
                 # index_put_ keeps only the index and the weights for the
                 # backward (index_add_ would keep every product)
@@ -188,13 +226,13 @@ def _fp_plain(g: torch.Tensor, plan: ParallelPlan,
     return out.reshape(plan.geom.n_angles, nu, lanes)
 
 
-def fp_lanes_plain(g: torch.Tensor, plan: ParallelPlan) -> torch.Tensor:
+def fp_lanes_plain(g: torch.Tensor, plan: LanePlan) -> torch.Tensor:
     """Plain version of the FP kernel: lane-packed volume (nx, ny, lanes),
     f32 or bf16 -> sinogram (n_angles, n_cols, lanes) f32."""
     return _fp_plain(g.to(torch.float32), plan, g)
 
 
-def bp_lanes_plain(q: torch.Tensor, plan: ParallelPlan) -> torch.Tensor:
+def bp_lanes_plain(q: torch.Tensor, plan: LanePlan) -> torch.Tensor:
     """Plain version of the BP kernel: lane-packed sinogram (n_angles,
     n_cols, lanes), f32 or bf16 -> volume (nx, ny, lanes) f32.  It is the
     vector-Jacobian product of the plain FP, its exact transpose."""
@@ -226,21 +264,21 @@ def _check_tile(x: torch.Tensor, shape: Tuple[int, ...], what: str) -> None:
         raise ValueError(f"{what}: tile must be contiguous")
 
 
-def fp_lanes(g: torch.Tensor, plan: ParallelPlan,
+def fp_lanes(g: torch.Tensor, plan: LanePlan,
              cfg: tune.KernelConfig) -> torch.Tensor:
     """FP at the kernel's interface: (nx, ny, lanes) -> (n_angles, n_cols,
-    lanes) f32.  A CUDA tensor launches the kernel; a CPU tensor runs
-    :func:`fp_lanes_plain`."""
+    lanes) f32.  A CUDA tensor launches the plan's FP kernel (parallel or
+    fan); a CPU tensor runs :func:`fp_lanes_plain`."""
     if g.device.type == "cpu":
         return fp_lanes_plain(g, plan)
     from repro_torch.kernels import build
-    geom = plan.geom
+    geom, kname = plan.geom, plan.KERNELS[0]
     lanes = g.shape[-1]
-    _check_tile(g, (geom.vol.nx, geom.vol.ny, lanes), "fp_par_sf")
+    _check_tile(g, (geom.vol.nx, geom.vol.ny, lanes), kname)
     out = torch.empty((geom.n_angles, geom.n_cols, lanes),
                       dtype=torch.float32, device=g.device)
     dt = plan.on(g.device)
-    lib = build.library("fp_par")
+    launch = getattr(build.library(plan.LIB), f"{kname}_launch")
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         for grp in (0, 1):
@@ -248,31 +286,31 @@ def fp_lanes(g: torch.Tensor, plan: ParallelPlan,
             if n == 0:
                 continue
             ng, nl, gs, ls = plan.group(grp, lanes)
-            rc = lib.fp_par_sf_launch(
+            rc = launch(
                 _DTYPE_CODE[g.dtype], dt.tables[grp].data_ptr(),
                 dt.rows[grp].data_ptr(), n, g.data_ptr(), out.data_ptr(),
                 ng, nl, lanes, gs, ls, geom.n_cols, plan.e0, plan.du,
-                cfg.bu, cfg.lg, stream)
-            build.check("fp_par", rc, "fp_par_sf launch")
-            LAUNCHES["fp_par_sf"] += 1
+                *plan.fp_args(), cfg.bu, cfg.lg, stream)
+            build.check(plan.LIB, rc, f"{kname} launch")
+            plan.launches[kname] += 1
     return out
 
 
-def bp_lanes(q: torch.Tensor, plan: ParallelPlan,
+def bp_lanes(q: torch.Tensor, plan: LanePlan,
              cfg: tune.KernelConfig) -> torch.Tensor:
     """BP at the kernel's interface: (n_angles, n_cols, lanes) -> (nx, ny,
-    lanes) f32.  A CUDA tensor launches the kernel; a CPU tensor runs
-    :func:`bp_lanes_plain`."""
+    lanes) f32.  A CUDA tensor launches the plan's BP kernel; a CPU tensor
+    runs :func:`bp_lanes_plain`."""
     if q.device.type == "cpu":
         return bp_lanes_plain(q, plan)
     from repro_torch.kernels import build
-    geom = plan.geom
+    geom, kname = plan.geom, plan.KERNELS[1]
     lanes = q.shape[-1]
-    _check_tile(q, (geom.n_angles, geom.n_cols, lanes), "bp_par_sf")
+    _check_tile(q, (geom.n_angles, geom.n_cols, lanes), kname)
     out = torch.empty((geom.vol.nx, geom.vol.ny, lanes), dtype=torch.float32,
                       device=q.device)
     dt = plan.on(q.device)
-    lib = build.library("fp_par")
+    launch = getattr(build.library(plan.LIB), f"{kname}_launch")
     accumulate = 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -281,13 +319,13 @@ def bp_lanes(q: torch.Tensor, plan: ParallelPlan,
             if n == 0:
                 continue
             ng, nl, gs, ls = plan.group(grp, lanes)
-            rc = lib.bp_par_sf_launch(
+            rc = launch(
                 _DTYPE_CODE[q.dtype], dt.tables[grp].data_ptr(),
                 dt.rows[grp].data_ptr(), n, q.data_ptr(), out.data_ptr(),
                 ng, nl, lanes, gs, ls, geom.n_cols, plan.e0, plan.du,
-                accumulate, cfg.bg, cfg.lg, stream)
-            build.check("fp_par", rc, "bp_par_sf launch")
-            LAUNCHES["bp_par_sf"] += 1
+                *plan.bp_args(), accumulate, cfg.bg, cfg.lg, stream)
+            build.check(plan.LIB, rc, f"{kname} launch")
+            plan.launches[kname] += 1
             accumulate = 1
     return out
 
@@ -302,7 +340,7 @@ def _batch(x: torch.Tensor, what: str) -> int:
     return x.shape[0] if x.dim() == 4 else 1
 
 
-def fp_packed(f: torch.Tensor, plan: ParallelPlan, cdt: torch.dtype,
+def fp_packed(f: torch.Tensor, plan: LanePlan, cdt: torch.dtype,
               run: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
     """Lane packing around a lane-level FP ``run`` (kernel or plain): f
     (nx, ny, nz), or (batch, nx, ny, nz) -> sino (n_angles, n_rows, n_cols),
@@ -320,7 +358,7 @@ def fp_packed(f: torch.Tensor, plan: ParallelPlan, cdt: torch.dtype,
     return out if f.dim() == 4 else out[0]
 
 
-def bp_packed(sino: torch.Tensor, plan: ParallelPlan, cdt: torch.dtype,
+def bp_packed(sino: torch.Tensor, plan: LanePlan, cdt: torch.dtype,
               run: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
     """The transpose of :func:`fp_packed` around a lane-level BP ``run``:
     sino (n_angles, n_rows, n_cols), or (batch, ...) -> volume (nx, ny, nz),

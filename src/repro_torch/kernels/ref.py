@@ -1,14 +1,17 @@
 """Plain PyTorch reference projectors (the ``ref`` backend).
 
 What CPU tensors run on, and what ``backend="ref"`` runs on any device: the
-plain versions of the CUDA kernels (``fp_par.fp_lanes_plain`` and its VJP
-``fp_par.bp_lanes_plain``) inside the pair's lane packing, with no kernel
-launch.  The backprojection is the vector-Jacobian product of the linear
-forward map, so it is the exact transpose by construction.
+plain versions of the CUDA kernels with no kernel launch.  For the
+lane-packed pairs (parallel, fan) that is ``fp_par.fp_lanes_plain`` and its
+VJP ``fp_par.bp_lanes_plain`` inside the lane packing, with each plan's
+footprint weights; for the exact cone pair ``fp_cone.fp_batch_plain`` and
+its VJP ``fp_cone.bp_batch_plain``.  Each backprojection is the
+vector-Jacobian product of the linear forward map, so it is the exact
+transpose by construction.
 
-This slice carries the parallel-beam Separable-Footprint model.  Other
-(geometry, model) pairs raise ``NotImplementedError``; ROADMAP.md queue 1
-orders their port.
+The port carries the Separable-Footprint model for parallel, fan (flat and
+curved) and flat-detector cone beams.  Other (geometry, model) pairs raise
+``NotImplementedError``; ROADMAP.md queue 1 orders their port.
 
 ``forward`` maps ``f (nx, ny, nz) -> sino (n_angles, n_rows, n_cols)``, or a
 batch ``(B, nx, ny, nz) -> (B, n_angles, n_rows, n_cols)``.
@@ -18,16 +21,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.geometry import CTGeometry
-from repro_torch.kernels import fp_par, precision
+from repro_torch.kernels import fp_cone, fp_fan, fp_par, precision
+
+_PLANS = {("parallel", "sf"): fp_par.ParallelPlan,
+          ("fan", "sf"): fp_fan.FanPlan,
+          ("cone", "sf"): fp_cone.ConePlan}
 
 
-def _plan(geom: CTGeometry, model: str) -> fp_par.ParallelPlan:
+def _plan(geom: CTGeometry, model: str):
     key = (geom.geom_type, model)
-    if key != ("parallel", "sf"):
+    if key not in _PLANS:
         raise NotImplementedError(
             f"no reference projector for {key} in the PyTorch port yet; "
             f"ROADMAP.md queue 1 lists the slices still to port")
-    return fp_par.ParallelPlan(geom)
+    return _PLANS[key](geom)
 
 
 def _quantize_in(x: torch.Tensor, dtype):
@@ -49,8 +56,12 @@ def forward(f: torch.Tensor, geom: CTGeometry, model: str = "sf",
     the math runs in f32, and the result comes back in the input's dtype."""
     plan = _plan(geom, model)
     fq, out_dtype = _quantize_in(f, dtype)
-    out = fp_par.fp_packed(fq, plan, torch.float32,
-                           lambda g: fp_par.fp_lanes_plain(g, plan))
+    if isinstance(plan, fp_cone.ConePlan):
+        out = fp_cone.fp_unpacked(fq, plan, torch.float32,
+                                  lambda x: fp_cone.fp_batch_plain(x, plan))
+    else:
+        out = fp_par.fp_packed(fq, plan, torch.float32,
+                               lambda g: fp_par.fp_lanes_plain(g, plan))
     return out if out_dtype is None else out.to(out_dtype)
 
 
@@ -61,6 +72,10 @@ def adjoint(sino: torch.Tensor, geom: CTGeometry, model: str = "sf",
     inside the transpose of its packing."""
     plan = _plan(geom, model)
     q, out_dtype = _quantize_in(sino, dtype)
-    out = fp_par.bp_packed(q, plan, torch.float32,
-                           lambda p: fp_par.bp_lanes_plain(p, plan))
+    if isinstance(plan, fp_cone.ConePlan):
+        out = fp_cone.bp_unpacked(q, plan, torch.float32,
+                                  lambda p: fp_cone.bp_batch_plain(p, plan))
+    else:
+        out = fp_par.bp_packed(q, plan, torch.float32,
+                               lambda p: fp_par.bp_lanes_plain(p, plan))
     return out if out_dtype is None else out.to(out_dtype)

@@ -1,15 +1,19 @@
 """Launch configuration of the CUDA projector kernels.
 
-Both parallel-beam kernels carry ``LANES_PER_THREAD`` consecutive lanes per
-thread (a lane is one ``batch x detector-row`` column of the lane-packed
-layout, contiguous in memory), so one footprint weight serves that many
-multiply-adds.  A block is a 2D arrangement of threads:
+The lane-packed kernels (parallel and fan beam) carry ``LANES_PER_THREAD``
+consecutive lanes per thread (a lane is one ``batch x detector-row``
+column of the lane-packed layout, contiguous in memory), so one footprint
+weight serves that many multiply-adds.  A block is a 2D arrangement of threads:
 
     lg   lane groups per block (threadIdx.x, fastest — neighbouring threads
          read neighbouring lane groups, so loads coalesce when there are
          many lanes)
     bu   FP: detector columns per block (threadIdx.y)
     bg   BP: gathered-axis voxels per block (threadIdx.y)
+
+The exact cone kernels have no lane axis and take no configuration: their
+launch (``csrc/fp_cone.cu`` ``cone_block``) derives the block from the
+detector rows and z slices.
 
 The lane axis is masked at its ragged edge inside the kernels; nothing is
 padded.  ``resolve_config`` returns an explicit pin when one is given, else
@@ -25,14 +29,14 @@ from repro_torch.core.geometry import CTGeometry
 __all__ = ["KernelConfig", "LANES_PER_THREAD", "heuristic_config",
            "resolve_config"]
 
-LANES_PER_THREAD = 8        # must equal LPT in csrc/fp_par.cu
+LANES_PER_THREAD = 8        # must equal LPT in csrc/fp_par.cu, fp_fan.cu
 _THREADS = 128              # threads per block chosen by the heuristic
 _MAX_THREADS = 1024
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
-    """Block shape of the parallel SF kernel pair."""
+    """Block shapes of the lane-packed SF kernel pairs."""
 
     bu: int = 128    # FP detector columns per block
     bg: int = 128    # BP gathered voxels per block

@@ -8,9 +8,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import Projector, ProjectorSpec, VolumeGeometry, parallel_beam
+from repro_torch import (Projector, ProjectorSpec, VolumeGeometry, cone_beam,
+                         fan_beam, parallel_beam)
 from repro_torch.device import requires_cuda
-from repro_torch.kernels import fp_par, precision, tune
+from repro_torch.kernels import fp_cone, fp_fan, fp_par, precision, tune
+from repro_torch.kernels.fp_cone import ConePlan
+from repro_torch.kernels.fp_fan import FanPlan
 from repro_torch.kernels.fp_par import ParallelPlan
 
 pytestmark = pytest.mark.cuda
@@ -53,6 +56,75 @@ def test_kernel_pair_dot_test_and_gradient():
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=g.vol.shape).astype(np.float32)).cuda()
     y = torch.from_numpy(rng.normal(size=g.sino_shape).astype(np.float32)).cuda()
+    lhs = float((proj(x).double() * y.double()).sum())
+    rhs = float((x.double() * proj.T(y).double()).sum())
+    assert abs(lhs - rhs) / abs(lhs) < 1e-4
+    xg = x.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(0.5 * torch.sum((proj(xg) - y) ** 2), xg)
+    torch.testing.assert_close(grad, proj.T(proj(x) - y), rtol=1e-4, atol=1e-5)
+
+
+DIVERGENT = [
+    # kind, n_angles, n_rows, n_cols, (nx, ny, nz), kwargs, batch
+    ("fan", 12, 2, 40, (24, 24, 2), dict(sod=80.0, sdd=160.0, pixel_width=2.0), 3),
+    ("fan", 12, 1, 96, (48, 48, 1), dict(sod=200.0, sdd=220.0, pixel_width=1.0,
+                                         detector_type="curved"), 8),
+    ("cone", 9, 16, 36, (24, 24, 12), dict(sod=80.0, sdd=160.0, pixel_width=2.0,
+                                           pixel_height=2.0), 2),
+    ("cone", 6, 20, 40, (32, 32, 24), dict(sod=60.0, sdd=150.0, pixel_width=2.0,
+                                           pixel_height=1.5), 1),
+]
+
+
+def _divergent(case):
+    kind, na, nv, nu, vs, kw, batch = case
+    make = fan_beam if kind == "fan" else cone_beam
+    return make(na, nv, nu, VolumeGeometry(*vs), **kw), batch
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DIVERGENT, ids=lambda c: f"{c[0]}-{c[3]}")
+def test_divergent_kernels_match_plain(case, dtype):
+    requires_cuda()
+    g, batch = _divergent(case)
+    cfg = tune.heuristic_config(g, batch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    if g.geom_type == "fan":
+        plan, mod = FanPlan(g), fp_fan
+        args = (plan, cfg)
+        lanes = batch * g.n_rows
+        vol = torch.randn((g.vol.nx, g.vol.ny, lanes), generator=gen, device="cuda")
+        sino = torch.randn((g.n_angles, g.n_cols, lanes), generator=gen, device="cuda")
+        pairs = ((fp_fan.fp_lanes, fp_fan.fp_lanes_plain, vol),
+                 (fp_fan.bp_lanes, fp_fan.bp_lanes_plain, sino))
+    else:
+        plan, mod = ConePlan(g), fp_cone
+        args = (plan,)                    # the cone launch takes no config
+        vol = torch.randn((batch,) + g.vol.shape, generator=gen, device="cuda")
+        sino = torch.randn((batch,) + g.sino_shape, generator=gen, device="cuda")
+        pairs = ((fp_cone.fp_batch, fp_cone.fp_batch_plain, vol),
+                 (fp_cone.bp_batch, fp_cone.bp_batch_plain, sino))
+    tol = 2e-4 if dtype == "float32" else precision.BF16_KERNEL_REL_TOL
+    mod.reset_launches()
+    for run, plain, x in pairs:
+        x = x.to(dt)
+        got = run(x, *args)
+        torch.cuda.synchronize()
+        want = plain(x, plan)
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel <= tol, rel
+    assert all(n >= 1 for n in mod.LAUNCHES.values()), mod.LAUNCHES
+
+
+@pytest.mark.parametrize("case", DIVERGENT, ids=lambda c: f"{c[0]}-{c[3]}")
+def test_divergent_pair_dot_test_and_gradient(case):
+    requires_cuda()
+    g, batch = _divergent(case)
+    proj = Projector(ProjectorSpec(g, backend="cuda"))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(batch,) + g.vol.shape).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.normal(size=(batch,) + g.sino_shape).astype(np.float32)).cuda()
     lhs = float((proj(x).double() * y.double()).sum())
     rhs = float((x.double() * proj.T(y).double()).sum())
     assert abs(lhs - rhs) / abs(lhs) < 1e-4

@@ -11,8 +11,11 @@ from repro.kernels import ref as jref
 from repro.kernels.fp_par import bp_parallel_sf_pallas, fp_parallel_sf_pallas
 
 import repro_torch.core.geometry as tgeo
-from repro_torch.kernels import fp_par, precision
+from repro_torch import kernels
+from repro_torch.kernels import fp_cone, fp_fan, fp_par, precision
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.fp_cone import ConePlan
+from repro_torch.kernels.fp_fan import FanPlan
 from repro_torch.kernels.fp_par import ParallelPlan
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -115,9 +118,28 @@ def test_bf16_within_bound_of_reference(name):
 def test_wrappers_count_no_launch_on_cpu_and_reject_bad_shapes():
     _, tg = _pair("cube")
     plan = ParallelPlan(tg)
-    fp_par.reset_launches()
+    vol = tgeo.VolumeGeometry(8, 8, 4)
+    fan = FanPlan(tgeo.fan_beam(4, 4, 12, vol, sod=40.0, sdd=80.0,
+                                pixel_width=2.0, detector_type="curved"))
+    cone = ConePlan(tgeo.cone_beam(4, 4, 12, vol, sod=40.0, sdd=80.0,
+                                   pixel_width=2.0))
+    kernels.reset_launches()
     fp_par.fp_parallel_sf(torch.zeros(tg.vol.shape), plan)
+    fp_par.bp_parallel_sf(torch.zeros(tg.sino_shape), plan)
+    for fp, bp, p in ((fp_fan.fp_fan_sf, fp_fan.bp_fan_sf, fan),
+                      (fp_cone.fp_cone_sf, fp_cone.bp_cone_sf, cone)):
+        fp(torch.zeros((2,) + vol.shape), p)
+        bp(torch.zeros((2,) + p.geom.sino_shape), p)
     assert fp_par.LAUNCHES == {"fp_par_sf": 0, "bp_par_sf": 0}
+    assert kernels.launches() == {k: 0 for k in (
+        "fp_par_sf", "bp_par_sf", "fp_fan_sf", "bp_fan_sf", "fp_cone_sf",
+        "bp_cone_sf")}
+    with pytest.raises(ValueError):
+        fp_cone.fp_cone_sf(torch.zeros(vol.shape[:2]), cone)
+    with pytest.raises(ValueError):
+        FanPlan(tg)
+    with pytest.raises(ValueError):
+        ConePlan(fan.geom)
     with pytest.raises(ValueError):
         fp_par.fp_parallel_sf(torch.zeros(tg.vol.shape[:2]), plan)
     with pytest.raises(ValueError):
