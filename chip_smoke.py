@@ -32,12 +32,32 @@ path through the public API at the paper's sizes:
   plain versions on two of its views (one per view group; with the library
   time) and on seven views at the axes and at both sides of the 45 and 135
   degree view-group edges, where the FP's voxel window is tightest.
+* helical cell (modular) — the helical class of the reference's
+  ``launch/ct_train.py:193-199`` at n = 512: a 512x512x8 volume, 2 turns of
+  4 mm pitch in 768 views, a 6x1126 detector (2 mm rows, 1 mm columns), sod
+  1024, sdd 1536, at batch 8 (ellipse keyframes blended along z, seeds
+  0-7, f32).  Dot tests (f32, bf16), the autograd gradient bit-equal to
+  A^T(Ax - y), double backward, SIRT-30, CGLS-20 (non-increasing residual)
+  and FISTA-TV-30 with their PSNRs, and data-consistency refinement on a
+  few-view mask of half the views.  Its kernels are held against the plain
+  versions on the whole cell at batch 8 in f32 (6.2e9 nonzeros: no library
+  matrix), and on 90 of its views at batch 8 in f32 and bf16 (the first and
+  last, both sides of each turn's 45 and 135 degree view-group edges, and
+  evenly spaced others; with the library time).  Batch 1 is timed on both
+  kernel instances (one and eight samples per thread).
+* modular_wobbly (kernel phase) — the irregular trajectory of the
+  reference's ``tests/test_modular.py:38-57`` scaled x8: 128x128x64, 90
+  views, per-view sod/sdd/source height and detector shifts, e_v flipped on
+  odd views, a 128x192 detector of 2 mm.
+* cone_as_modular — the cone cell re-expressed as modular frames: one FP
+  and one BP against the cone kernels on the same inputs (relative norm
+  < 1e-4); its kernels are held against the plain versions on views 7, 31.
 
 Each path runs with every kernel launch count set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
-Last, a torch.profiler breakdown of one projector pair of the main and fan
-cells and of the 3D and cone cells' FP and BP says where the device time
-goes.
+Last, a torch.profiler breakdown of one projector pair of the main, fan
+and helical cells and of the 3D and cone cells' FP and BP says where the
+device time goes.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it exits non-zero
@@ -98,6 +118,18 @@ def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def event_ms(torch, fn):
+    """``fn()`` and its device time in ms (CUDA events, one call)."""
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return out, s.elapsed_time(e)
+
+
 def host_s(torch, fn):
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -135,9 +167,9 @@ def lane_entries(torch, plan):
 
 
 def cone_entries(torch, plan):
-    """The nonzeros of the exact cone pair's system matrix (rows: view x
-    detector row x column, columns: x x y x z), chunk by chunk, from the
-    plain version's weights: yields (row, column, value)."""
+    """The nonzeros of the exact cone (or modular) pair's system matrix
+    (rows: view x detector row x column, columns: x x y x z), chunk by
+    chunk, from the plain version's weights: yields (row, column, value)."""
     from repro_torch.kernels.fp_cone import _chunks, chunk_taps
     geom = plan.geom
     ny, nz = geom.vol.ny, geom.vol.nz
@@ -161,8 +193,8 @@ def cone_entries(torch, plan):
 
 
 def cone_nnz(torch, plan) -> int:
-    """The exact cone pair's nonzero weights, counted one view at a time
-    (cheaper than counting cone_entries: no indices are made)."""
+    """The exact cone (or modular) pair's nonzero weights, counted one view
+    at a time (cheaper than counting cone_entries: no indices are made)."""
     from repro_torch.kernels.fp_cone import chunk_taps
     dt = plan.on(torch.device("cuda"))
     tile = torch.empty(0, device="cuda")
@@ -220,10 +252,25 @@ def csr_matrix(torch, entries, shape, nnz: int, transpose: bool = False):
             (n_rows, n_cols), check_invariants=False)
 
 
+@dataclasses.dataclass
+class Cell:
+    """A kernel-phase cell: the kernel family, the geometry, the batch, a
+    maker of the FP's f32 input at the kernel's interface, the plain
+    version's timing repeats (0: time its comparison call alone, where it is
+    slow), a note, and the tile dtypes to hold."""
+    family: str
+    geom: object
+    batch: int
+    make_x: object
+    plain_reps: int = 3
+    note: str = ""
+    dtypes: tuple = ("float32", "bfloat16")
+
+
 def families():
     """Per kernel family: its plan, its two kernel wrappers and their plain
     versions, its kernel names and source, and the TPU kernels it replaces."""
-    from repro_torch.kernels import fp_cone, fp_fan, fp_par
+    from repro_torch.kernels import fp_cone, fp_fan, fp_modular, fp_par
     return {
         "par": dict(plan=fp_par.ParallelPlan, fp=fp_par.fp_lanes,
                     bp=fp_par.bp_lanes, fp_plain=fp_par.fp_lanes_plain,
@@ -244,21 +291,28 @@ def families():
                      source="src/repro_torch/kernels/csrc/fp_cone.cu",
                      replaces=("src/repro/kernels/fp_cone.py:183",
                                "src/repro/kernels/fp_cone.py:346")),
+        "modular": dict(plan=fp_modular.ModularPlan, fp=fp_modular.fp_batch,
+                        bp=fp_modular.bp_batch, fp_plain=fp_modular.fp_batch_plain,
+                        bp_plain=fp_modular.bp_batch_plain,
+                        names=("fp_modular_sf", "bp_modular_sf"),
+                        source="src/repro_torch/kernels/csrc/fp_modular.cu",
+                        replaces=("src/repro/kernels/fp_modular.py:223",
+                                  "src/repro/kernels/fp_modular.py:407")),
     }
 
 
 def kernel_phase(torch, cells, results):
     """Each kernel against its plain version on the card, with times.
-    ``cells``: name -> (family, geometry, batch, make_x, plain_reps, note);
-    make_x gives the FP's f32 input at the kernel's interface; plain_reps 0
-    times the plain version's comparison call alone (where it is slow)."""
+    ``cells``: name -> Cell."""
     from repro_torch.kernels import precision, tune
     fams = families()
-    for cell, (fam, geom, batch, make_x, plain_reps, note) in cells.items():
+    for cell, c in cells.items():
+        t_cell = time.perf_counter()
+        fam, geom, batch, plain_reps = c.family, c.geom, c.batch, c.plain_reps
         F = fams[fam]
         plan = F["plan"](geom)
-        lane = fam != "cone"
-        # the cone launch derives its block from the shapes
+        lane = fam in ("par", "fan")
+        # the cone and modular launches derive their block from the shapes
         cfg = tune.heuristic_config(geom, batch) if lane else None
         args = (plan, cfg) if lane else (plan,)
         mult = batch * geom.n_rows if lane else batch   # outputs per weight
@@ -274,10 +328,10 @@ def kernel_phase(torch, cells, results):
                      geom.vol.nx * geom.vol.ny * geom.vol.nz)
             nnz = cone_nnz(torch, plan)
         library = nnz <= LIB_NNZ_MAX
-        x_f32 = make_x()
-        log(f"cell {cell}: nnz {nnz}" + (f" ({note})" if note else ""))
-        for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype).removeprefix("torch.")
+        x_f32 = c.make_x()
+        log(f"cell {cell}: nnz {nnz}, batch {batch}" + (f" ({c.note})" if c.note else ""))
+        for name in c.dtypes:
+            dtype = getattr(torch, name)
             tol = F32_TOL if dtype == torch.float32 else precision.BF16_KERNEL_REL_TOL
             x = x_f32.to(dtype)
             q = F["fp"](x_f32, *args).to(dtype)
@@ -285,28 +339,22 @@ def kernel_phase(torch, cells, results):
             for kname, run, plain, inp in (
                     (F["names"][0], F["fp"], F["fp_plain"], x),
                     (F["names"][1], F["bp"], F["bp_plain"], q)):
-                k_out = run(inp, *args)
-                torch.cuda.synchronize()
+                k_out, first_ms = event_ms(torch, lambda: run(inp, *args))
                 if plain_reps:
                     p_out = plain(inp, plan)
                     plain_ms = cuda_ms(torch, lambda: plain(inp, plan),
                                        reps=plain_reps, warmup=1)
                 else:                      # time the comparison call itself
-                    torch.cuda.synchronize()
-                    s_ev = torch.cuda.Event(enable_timing=True)
-                    e_ev = torch.cuda.Event(enable_timing=True)
-                    s_ev.record()
-                    p_out = plain(inp, plan)
-                    e_ev.record()
-                    e_ev.synchronize()
-                    plain_ms = s_ev.elapsed_time(e_ev)
+                    p_out, plain_ms = event_ms(torch, lambda: plain(inp, plan))
                 err = rel_err(k_out, p_out)
                 abs_err = float((k_out - p_out).abs().max())
                 check(bool(torch.isfinite(k_out).all()), f"{kname} {cell} {name}: non-finite")
                 check(err <= tol, f"{kname} {cell} {name}: |kernel-plain|/|plain| "
                                   f"= {err:.3g} > {tol:.3g}")
                 del p_out
-                ms = cuda_ms(torch, lambda: run(inp, *args), reps=20)
+                # about a second of repeats, at least 3
+                reps = max(3, min(20, int(1000.0 / max(first_ms, 1e-3))))
+                ms = cuda_ms(torch, lambda: run(inp, *args), reps=reps)
                 lib_ms = None
                 if dtype == torch.float32 and library:
                     fwd = kname == F["names"][0]
@@ -333,7 +381,8 @@ def kernel_phase(torch, cells, results):
                                  "batch": batch, "detector": geom.detector_type},
                        "config": dataclasses.asdict(cfg) if lane else None,
                        "rel_err": err, "max_abs_err": abs_err, "tol": tol,
-                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "ms": ms, "reps": reps, "plain_ms": plain_ms,
+                       "library_ms": lib_ms,
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                        "bytes": nbytes, "ops": ops, "nnz": nnz,
@@ -345,6 +394,7 @@ def kernel_phase(torch, cells, results):
                     f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
         del x_f32, x, q
         torch.cuda.empty_cache()
+        results["phase_s"][f"kernels {cell}"] = time.perf_counter() - t_cell
 
 
 def main_cell(torch, results):
@@ -469,6 +519,65 @@ def cone_geometry():
                      angular_range=360.0)
 
 
+def helical_geometry():
+    """The helical class of the reference's launch/ct_train.py:193-199 at
+    n = 512 (nz = 8): helical_beam(2 turns, pitch nz/2, 1.5n views,
+    max(6, nz/2 + 2) rows of 2 mm, 2.2n columns, n x n x nz, sod=2n,
+    sdd=3n)."""
+    from repro_torch import VolumeGeometry, helical_beam
+    return helical_beam(n_turns=2.0, pitch=4.0, n_angles=768, n_rows=6,
+                        n_cols=1126, vol=VolumeGeometry(512, 512, 8), sod=1024.0,
+                        sdd=1536.0, pixel_width=1.0, pixel_height=2.0)
+
+
+def helical_views() -> list:
+    """90 of the helical cell's 768 views (0.9375 degrees apart): the first
+    and last, where the source sits at the volume's ends; both sides of the
+    45 and 135 degree view-group edges (views 48 and 144) in each turn; and
+    evenly spaced others."""
+    edges = [v + t for t in (0, 384) for e in (48, 144) for v in (e - 1, e, e + 1)]
+    keep = sorted(set([0, 767] + edges))
+    others = [v for v in np.linspace(0, 767, 100).round().astype(int).tolist()
+              if v not in keep]
+    step = len(others) / (90 - len(keep))
+    return sorted(keep + [others[int(i * step)] for i in range(90 - len(keep))])
+
+
+def wobbly_geometry():
+    """The irregular trajectory of the reference's tests/test_modular.py:38-57
+    scaled x8: non-uniform angles, per-view sod/sdd/source-height wobble,
+    per-view in-plane and axial detector shifts, e_v flipped on odd views."""
+    from repro_torch import VolumeGeometry, modular_beam
+    na = 90
+    rng = np.random.default_rng(3)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, na))
+    sod = 640.0 + rng.uniform(-40, 40, na)
+    sdd = 1280.0 + rng.uniform(-80, 80, na)
+    zsrc = rng.uniform(-32, 32, na)
+    c, s = np.cos(ang), np.sin(ang)
+    src = np.stack([sod * c, sod * s, zsrc], -1)
+    eu = np.stack([-s, c, np.zeros(na)], -1)
+    ev = np.stack([np.zeros(na), np.zeros(na),
+                   np.where(np.arange(na) % 2 == 0, 1.0, -1.0)], -1)
+    ctr = (np.stack([(sod - sdd) * c, (sod - sdd) * s, zsrc], -1)
+           + rng.uniform(-24, 24, na)[:, None] * eu
+           + rng.uniform(-24, 24, na)[:, None] * ev)
+    return modular_beam(src, ctr, eu, ev, n_rows=128, n_cols=192,
+                        vol=VolumeGeometry(128, 128, 64), pixel_width=2.0,
+                        pixel_height=2.0)
+
+
+def helical_phantoms(torch, vol, seeds=range(8)):
+    """(len(seeds), nx, ny, nz) volumes filling the z extent: per seed s two
+    random ellipse keyframes (seeds s and s + 8) blended linearly along z, at
+    0.02 /mm, as the reference's data/pipeline.py:104-111 builds them."""
+    from repro_torch.data.phantoms import random_ellipse_phantom
+    t = np.arange(vol.nz, dtype=np.float32) / max(vol.nz - 1, 1)
+    out = [random_ellipse_phantom(s, vol)[0][..., None] * (1.0 - t)
+           + random_ellipse_phantom(s + 8, vol)[0][..., None] * t for s in seeds]
+    return torch.from_numpy((0.02 * np.stack(out)).astype(np.float32)).cuda()
+
+
 def disk_volume(torch, vol, radius: float = 80.0, value: float = 0.02):
     X, Y = np.meshgrid(vol.x_coords(), vol.y_coords(), indexing="ij")
     d = (value * ((X ** 2 + Y ** 2) <= radius ** 2)).astype(np.float32)
@@ -572,8 +681,9 @@ def cone_path(torch, results):
     log(f"cone dot test {rel:.3g} (first calls FP {t_fp:.3f} s, BP {t_bp:.3f} s)")
     check(rel < 1e-4, f"cone dot test {rel:.3g}")
     del ax, aty
-    fp_ms = cuda_ms(torch, lambda: proj(x), reps=3, warmup=1)
-    bp_ms = cuda_ms(torch, lambda: proj.T(y), reps=3, warmup=1)
+    # the first calls warmed the kernels; a call takes ~4 s
+    fp_ms = cuda_ms(torch, lambda: proj(x), reps=2, warmup=0)
+    bp_ms = cuda_ms(torch, lambda: proj.T(y), reps=2, warmup=0)
     del x, y
     cyl = disk_volume(torch, geom.vol)
     sino = proj(cyl)
@@ -600,13 +710,145 @@ def cone_path(torch, results):
     check(abs(centre / 0.02 - 1.0) < 0.05, "FDK cylinder centre off by >= 5 %")
 
 
+def helical_path(torch, results):
+    """The helical path through the public API at full width, batch 8."""
+    from repro_torch import Projector, ProjectorSpec
+    from repro_torch.data.metrics import psnr
+    from repro_torch.kernels import precision
+    from repro_torch.recon import (cgls, complete_and_refine, fista_tv,
+                                   projection_residual, sirt)
+    geom = helical_geometry()
+    vol = geom.vol
+    out = {}
+    x = helical_phantoms(torch, vol)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    y = torch.randn((8,) + geom.sino_shape, generator=gen, device="cuda")
+    t_start = time.perf_counter()
+    proj = Projector(ProjectorSpec(geom))
+    for cdt, tol in ((None, 1e-4), ("bfloat16", precision.BF16_DOT_TOL)):
+        p = proj if cdt is None else Projector(ProjectorSpec(geom, compute_dtype=cdt))
+        lhs, rhs = vdot64(p(x), y), vdot64(x, p.T(y))
+        rel = abs(lhs - rhs) / abs(lhs)
+        out[f"dot_{cdt or 'float32'}"] = rel
+        log(f"helical dot test {cdt or 'float32'}: {rel:.3g} (tol {tol:.3g})")
+        check(rel < tol, f"helical dot test {cdt}: {rel:.3g} >= {tol:.3g}")
+    del y
+    sino, t_fp = host_s(torch, lambda: proj(x))
+    _, t_bp = host_s(torch, lambda: proj.T(sino))
+    out["fp_s"], out["bp_s"] = t_fp, t_bp
+    check(tuple(sino.shape) == (8,) + geom.sino_shape and bool(torch.isfinite(sino).all()),
+          "helical sinogram shape/finite")
+    out["fp_ms"] = cuda_ms(torch, lambda: proj(x), reps=3, warmup=0)
+    out["bp_ms"] = cuda_ms(torch, lambda: proj.T(sino), reps=3, warmup=0)
+
+    xg = (0.5 * x).requires_grad_()
+    loss = 0.5 * torch.sum((proj(xg) - sino) ** 2)
+    (grad,) = torch.autograd.grad(loss, xg, create_graph=True)
+    expected = proj.T(proj(xg.detach()) - sino)
+    out["grad_bit_equal"] = bool(torch.equal(grad, expected))
+    check(out["grad_bit_equal"], "helical: autograd gradient is not bit-equal to "
+          "A^T(Ax - y)")
+    v = torch.randn(x.shape, generator=gen, device="cuda")
+    (hv,) = torch.autograd.grad(torch.sum(grad * v), xg)
+    want = proj.T(proj(v))
+    herr = float((hv - want).abs().max() / want.abs().max())
+    out["double_backward_rel_err"] = herr
+    check(torch.allclose(hv, want, rtol=1e-4, atol=1e-5 * float(want.abs().max())),
+          f"helical: double backward != A^T A v (rel {herr:.3g})")
+    log(f"helical gradient bit-equal to A^T(Ax-y); double backward rel {herr:.3g}")
+    del xg, loss, grad, expected, v, hv, want
+
+    def mean_psnr(img):
+        return float(np.mean([psnr(img[i], x[i]) for i in range(8)]))
+
+    res, out["sirt30_s"] = host_s(torch, lambda: sirt(proj, sino, n_iters=30))
+    hist = res.residual_history
+    check(tuple(hist.shape) == (8, 30), f"SIRT history shape {tuple(hist.shape)}")
+    check(bool((hist[:, -1] < hist[:, 0]).all()), "helical SIRT residual did not fall")
+    out["sirt_psnr"] = mean_psnr(res.image)
+    x_sirt = res.image
+    res, out["cgls20_s"] = host_s(torch, lambda: cgls(proj, sino, n_iters=20))
+    hist = res.residual_history
+    # CG's residual norm is non-increasing; 1e-6 relative is the f32
+    # rounding of a norm over 3.3e7 rays
+    out["cgls_residual_ratio"] = float((hist[:, -1] / hist[:, 0]).max())
+    check(bool((hist[:, 1:] <= hist[:, :-1] * (1.0 + 1e-6)).all()),
+          "helical CGLS residual increased")
+    out["cgls_psnr"] = mean_psnr(res.image)
+    res, out["fista_tv30_s"] = host_s(
+        torch, lambda: fista_tv(proj, sino, n_iters=30, beta=2e-3))
+    out["fista_tv_psnr"] = mean_psnr(res.image)
+    check(bool(torch.isfinite(res.image).all()), "helical FISTA-TV non-finite")
+    del res
+
+    # few-view data consistency: half the views measured (ct_train.py:224)
+    idx = np.sort(np.random.default_rng(0).choice(geom.n_angles, geom.n_angles // 2,
+                                                  replace=False))
+    mask = torch.zeros((geom.n_angles, 1, 1), device="cuda")
+    mask[torch.from_numpy(idx).cuda()] = 1.0
+    before = float(projection_residual(proj, x_sirt, sino, mask))
+    (x_dc, completed), out["dc_refine10_s"] = host_s(
+        torch, lambda: complete_and_refine(proj, x_sirt, sino, mask, n_iters=10))
+    after = float(projection_residual(proj, x_dc, sino, mask))
+    out["dc_residual_before"], out["dc_residual_after"] = before, after
+    check(after < before, f"data-consistency refinement did not lower the "
+                          f"projection residual ({before:.4g} -> {after:.4g})")
+    check(torch.equal(completed[:, idx], sino[:, idx]), "completion changed a "
+                                                         "measured view")
+    del x_dc, completed, x_sirt
+    out["path_s"] = time.perf_counter() - t_start
+    log(f"helical FP {out['fp_ms']:.1f} ms, BP {out['bp_ms']:.1f} ms (batch 8); "
+        f"SIRT-30 {out['sirt_psnr']:.2f} dB ({out['sirt30_s']:.2f} s), CGLS-20 "
+        f"{out['cgls_psnr']:.2f} dB ({out['cgls20_s']:.2f} s, residual ratio "
+        f"{out['cgls_residual_ratio']:.3g}), FISTA-TV-30 {out['fista_tv_psnr']:.2f} dB "
+        f"({out['fista_tv30_s']:.2f} s); few-view DC residual {before:.4f} -> {after:.4f}")
+
+    # the cell's bound is the kernel phase's (cell "helical", f32)
+    del x, sino
+    torch.cuda.empty_cache()
+    results["helical"] = out
+
+
+def cone_as_modular_path(torch, results):
+    """The 512^3 cone cell as modular frames through the public API, against
+    the cone kernels on the same inputs."""
+    from repro_torch import Projector, ProjectorSpec
+    from repro_torch.core.geometry import cone_as_modular
+    geom = cone_geometry()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.rand(geom.vol.shape, generator=gen, device="cuda")
+    y = torch.randn(geom.sino_shape, generator=gen, device="cuda")
+    pm = Projector(ProjectorSpec(cone_as_modular(geom)))
+    pc = Projector(ProjectorSpec(geom))
+    ax, t_fp = host_s(torch, lambda: pm(x))
+    aty, t_bp = host_s(torch, lambda: pm.T(y))
+    check(bool(torch.isfinite(ax).all() and torch.isfinite(aty).all()),
+          "cone_as_modular non-finite")
+    lhs, rhs = vdot64(ax, y), vdot64(x, aty)
+    dot = abs(lhs - rhs) / abs(lhs)
+    want = pc(x)
+    fp_rel = float((ax - want).norm() / want.norm())
+    del ax, want
+    want = pc.T(y)
+    bp_rel = float((aty - want).norm() / want.norm())
+    del aty, want
+    results["cone_as_modular"] = {"fp_s": t_fp, "bp_s": t_bp, "dot": dot,
+                                  "fp_rel_vs_cone": fp_rel, "bp_rel_vs_cone": bp_rel}
+    log(f"cone_as_modular 512^3/180 views: FP {t_fp:.3f} s, BP {t_bp:.3f} s, dot "
+        f"{dot:.3g}; vs the cone kernels FP {fp_rel:.3g}, BP {bp_rel:.3g}")
+    check(dot < 1e-4, f"cone_as_modular dot test {dot:.3g}")
+    check(fp_rel < 1e-4 and bp_rel < 1e-4,
+          f"cone_as_modular vs cone kernels: FP {fp_rel:.3g}, BP {bp_rel:.3g}")
+    torch.cuda.empty_cache()
+
+
 def breakdown(torch, name: str, fn, results, reps: int = 3,
-              ms_reps: int = 5) -> None:
+              ms_reps: int = 5, warmup: int = 1) -> None:
     """Where the time of ``fn`` goes: its median device time (CUDA events),
     then a torch.profiler window over ``reps`` calls — device time by
     kernel and the device's busy share of the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    ms = cuda_ms(torch, fn, reps=ms_reps, warmup=1)
+    ms = cuda_ms(torch, fn, reps=ms_reps, warmup=warmup)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -637,9 +879,9 @@ def breakdown(torch, name: str, fn, results, reps: int = 3,
 
 
 def profile_cells(torch, results) -> None:
-    """Device-time breakdown of the main and fan cells' projector pair (one
-    training step's A then A^T on the batch of 8) and of the 3D and cone
-    cells' FP and BP."""
+    """Device-time breakdown of the main, fan and helical cells' projector
+    pair (one training step's A then A^T on the batch of 8) and of the 3D
+    and cone cells' FP and BP."""
     from repro_torch import Projector, ProjectorSpec, VolumeGeometry, parallel_beam
     from repro_torch.data.phantoms import random_ellipse_phantom
     vol = VolumeGeometry(512, 512, 1)
@@ -653,20 +895,56 @@ def profile_cells(torch, results) -> None:
         breakdown(torch, name, lambda: proj.T(proj(x) - y), results)
         del y
     del x
-    for name, geom, reps in (
+    proj = Projector(ProjectorSpec(helical_geometry()))
+    xh = helical_phantoms(torch, proj.geom.vol)
+    yh = proj(xh)
+    breakdown(torch, "helical_pair", lambda: proj.T(proj(xh) - yh), results,
+              reps=2, ms_reps=3)
+    del xh, yh
+    # the kernels are warm from their paths; the cone's take ~4 s a call
+    for name, geom, reps, ms_reps in (
             ("3d", parallel_beam(180, 512, 768, VolumeGeometry(512, 512, 512),
-                                 angular_range=180.0), 2),
-            ("cone", cone_geometry(), 1)):
+                                 angular_range=180.0), 2, 3),
+            ("cone", cone_geometry(), 1, 1)):
         proj3 = Projector(ProjectorSpec(geom))
         x3 = torch.rand(geom.vol.shape, device="cuda")
         breakdown(torch, f"{name}_fp", lambda: proj3(x3), results, reps=reps,
-                  ms_reps=reps + 1)
+                  ms_reps=ms_reps, warmup=0)
         y3 = proj3(x3)
         del x3
         breakdown(torch, f"{name}_bp", lambda: proj3.T(y3), results, reps=reps,
-                  ms_reps=reps + 1)
+                  ms_reps=ms_reps, warmup=0)
         del y3
         torch.cuda.empty_cache()
+
+
+def instance_times(torch, results) -> None:
+    """One sample of the helical cell through both instances of each
+    modular kernel: the single-sample one that the wrappers pick for batch
+    1, and the one that carries 8 samples per thread (batch > 1), which sums
+    the same terms in the same order.  The launches count in a local tally,
+    not in the kernels' counts."""
+    from repro_torch.kernels import fp_cone, fp_modular
+    geom = helical_geometry()
+    plan = fp_modular.ModularPlan(geom)
+    tally = {"fp_modular_sf": 0, "bp_modular_sf": 0}
+    x = helical_phantoms(torch, geom.vol, seeds=(0,))
+    y = fp_cone.launch("fp_modular", "fp_modular_sf", x, plan, tally, spt=1)
+    out = {}
+    for kname, inp in (("fp_modular_sf", x), ("bp_modular_sf", y)):
+        got = {}
+        for spt in (1, 8):
+            def run(kname=kname, inp=inp, spt=spt):
+                return fp_cone.launch("fp_modular", kname, inp, plan, tally, spt=spt)
+            got[spt] = run()
+            out[f"{kname}_spt{spt}_ms"] = cuda_ms(torch, run, reps=3, warmup=1)
+        rel = rel_err(got[8], got[1])
+        out[f"{kname}_bit_equal"] = bool(torch.equal(got[8], got[1]))
+        check(rel < 1e-6, f"{kname} batch 1: 8-sample instance vs 1-sample {rel:.3g}")
+        log(f"{kname} batch 1 on the helical cell: 1 sample per thread "
+            f"{out[f'{kname}_spt1_ms']:.1f} ms, 8 per thread "
+            f"{out[f'{kname}_spt8_ms']:.1f} ms (bit-equal {out[f'{kname}_bit_equal']})")
+    results["instances"] = out
 
 
 def run_path(torch, results, name: str, kernels, fn) -> dict:
@@ -674,9 +952,11 @@ def run_path(torch, results, name: str, kernels, fn) -> dict:
     just after; fail if a kernel of the path was not launched.  Returns the
     counts of the path's own kernels."""
     from repro_torch import kernels as K
+    t = time.perf_counter()
     K.reset_launches()
     fn()
     launches = K.launches()
+    results["phase_s"][f"path {name}"] = time.perf_counter() - t
     results.setdefault("path_launches", {})[name] = launches
     log(f"{name} path launches {launches}")
     for k in kernels:
@@ -704,10 +984,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     results = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-               "kernels": []}
+               "kernels": [], "phase_s": {}}
     t_start = time.perf_counter()
 
     from repro_torch import VolumeGeometry, cone_beam, parallel_beam
+    from repro_torch.core.geometry import cone_as_modular
     from repro_torch.data.phantoms import random_ellipse_phantom
     from repro_torch.kernels import build
 
@@ -735,24 +1016,46 @@ def main() -> int:
                         sdd=512.0, pixel_width=2.0, pixel_height=2.0,
                         angular_range=360.0)
     cells = {
-        "main": ("par", parallel_beam(720, 1, 768, main_vol, angular_range=180.0),
-                 8, phantom_lanes, 3, ""),
-        "3d128": ("par", parallel_beam(45, 128, 192, VolumeGeometry(128, 128, 128),
-                                       angular_range=180.0), 1, rand(128, 128, 128), 3, ""),
-        "3d": ("par", parallel_beam(180, 512, 768, VolumeGeometry(512, 512, 512),
-                                    angular_range=180.0), 1, rand(512, 512, 512), 3, ""),
-        "fan": ("fan", fan_geometry("flat"), 8, phantom_lanes, 3, ""),
-        "fan_curved": ("fan", fan_geometry("curved"), 8, phantom_lanes,
-                       3, ""),
-        "cone": ("cone", cone_two, 1, rand(1, 512, 512, 512), 0,
-                 "2 of the 180 views: the plain version cannot run all 180 at "
-                 "512^3 in this run's time"),
-        "cone_edges": ("cone", cone_edges, 1, rand(1, 512, 512, 512), 0,
-                       "views at 0, 44, 46, 90, 134, 136, 180 degrees: the FP's "
-                       "voxel window at the group edges; no library matrix"),
-        "cone128": ("cone", cone128, 1, rand(1, 128, 128, 128), 2, ""),
+        "main": Cell("par", parallel_beam(720, 1, 768, main_vol, angular_range=180.0),
+                     8, phantom_lanes, plain_reps=1),
+        "3d128": Cell("par", parallel_beam(45, 128, 192, VolumeGeometry(128, 128, 128),
+                                           angular_range=180.0), 1, rand(128, 128, 128)),
+        "3d": Cell("par", parallel_beam(180, 512, 768, VolumeGeometry(512, 512, 512),
+                                        angular_range=180.0), 1, rand(512, 512, 512),
+                   plain_reps=1),
+        "fan": Cell("fan", fan_geometry("flat"), 8, phantom_lanes, plain_reps=1),
+        "fan_curved": Cell("fan", fan_geometry("curved"), 8, phantom_lanes,
+                           plain_reps=1),
+        "cone": Cell("cone", cone_two, 1, rand(1, 512, 512, 512), 0,
+                     "2 of the 180 views: the plain version cannot run all 180 at "
+                     "512^3 in this run's time"),
+        "cone_edges": Cell("cone", cone_edges, 1, rand(1, 512, 512, 512), 0,
+                           "views at 0, 44, 46, 90, 134, 136, 180 degrees: the FP's "
+                           "voxel window at the group edges, which the tile's "
+                           "dtype does not change; f32; no library matrix",
+                           ("float32",)),
+        "cone128": Cell("cone", cone128, 1, rand(1, 128, 128, 128), 2),
     }
+    helical = helical_geometry()
+    cells.update({
+        "helical": Cell("modular", helical, 8,
+                        lambda: helical_phantoms(torch, helical.vol), 0,
+                        "the whole cell at the path's batch; f32", ("float32",)),
+        "helical_cut": Cell("modular", helical.subset(helical_views()), 8,
+                            lambda: helical_phantoms(torch, helical.vol), 0,
+                            "90 of the 768 views (the ends, both sides of the 45 "
+                            "and 135 degree group edges in each turn, evenly "
+                            "spaced others), with the library matrix"),
+        "modular_wobbly": Cell("modular", wobbly_geometry(), 1, rand(1, 128, 128, 64),
+                               2),
+        "cone_as_modular": Cell("modular", cone_as_modular(cone_two), 1,
+                                rand(1, 512, 512, 512), 0,
+                                "views 7 and 31 of the cone cell as modular frames"),
+    })
     kernel_phase(torch, cells, results)
+    t = time.perf_counter()
+    instance_times(torch, results)
+    results["phase_s"]["instances"] = time.perf_counter() - t
 
     launches = run_path(torch, results, "main", ("fp_par_sf", "bp_par_sf"),
                         lambda: main_cell(torch, results))
@@ -763,13 +1066,20 @@ def main() -> int:
         lambda: [fan_path(torch, results, d) for d in ("flat", "curved")]))
     launches.update(run_path(torch, results, "cone", ("fp_cone_sf", "bp_cone_sf"),
                              lambda: cone_path(torch, results)))
+    modular = ("fp_modular_sf", "bp_modular_sf")
+    launches.update(run_path(torch, results, "helical", modular,
+                             lambda: helical_path(torch, results)))
+    run_path(torch, results, "cone_as_modular", modular,
+             lambda: cone_as_modular_path(torch, results))
+    t = time.perf_counter()
     profile_cells(torch, results)
     torch.cuda.synchronize()
+    results["phase_s"]["profile"] = time.perf_counter() - t
 
     fams = families()
-    own_cell = {"par": "main", "fan": "fan", "cone": "cone"}
+    own_cell = {"par": "main", "fan": "fan", "cone": "cone", "modular": "helical"}
     line = []
-    for fam in ("par", "fan", "cone"):
+    for fam in ("par", "fan", "cone", "modular"):
         F = fams[fam]
         for row in results["kernels"]:
             if row["cell"] != own_cell[fam] or row["dtype"] != "float32":
@@ -782,6 +1092,7 @@ def main() -> int:
                          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                          "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     results["wall_s"] = time.perf_counter() - t_start
+    log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in results["phase_s"].items()))
     log(f"wall {results['wall_s']:.1f} s")
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)

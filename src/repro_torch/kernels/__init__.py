@@ -9,10 +9,11 @@ compiled libraries: ``kernels/build.py`` does that on the first launch.
 """
 from typing import Dict
 
-from repro_torch.kernels import fp_cone, fp_fan, fp_par, ops, ref, tune  # noqa: F401
+from repro_torch.kernels import (fp_cone, fp_fan, fp_modular, fp_par,  # noqa: F401
+                                 ops, ref, tune)
 from repro_torch.kernels.tune import KernelConfig  # noqa: F401
 
-_MODULES = (fp_par, fp_fan, fp_cone)
+_MODULES = (fp_par, fp_fan, fp_cone, fp_modular)
 
 for _m in _MODULES:
     _m.register()

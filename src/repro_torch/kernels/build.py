@@ -63,18 +63,24 @@ _SIGNATURES = {
     },
     "fp_cone": {
         "fp_cone_sf_launch": [
+            _c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int,
             _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
-            _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
             _c.c_longlong, _c.c_longlong, _c.c_int, _c.c_int, _c.c_float,
             _c.c_float, _c.c_float, _c.c_float, _c.c_float, _c.c_float,
             _c.c_float, _c.c_float, _c.c_float, _c.c_void_p],
         "bp_cone_sf_launch": [
+            _c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int,
             _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
-            _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
             _c.c_longlong, _c.c_longlong, _c.c_int, _c.c_int, _c.c_float,
             _c.c_float, _c.c_float, _c.c_float, _c.c_float, _c.c_float,
             _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
     },
+}
+# The modular pair's entry points take the cone pair's arguments (sdd is the
+# reference distance sdd_ref).
+_SIGNATURES["fp_modular"] = {
+    "fp_modular_sf_launch": _SIGNATURES["fp_cone"]["fp_cone_sf_launch"],
+    "bp_modular_sf_launch": _SIGNATURES["fp_cone"]["bp_cone_sf_launch"],
 }
 
 

@@ -119,6 +119,23 @@ __device__ __forceinline__ SfTrap sf_corner_trapezoid(const float* __restrict__ 
   return r;
 }
 
+// Integer part of x clamped to [lo, hi] before the conversion, so that a
+// huge quotient cannot overflow the int.
+__device__ __forceinline__ int clamp_floor(float x, int lo, int hi) {
+  return (int)floorf(fminf(fmaxf(x, (float)lo), (float)hi));
+}
+
+// Axial weight (cone, modular) of slice extent [vlo, vhi] (detector mm) over
+// the row whose lower edge is elv, times the obliquity: the float expression
+// of fp_cone.py `chunk_taps`.
+__device__ __forceinline__ float axial_weight(float vlo, float vhi, float elv,
+                                              float dv, float obl) {
+  const float ov = __fdiv_rn(
+      fmaxf(__fsub_rn(fminf(vhi, __fadd_rn(elv, dv)), fmaxf(vlo, elv)), 0.0f),
+      dv);
+  return __fmul_rn(ov, obl);
+}
+
 // Gathered indices [*g0, *g1] of the voxels on loop line li whose footprint
 // can meet the detector interval [lo, hi], where lo and hi are already
 // widened by a bound on the footprint's half-width.  Inverts the centre

@@ -194,8 +194,16 @@ class ConePlan:
                 "curved-detector cone is not ported to the PyTorch port yet "
                 "(the reference runs it on its Joseph projector); ROADMAP.md "
                 "queue 1 lists it")
-        self.geom = geom
         px, py, order = _view_params_cone(geom)
+        self._set(geom, px, py, order, geom.sdd)
+        self.hw = _f32(footprint_halfwidth(geom))
+        self.taps_u = geom.max_footprint_cols()
+        self.taps_v = geom.max_footprint_rows()
+
+    def _set(self, geom: CTGeometry, px: np.ndarray, py: np.ndarray,
+             order: np.ndarray, sdd: float) -> None:
+        """The fields common to the cone and modular plans."""
+        self.geom = geom
         self.tables = (px, py)
         nax = px.shape[0]
         self.rows = (order[:nax].astype(np.int32), order[nax:].astype(np.int32))
@@ -207,12 +215,21 @@ class ConePlan:
         self.dv = _f32(dv)
         self.z0 = float(v.z_coords()[0])
         self.dz = _f32(v.dz)
-        self.sdd = _f32(geom.sdd)
+        self.sdd = _f32(sdd)
         self.dxv = _f32(v.dx)
-        self.hw = _f32(footprint_halfwidth(geom))
-        self.taps_u = geom.max_footprint_cols()
-        self.taps_v = geom.max_footprint_rows()
         self._on: Dict[str, _DeviceTables] = {}
+
+    def axial(self, table: torch.Tensor, ell: torch.Tensor, rt2: torch.Tensor,
+              zt: torch.Tensor):
+        """The axial extents [vlo, vhi] (detector mm) of the slices at
+        heights ``zt`` (nzc,) and their obliquities, for voxels at central-ray
+        distance ``ell`` and squared transaxial ray length ``rt2`` (nvw, N,
+        1) in the views of ``table``: (vlo, vhi, obl), each (nvw, N, nzc)."""
+        hdz = self.dz / 2.0
+        # a tensor numerator: scalar / tensor would multiply by a reciprocal
+        mag = ell.new_full((), self.sdd) / torch.clamp(ell, min=_EPS)
+        obl = torch.sqrt(1.0 + (zt * zt) / torch.clamp(rt2, min=_EPS))
+        return (zt - hdz) * mag, (zt + hdz) * mag, obl
 
     def on(self, device: torch.device) -> _DeviceTables:
         key = str(device)
@@ -236,7 +253,10 @@ def chunk_taps(plan: ConePlan, table: torch.Tensor, ng: int, nl: int,
                z0: int, nzc: int, tile: torch.Tensor):
     """The cone pair's weights for the voxels of one view group in z slices
     ``z0 .. z0 + nzc`` and the views of ``table`` (nvw, 20), one footprint
-    tap (detector column x row) at a time: yields ``(pix, wu, wz)`` with
+    tap (detector column x row) at a time — or, given a
+    :class:`~repro_torch.kernels.fp_modular.ModularPlan` and its (nvw, 24)
+    rows, the modular pair's, whose axial map ``plan.axial`` reads the
+    per-view frame: yields ``(pix, wu, wz)`` with
     ``pix`` (nvw, ng * nl, nzc) the pixel ``v * n_cols + u`` within its view
     (clamped into range), ``wu`` (nvw, ng * nl, 1) the transaxial weight
     and ``wz`` (nvw, ng * nl, nzc) the axial weight (zero off the
@@ -253,12 +273,7 @@ def chunk_taps(plan: ConePlan, table: torch.Tensor, ng: int, nl: int,
             table, gi, li, plan.sdd, plan.dxv, False))
     k = torch.arange(z0, z0 + nzc, device=dev, dtype=torch.float32)
     zt = plan.z0 + k * plan.dz                              # (nzc,)
-    hdz = plan.dz / 2.0
-    # a tensor numerator: scalar / tensor would multiply by a reciprocal
-    mag = ell.new_full((), plan.sdd) / torch.clamp(ell, min=_EPS)
-    obl = torch.sqrt(1.0 + (zt * zt) / torch.clamp(rt2, min=_EPS))
-    vlo = (zt - hdz) * mag                                  # (nvw, N, nzc)
-    vhi = (zt + hdz) * mag
+    vlo, vhi, obl = plan.axial(table, ell, rt2, zt)         # (nvw, N, nzc)
     v_first = torch.floor((vlo - plan.ev0) / plan.dv).to(torch.int64)
     u_first = torch.floor((t0 - plan.e0) / plan.du).to(torch.int64)
     for ku in range(plan.taps_u):
@@ -360,6 +375,54 @@ def bp_batch_plain(q: torch.Tensor, plan: ConePlan) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
+def samples_per_thread(batch: int) -> int:
+    """Samples of the batch each cone-family kernel thread carries: all of a
+    batch of up to 8 share each weight; batch 1 runs the single-sample
+    instance (``csrc/cone_sf.cuh``)."""
+    return 8 if batch > 1 else 1
+
+
+def launch(lib_name: str, kname: str, x: torch.Tensor, plan: ConePlan,
+           counts: Dict[str, int], spt: Optional[int] = None) -> torch.Tensor:
+    """Launch the cone-family kernel ``kname`` of library ``lib_name`` (the
+    cone or the modular pair) once per non-empty view group on the CUDA
+    tensor ``x``, adding one to ``counts[kname]`` per launch.  The FP's last
+    argument is the footprint half-width bound; the BP's says whether to add
+    into the output (the second group) or overwrite it.  ``spt`` (samples
+    per thread, 1 or 8) defaults to :func:`samples_per_thread`."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fp_par import _DTYPE_CODE, _check_tile
+    geom = plan.geom
+    batch = x.shape[0]
+    fp = kname.startswith("fp_")
+    in_shape, out_shape = ((geom.vol.shape, geom.sino_shape) if fp
+                           else (geom.sino_shape, geom.vol.shape))
+    _check_tile(x, (batch,) + in_shape, kname)
+    out = torch.empty((batch,) + out_shape, dtype=torch.float32, device=x.device)
+    dt = plan.on(x.device)
+    run = getattr(build.library(lib_name), f"{kname}_launch")
+    spt = samples_per_thread(batch) if spt is None else spt
+    accumulate = 0
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for grp in (0, 1):
+            n = dt.tables[grp].shape[0]
+            if n == 0:
+                continue
+            ng, nl, gs, ls = plan.group(grp)
+            rc = run(
+                _DTYPE_CODE[x.dtype], spt, dt.tables[grp].data_ptr(),
+                dt.rows[grp].data_ptr(), n, geom.n_angles, batch,
+                x.data_ptr(), out.data_ptr(), ng, nl, geom.vol.nz, gs, ls,
+                geom.n_cols, geom.n_rows, plan.e0, plan.du, plan.ev0, plan.dv,
+                plan.z0, plan.dz, plan.sdd, plan.dxv,
+                plan.hw if fp else accumulate, stream)
+            build.check(lib_name, rc, f"{kname} launch")
+            counts[kname] += 1
+            accumulate = 1
+    return out
+
+
 def fp_batch(f: torch.Tensor, plan: ConePlan) -> torch.Tensor:
     """FP at the kernel's interface: (batch, nx, ny, nz) -> (batch, n_angles,
     n_rows, n_cols) f32.  A CUDA tensor launches the kernel (its launch
@@ -367,66 +430,17 @@ def fp_batch(f: torch.Tensor, plan: ConePlan) -> torch.Tensor:
     :func:`fp_batch_plain`."""
     if f.device.type == "cpu":
         return fp_batch_plain(f, plan)
-    from repro_torch.kernels import build
-    from repro_torch.kernels.fp_par import _DTYPE_CODE, _check_tile
-    geom = plan.geom
-    batch = f.shape[0]
-    _check_tile(f, (batch,) + geom.vol.shape, "fp_cone_sf")
-    out = torch.empty((batch,) + geom.sino_shape, dtype=torch.float32,
-                      device=f.device)
-    dt = plan.on(f.device)
-    lib = build.library("fp_cone")
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for grp in (0, 1):
-            n = dt.tables[grp].shape[0]
-            if n == 0:
-                continue
-            ng, nl, gs, ls = plan.group(grp)
-            rc = lib.fp_cone_sf_launch(
-                _DTYPE_CODE[f.dtype], dt.tables[grp].data_ptr(),
-                dt.rows[grp].data_ptr(), n, geom.n_angles, batch,
-                f.data_ptr(), out.data_ptr(), ng, nl, geom.vol.nz, gs, ls,
-                geom.n_cols, geom.n_rows, plan.e0, plan.du, plan.ev0, plan.dv,
-                plan.z0, plan.dz, plan.sdd, plan.dxv, plan.hw, stream)
-            build.check("fp_cone", rc, "fp_cone_sf launch")
-            LAUNCHES["fp_cone_sf"] += 1
-    return out
+    return launch("fp_cone", "fp_cone_sf", f, plan, LAUNCHES)
 
 
 def bp_batch(q: torch.Tensor, plan: ConePlan) -> torch.Tensor:
     """BP at the kernel's interface: (batch, n_angles, n_rows, n_cols) ->
-    (batch, nx, ny, nz) f32.  A CUDA tensor launches the kernel; a CPU
-    tensor runs :func:`bp_batch_plain`."""
+    (batch, nx, ny, nz) f32.  A CUDA tensor launches the kernel (the second
+    view group adds into the first's output); a CPU tensor runs
+    :func:`bp_batch_plain`."""
     if q.device.type == "cpu":
         return bp_batch_plain(q, plan)
-    from repro_torch.kernels import build
-    from repro_torch.kernels.fp_par import _DTYPE_CODE, _check_tile
-    geom = plan.geom
-    batch = q.shape[0]
-    _check_tile(q, (batch,) + geom.sino_shape, "bp_cone_sf")
-    out = torch.empty((batch,) + geom.vol.shape, dtype=torch.float32,
-                      device=q.device)
-    dt = plan.on(q.device)
-    lib = build.library("fp_cone")
-    accumulate = 0
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for grp in (0, 1):
-            n = dt.tables[grp].shape[0]
-            if n == 0:
-                continue
-            ng, nl, gs, ls = plan.group(grp)
-            rc = lib.bp_cone_sf_launch(
-                _DTYPE_CODE[q.dtype], dt.tables[grp].data_ptr(),
-                dt.rows[grp].data_ptr(), n, geom.n_angles, batch,
-                q.data_ptr(), out.data_ptr(), ng, nl, geom.vol.nz, gs, ls,
-                geom.n_cols, geom.n_rows, plan.e0, plan.du, plan.ev0, plan.dv,
-                plan.z0, plan.dz, plan.sdd, plan.dxv, accumulate, stream)
-            build.check("fp_cone", rc, "bp_cone_sf launch")
-            LAUNCHES["bp_cone_sf"] += 1
-            accumulate = 1
-    return out
+    return launch("fp_cone", "bp_cone_sf", q, plan, LAUNCHES)
 
 
 # --------------------------------------------------------------------------- #

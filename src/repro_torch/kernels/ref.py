@@ -4,14 +4,16 @@ What CPU tensors run on, and what ``backend="ref"`` runs on any device: the
 plain versions of the CUDA kernels with no kernel launch.  For the
 lane-packed pairs (parallel, fan) that is ``fp_par.fp_lanes_plain`` and its
 VJP ``fp_par.bp_lanes_plain`` inside the lane packing, with each plan's
-footprint weights; for the exact cone pair ``fp_cone.fp_batch_plain`` and
-its VJP ``fp_cone.bp_batch_plain``.  Each backprojection is the
-vector-Jacobian product of the linear forward map, so it is the exact
-transpose by construction.
+footprint weights; for the exact cone and the modular pairs
+``fp_cone.fp_batch_plain`` and its VJP ``fp_cone.bp_batch_plain`` on each
+plan (a ``ModularPlan`` is a ``ConePlan`` with per-view axial frames).  Each
+backprojection is the vector-Jacobian product of the linear forward map, so
+it is the exact transpose by construction.
 
 The port carries the Separable-Footprint model for parallel, fan (flat and
-curved) and flat-detector cone beams.  Other (geometry, model) pairs raise
-``NotImplementedError``; ROADMAP.md queue 1 orders their port.
+curved), flat-detector cone and axial-frame modular beams.  Other
+(geometry, model) pairs raise ``NotImplementedError``; ROADMAP.md queue 1
+orders their port.
 
 ``forward`` maps ``f (nx, ny, nz) -> sino (n_angles, n_rows, n_cols)``, or a
 batch ``(B, nx, ny, nz) -> (B, n_angles, n_rows, n_cols)``.
@@ -21,11 +23,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.geometry import CTGeometry
-from repro_torch.kernels import fp_cone, fp_fan, fp_par, precision
+from repro_torch.kernels import fp_cone, fp_fan, fp_modular, fp_par, precision
 
 _PLANS = {("parallel", "sf"): fp_par.ParallelPlan,
           ("fan", "sf"): fp_fan.FanPlan,
-          ("cone", "sf"): fp_cone.ConePlan}
+          ("cone", "sf"): fp_cone.ConePlan,
+          ("modular", "sf"): fp_modular.ModularPlan}
 
 
 def _plan(geom: CTGeometry, model: str):

@@ -11,9 +11,10 @@ weight serves that many multiply-adds.  A block is a 2D arrangement of threads:
     bu   FP: detector columns per block (threadIdx.y)
     bg   BP: gathered-axis voxels per block (threadIdx.y)
 
-The exact cone kernels have no lane axis and take no configuration: their
-launch (``csrc/fp_cone.cu`` ``cone_block``) derives the block from the
-detector rows and z slices.
+The exact cone and modular kernels have no lane axis and take no
+configuration: their launches (``csrc/cone_sf.cuh`` ``sf_grid``) derive the
+block from the detector rows or z slices, and the samples per thread from
+the batch (``fp_cone.samples_per_thread``).
 
 The lane axis is masked at its ragged edge inside the kernels; nothing is
 padded.  ``resolve_config`` returns an explicit pin when one is given, else

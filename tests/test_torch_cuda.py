@@ -9,11 +9,15 @@ import pytest
 import torch
 
 from repro_torch import (Projector, ProjectorSpec, VolumeGeometry, cone_beam,
-                         fan_beam, parallel_beam)
+                         fan_beam, helical_beam, modular_beam, parallel_beam)
+from repro_torch import kernels as K
+from repro_torch.core.geometry import cone_as_modular
 from repro_torch.device import requires_cuda
-from repro_torch.kernels import fp_cone, fp_fan, fp_par, precision, tune
+from repro_torch.kernels import (fp_cone, fp_fan, fp_modular, fp_par,
+                                 precision, tune)
 from repro_torch.kernels.fp_cone import ConePlan
 from repro_torch.kernels.fp_fan import FanPlan
+from repro_torch.kernels.fp_modular import ModularPlan
 from repro_torch.kernels.fp_par import ParallelPlan
 
 pytestmark = pytest.mark.cuda
@@ -131,3 +135,111 @@ def test_divergent_pair_dot_test_and_gradient(case):
     xg = x.clone().requires_grad_()
     (grad,) = torch.autograd.grad(0.5 * torch.sum((proj(xg) - y) ** 2), xg)
     torch.testing.assert_close(grad, proj.T(proj(x) - y), rtol=1e-4, atol=1e-5)
+
+
+def _wobbly(na=9, nv=12, nu=32, seed=3):
+    """tests/test_modular.py:38-57 on a 24 x 24 x 12 volume: per-view sod,
+    sdd, source height and detector shifts, e_v flipped on odd views."""
+    rng = np.random.default_rng(seed)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, na))
+    sod = 80.0 + rng.uniform(-5, 5, na)
+    sdd = 160.0 + rng.uniform(-10, 10, na)
+    zsrc = rng.uniform(-4, 4, na)
+    c, s = np.cos(ang), np.sin(ang)
+    src = np.stack([sod * c, sod * s, zsrc], -1)
+    eu = np.stack([-s, c, np.zeros(na)], -1)
+    ev = np.stack([np.zeros(na), np.zeros(na),
+                   np.where(np.arange(na) % 2 == 0, 1.0, -1.0)], -1)
+    ctr = (np.stack([(sod - sdd) * c, (sod - sdd) * s, zsrc], -1)
+           + rng.uniform(-3, 3, na)[:, None] * eu
+           + rng.uniform(-3, 3, na)[:, None] * ev)
+    return modular_beam(src, ctr, eu, ev, nv, nu, VolumeGeometry(24, 24, 12),
+                        pixel_width=2.0, pixel_height=2.0)
+
+
+MODULAR = {
+    # name: (geometry, batch); batch 1 and batch > 1 run different instances
+    "helical": (helical_beam(2.0, 4.0, 24, 6, 40, VolumeGeometry(24, 24, 8),
+                             sod=48.0, sdd=72.0, pixel_height=2.0), 8),
+    "tall": (helical_beam(1.0, 16.0, 6, 6, 24, VolumeGeometry(16, 16, 24),
+                          sod=80.0, sdd=120.0, pixel_width=2.0,
+                          pixel_height=1.0), 1),
+    "wobbly": (_wobbly(), 3),
+    "cone_as_modular": (cone_as_modular(cone_beam(
+        9, 16, 36, VolumeGeometry(24, 24, 12), sod=80.0, sdd=160.0,
+        pixel_width=2.0, pixel_height=2.0)), 1),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", MODULAR)
+def test_modular_kernels_match_plain(name, dtype):
+    requires_cuda()
+    g, batch = MODULAR[name]
+    plan = ModularPlan(g)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    vol = torch.randn((batch,) + g.vol.shape, generator=gen, device="cuda")
+    sino = torch.randn((batch,) + g.sino_shape, generator=gen, device="cuda")
+    tol = 2e-4 if dtype == "float32" else precision.BF16_KERNEL_REL_TOL
+    fp_modular.reset_launches()
+    for run, plain, x in ((fp_modular.fp_batch, fp_modular.fp_batch_plain, vol),
+                          (fp_modular.bp_batch, fp_modular.bp_batch_plain, sino)):
+        x = x.to(dt)
+        got = run(x, plan)
+        torch.cuda.synchronize()
+        want = plain(x, plan)
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel <= tol, rel
+    assert all(n >= 1 for n in fp_modular.LAUNCHES.values()), fp_modular.LAUNCHES
+
+
+def test_modular_pair_matches_cone_kernels_and_is_matched():
+    """cone_as_modular through the Projector on the card: the modular
+    kernels reproduce the cone kernels, launch, and pass the dot test and
+    the gradient check."""
+    requires_cuda()
+    gc = cone_beam(9, 16, 36, VolumeGeometry(24, 24, 12), sod=80.0, sdd=160.0,
+                   pixel_width=2.0, pixel_height=2.0)
+    pm = Projector(ProjectorSpec(cone_as_modular(gc), backend="cuda"))
+    pc = Projector(ProjectorSpec(gc, backend="cuda"))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(2,) + gc.vol.shape).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.normal(size=(2,) + gc.sino_shape).astype(np.float32)).cuda()
+    K.reset_launches()
+    ax, aty = pm(x), pm.T(y)
+    assert K.launches()["fp_modular_sf"] >= 1 and K.launches()["bp_modular_sf"] >= 1
+    for got, want in ((ax, pc(x)), (aty, pc.T(y))):
+        assert float((got - want).norm() / want.norm()) < 1e-4
+    lhs = float((ax.double() * y.double()).sum())
+    rhs = float((x.double() * aty.double()).sum())
+    assert abs(lhs - rhs) / abs(lhs) < 1e-4
+    xg = x.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(0.5 * torch.sum((pm(xg) - y) ** 2), xg)
+    assert torch.equal(grad, pm.T(pm(x) - y))
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("spt", [1, 8])
+@pytest.mark.parametrize("family", ["cone", "modular"])
+def test_cone_family_instances_match_plain(family, spt, batch):
+    """Both instances of the cone-family kernels (one and eight samples per
+    thread) at a batch of one and of three, whichever the wrappers would
+    pick, against the plain versions."""
+    requires_cuda()
+    gc = cone_beam(9, 16, 36, VolumeGeometry(24, 24, 12), sod=80.0, sdd=160.0,
+                   pixel_width=2.0, pixel_height=2.0)
+    g, plan, lib = ((gc, ConePlan(gc), "fp_cone") if family == "cone" else
+                    (_wobbly(), ModularPlan(_wobbly()), "fp_modular"))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    vol = torch.randn((batch,) + g.vol.shape, generator=gen, device="cuda")
+    sino = torch.randn((batch,) + g.sino_shape, generator=gen, device="cuda")
+    tally = {f"fp_{family}_sf": 0, f"bp_{family}_sf": 0}
+    for kname, plain, x in ((f"fp_{family}_sf", fp_cone.fp_batch_plain, vol),
+                            (f"bp_{family}_sf", fp_cone.bp_batch_plain, sino)):
+        got = fp_cone.launch(lib, kname, x, plan, tally, spt=spt)
+        torch.cuda.synchronize()
+        want = plain(x, plan)
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel <= 2e-4, rel
+    assert all(n >= 1 for n in tally.values()), tally
