@@ -6,8 +6,9 @@
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one nvcc per source, all started together), holds each against its plain
 PyTorch version on the card (f32 within 2e-4, bf16 within
-``BF16_KERNEL_REL_TOL``) at the shapes of every cell below and of reduced
-cells, with its time, its bound and the time of ``torch.sparse.mm`` on the
+``precision.BF16_KERNEL_REL_TOL``; the attention kernels element by
+element) at the shapes of every cell below and of reduced cells, with its
+time, its bound and the time of ``torch.sparse.mm`` on the
 CSR system matrix wherever its nonzeros fit int32 indices, then drives each
 path through the public API at the paper's sizes:
 
@@ -53,11 +54,38 @@ path through the public API at the paper's sizes:
   and one BP against the cone kernels on the same inputs (relative norm
   < 1e-4); its kernels are held against the plain versions on views 7, 31.
 
+* flash attention (kernel phase) — the four kernels of
+  ``csrc/flash.cu`` against the plain chunked attention and the plain
+  backward, and beside ``scaled_dot_product_attention``: cell
+  qwen3_attn (B 2, 16 query heads, 8 kv heads, S 4096, hd 128; bf16 and
+  f32), qwen3_attn_window (the same with a 2048 window, Hymba's
+  ``sliding_window``; bf16), tinyllama_attn (B 1, 32 heads, 4 kv heads,
+  S 3072, hd 64; bf16) and window_edges (qwen3_attn's heads at batch 1
+  with a 100-key window, which ends inside a tile on both sides; bf16 and
+  f32).  Every output is held element by element (``flash.KERNEL_TOL``)
+  against the plain forward at the kernels' tile and the plain backward
+  (``flash_bwd_plain``) on the kernels' lse and delta, and each cell shows
+  that this check fails the plain output with one key fewer at each row's
+  window edge.
+* LM paths — Qwen3-0.6B at its published widths (``configs/qwen3_0_6b.py``:
+  28 layers, d_model 1024, 16/8 heads of 128, d_ff 3072, vocab 151936,
+  bf16), random weights from seed 0, tokens from ``TokenPipeline(seed 0)``:
+  lm_prefill (2 prompts of 4096 tokens through ``make_prefill_step``; the
+  forward kernel 28 times; against the plain attention), lm_grad (the
+  loss gradient at 1 x 4096; the three gradient kernels 28 times each; a
+  4-layer cut of the same widths against plain autograd), lm_serve (the
+  continuous-batching ``Server``, 4 slots, 8 requests of 3-9 prompt tokens
+  and 16 new ones, against offline greedy decoding; and a 3072-token prompt
+  decoded token by token against the forward's logits at its last 8
+  positions, on the first 4 layers: decoding is launch-bound, ~70 ms a
+  step at 28 layers).
+
 Each path runs with every kernel launch count set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
 Last, a torch.profiler breakdown of one projector pair of the main, fan
-and helical cells and of the 3D and cone cells' FP and BP says where the
-device time goes.
+and helical cells and of the 3D and cone cells' FP and BP, and of one LM
+prefill and one LM gradient step (attention kernels, matrix products,
+everything else), says where the device time goes.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it exits non-zero
@@ -86,6 +114,30 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 
 F32_TOL = 2e-4          # kernel vs plain, as tests/test_kernels.py:33-46
+
+# The LM paths against their plain attention, max |kernel - plain| over max
+# |plain|, in the model's bf16 (see PERF.md for the measured values): the
+# attention kernels round differently from the plain version (within
+# flash.KERNEL_TOL), and 28 bf16 layers carry that to the logits.
+LM_PREFILL_REL_TOL = 5e-2
+LM_GRAD_REL_TOL = 5e-2
+# Decode (plain attention over the cache, bf16 scores) against the forward
+# (flash kernel) at the same positions.
+LM_DECODE_REL_TOL = 5e-2
+
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
+FLASH_REPLACES = {"flash_fwd": "src/repro/kernels/flash.py:55",
+                  "flash_fwd_stats": "src/repro/kernels/flash.py:150",
+                  "flash_bwd_dq": "src/repro/kernels/flash.py:196",
+                  "flash_bwd_dkv": "src/repro/kernels/flash.py:239"}
+# name: (B, H, KV, S, hd, window, dtypes)
+FLASH_CELLS = {
+    "qwen3_attn": (2, 16, 8, 4096, 128, None, ("bfloat16", "float32")),
+    "qwen3_attn_window": (2, 16, 8, 4096, 128, 2048, ("bfloat16",)),
+    "tinyllama_attn": (1, 32, 4, 3072, 64, None, ("bfloat16",)),
+    # a window that ends inside a 64-key tile on both sides, in both bodies
+    "window_edges": (1, 16, 8, 4096, 128, 100, ("bfloat16", "float32")),
+}
 
 
 class CheckFailed(RuntimeError):
@@ -947,55 +999,409 @@ def instance_times(torch, results) -> None:
     results["instances"] = out
 
 
-def run_path(torch, results, name: str, kernels, fn) -> dict:
-    """Run one path with every launch count set to 0 just before it and read
-    just after; fail if a kernel of the path was not launched.  Returns the
-    counts of the path's own kernels."""
-    from repro_torch import kernels as K
+def attn_pairs(S: int, window) -> int:
+    """Kept (query, key) pairs of one causal head, with the window if any."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_phase(torch, results):
+    """The four flash kernels against their plain versions (the chunked
+    attention and ``flash_bwd_plain``) on the card, with times, bounds and
+    the library call's."""
+    from repro_torch.kernels import flash
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for cell, (B, H, KV, S, hd, window, dtypes) in FLASH_CELLS.items():
+        t_cell = time.perf_counter()
+        pairs = B * H * attn_pairs(S, window)
+        mask = None
+        if window is not None:                  # the library call's mask
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        for name in dtypes:
+            dt = getattr(torch, name)
+            tol = flash.KERNEL_TOL[dt]
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            q, k, v = (torch.randn((B, n, S, hd), generator=gen, device="cuda").to(dt)
+                       for n in (H, KV, KV))
+            do = torch.randn((B, H, S, hd), generator=gen, device="cuda").to(dt)
+            esz = q.element_size()
+            nq, nkv, nrow = q.numel() * esz, k.numel() * esz, B * H * S * 4
+            # the plain forward: its time at the reference's 1024 chunk, the
+            # check's output at the kernels' tile (the same running maxima)
+            with torch.no_grad():
+                plain_fwd_ms = cuda_ms(torch, lambda: flash.flash_attention_plain(
+                    q, k, v, window), reps=3, warmup=1)
+                p_o, p_lse = flash.flash_attention_plain(
+                    q, k, v, window, chunk=flash.KERNEL_TILE, return_lse=True)
+                # the check must see one key too few at each row's window
+                # edge (or, causal, the first keys of the last 64 rows)
+                short = flash.flash_attention_plain(
+                    q, k, v, (window or S - 63) - 1, chunk=flash.KERNEL_TILE)
+            seen = flash.kernel_mismatch(short, p_o, *tol)
+            log(f"flash {cell} {name}: one key short at the window edge "
+                f"scores {seen:.3g} (> 1 fails)")
+            check(seen > 1, f"flash {cell} {name}: the check misses a one-key "
+                            f"window error ({seen:.3g})")
+            del short
+            # the library call: forward, and its autograd backward
+            lib_kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+            with torch.no_grad():
+                lib_fwd_ms = cuda_ms(torch, lambda: sdpa(q, k, v, enable_gqa=True, **lib_kw))
+            largs = [t.clone().requires_grad_() for t in (q, k, v)]
+            l_o = sdpa(*largs, enable_gqa=True, **lib_kw)
+            lib_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                l_o, largs, do, retain_graph=True), reps=5)
+            del largs, l_o
+            o, lse = flash.flash_fwd_with_stats(q, k, v, window)
+            delta = flash.flash_delta(o, do)
+            # the plain backward, on the kernels' own lse and delta
+            p_grads = flash.flash_bwd_plain(q, k, v, do, lse, delta, window)
+            plain_bwd_ms = cuda_ms(torch, lambda: flash.flash_bwd_plain(
+                q, k, v, do, lse, delta, window), reps=3, warmup=1)
+            runs = {
+                "flash_fwd": (lambda: flash.flash_attention(q, k, v, window), (p_o,),
+                              2, nq * 2 + 2 * nkv, plain_fwd_ms, lib_fwd_ms),
+                "flash_fwd_stats": (lambda: flash.flash_fwd_with_stats(q, k, v, window),
+                                    (p_o, p_lse), 2, nq * 2 + 2 * nkv + nrow,
+                                    plain_fwd_ms, lib_fwd_ms),
+                "flash_bwd_dq": (lambda: (flash.flash_bwd_dq(q, k, v, do, lse, delta, window),),
+                                 p_grads[:1], 3, nq * 3 + 2 * nkv + 2 * nrow,
+                                 plain_bwd_ms, lib_bwd_ms),
+                "flash_bwd_dkv": (lambda: flash.flash_bwd_dkv(q, k, v, do, lse, delta, window),
+                                  p_grads[1:], 4, nq * 2 + 4 * nkv + 2 * nrow,
+                                  plain_bwd_ms, lib_bwd_ms),
+            }
+            for kname, (run, wants, products, nbytes, p_ms, l_ms) in runs.items():
+                got = run()
+                got = got if isinstance(got, tuple) else (got,)
+                torch.cuda.synchronize()
+                err = max(rel_err(g, w) for g, w in zip(got, wants))
+                abs_err = max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, wants))
+                # element by element, each output at its dtype's tolerance
+                # (the lse rows are f32 in both)
+                worst = max(flash.kernel_mismatch(g, w, *flash.KERNEL_TOL[g.dtype])
+                            for g, w in zip(got, wants))
+                check(all(bool(torch.isfinite(g).all()) for g in got),
+                      f"{kname} {cell} {name}: non-finite")
+                check(worst <= 1, f"{kname} {cell} {name}: |kernel - plain| is "
+                                  f"{worst:.3g} x the allowed (rtol, atol) {tol}")
+                del got
+                ms = cuda_ms(torch, run, reps=10)
+                ops = 2.0 * products * pairs * hd
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = ops / PEAK_OPS[name] * 1e3
+                row = {"kernel": kname, "cell": cell, "dtype": name,
+                       "shape": {"B": B, "H": H, "KV": KV, "S": S, "hd": hd,
+                                 "window": window},
+                       "rel_err": err, "max_abs_err": abs_err, "tol": tol,
+                       "mismatch": worst,
+                       "ms": ms, "plain_ms": p_ms, "library_ms": l_ms,
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                       "bytes": nbytes, "ops": ops,
+                       "library_note": "scaled_dot_product_attention forward" if products == 2
+                       else "scaled_dot_product_attention backward (dq, dk, dv together)",
+                       "plain_note": "flash_attention_plain forward, chunk 1024" if products == 2
+                       else "flash_bwd_plain (dq, dk, dv together) on the kernels' lse and delta"}
+                results["kernels"].append(row)
+                log(f"kernel {kname:15s} {cell:17s} {name:8s} rel_err {err:.3g} mismatch "
+                    f"{worst:.3g} ms {ms:.4f} "
+                    f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
+                    f"{row['bound_ms']:.4f} ({row['bound_by']})")
+            del runs, q, k, v, do, o, lse, delta, p_o, p_lse, p_grads
+            torch.cuda.empty_cache()
+        results["phase_s"][f"kernels {cell}"] = time.perf_counter() - t_cell
+
+
+def lm_setup(torch):
+    """Qwen3-0.6B at its published widths, random weights from seed 0."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    cfg = configs.get("qwen3-0.6b")
+    params = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    return cfg, params
+
+
+def lm_tokens(torch, cfg, batch: int, seq: int, seed: int = 0):
+    from repro_torch.data.tokens import TokenPipeline
+    return torch.from_numpy(TokenPipeline(cfg.vocab_size, seq, batch, seed=seed)
+                            .batch(0)).long().cuda()
+
+
+def top2_gap(lg):
+    top = lg.float().topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def lm_prefill(torch, results, cfg, params):
+    """Two 4096-token prompts through make_prefill_step; the same prefill
+    with the plain attention."""
+    from repro_torch.launch.steps import make_prefill_step
+    toks = lm_tokens(torch, cfg, 2, 4096)
+    prefill = make_prefill_step(cfg)
+    lg, t_first = host_s(torch, lambda: prefill(params, {"tokens": toks}))
+    check(tuple(lg.shape) == (2, cfg.vocab_size) and bool(torch.isfinite(lg).all()),
+          f"lm_prefill logits shape {tuple(lg.shape)} / finite")
+    plain = make_prefill_step(cfg, backend="ref")
+    want, t_plain = host_s(torch, lambda: plain(params, {"tokens": toks}))
+    rel = rel_err(lg, want)
+    gap = top2_gap(want)
+    err = float((lg.float() - want.float()).abs().max())
+    same = (lg.argmax(-1) == want.argmax(-1))
+    decided = gap > 2 * err
+    results["lm_prefill"] = {"rel_err_vs_plain": rel, "max_abs_err": err,
+                             "first_call_s": t_first, "plain_call_s": t_plain,
+                             "argmax_equal": same.tolist(), "top2_gap": gap.tolist()}
+    log(f"lm_prefill 2 x 4096: logits vs plain attention rel {rel:.3g} (tol "
+        f"{LM_PREFILL_REL_TOL}), argmax equal {same.tolist()} (top-2 gaps "
+        f"{[round(g, 4) for g in gap.tolist()]}); first call {t_first:.3f} s, plain "
+        f"{t_plain:.3f} s")
+    check(rel <= LM_PREFILL_REL_TOL, f"lm_prefill vs plain attention {rel:.3g}")
+    check(bool(same[decided].all()), "lm_prefill argmax differs where the top-2 gap "
+                                     "exceeds twice the error")
+
+
+def lm_grad(torch, results, cfg, params):
+    """The loss gradient at 1 x 4096, the full depth."""
+    from repro_torch.models import model
+    toks = lm_tokens(torch, cfg, 1, 4096, seed=1)
+    leaves = [t.requires_grad_() for _, t in model._leaves(params)]
+    torch.cuda.reset_peak_memory_stats()
+    (loss, grads), t_step = host_s(torch, lambda: (
+        lambda l: (l, torch.autograd.grad(l, leaves)))(
+            model.loss_fn(cfg, params, {"tokens": toks})))
+    for t in leaves:
+        t.requires_grad_(False)
+    loss = loss.detach()
+    check(bool(torch.isfinite(loss)), "lm_grad loss non-finite")
+    check(all(bool(torch.isfinite(g).all()) for g in grads), "lm_grad non-finite gradient")
+    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    results["lm_grad"] = {"loss": float(loss), "ln_vocab": float(np.log(cfg.vocab_size)),
+                          "grad_norm": gnorm, "first_step_s": t_step,
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"lm_grad 1 x 4096: loss {float(loss):.4f} (ln V {np.log(cfg.vocab_size):.4f}), "
+        f"grad norm {gnorm:.4g}, first step {t_step:.3f} s, peak "
+        f"{results['lm_grad']['peak_gb']:.1f} GB")
+
+
+def layer_cut(cfg, params, n_layers: int):
+    """The model's first ``n_layers`` layers, the same widths: its config,
+    and its parameters as detached views of the full model's."""
+    cut = {k: v.detach() for k, v in params.items() if k != "layers"}
+    cut["layers"] = {g: {n: t.detach()[:n_layers] for n, t in ps.items()}
+                     for g, ps in params["layers"].items()}
+    return dataclasses.replace(cfg, n_layers=n_layers), cut
+
+
+def lm_grad_vs_plain(torch, results, cfg, params):
+    """A 4-layer cut of the same widths: the kernels' gradients against
+    plain autograd through the plain attention (which keeps every chunk's
+    probabilities, ~1 GB a layer at this length)."""
+    from repro_torch.models import model
+    cfg4, p4 = layer_cut(cfg, params, 4)
+    paths, leaves = zip(*model._leaves(p4))
+    for t in leaves:
+        t.requires_grad_()
+    toks = lm_tokens(torch, cfg, 1, 4096, seed=1)
+    got = torch.autograd.grad(model.loss_fn(cfg4, p4, {"tokens": toks}), leaves)
+    want = torch.autograd.grad(
+        model.loss_fn(cfg4, p4, {"tokens": toks}, backend="ref"), leaves)
+    errs = {"/".join(p): rel_err(g, w) for p, g, w in zip(paths, got, want)}
+    worst = max(errs, key=errs.get)
+    results["lm_grad_vs_plain"] = {"rel_err_by_leaf": errs, "worst": worst}
+    log(f"lm_grad 4-layer cut vs plain autograd: worst leaf {worst} rel "
+        f"{errs[worst]:.3g} (tol {LM_GRAD_REL_TOL})")
+    check(errs[worst] <= LM_GRAD_REL_TOL, f"lm_grad vs plain: {worst} {errs[worst]:.3g}")
+
+
+def lm_serve(torch, results, cfg, params):
+    """The continuous-batching server against offline greedy decoding, and
+    a 3072-token prompt decoded token by token against the forward."""
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import model
+    slots, max_len = 4, 64
+    srv = Server(cfg, slots=slots, max_len=max_len, params=params, device="cuda")
+    rng = np.random.default_rng(0)           # as the reference's serve.py main
+    reqs = []
+    for rid in range(8):
+        prompt = rng.integers(0, cfg.vocab_size, size=rng.integers(3, 10)).tolist()
+        reqs.append(Request(rid, prompt, 16))
+        srv.submit(reqs[-1])
+    torch.cuda.synchronize()
     t = time.perf_counter()
-    K.reset_launches()
-    fn()
-    launches = K.launches()
-    results["phase_s"][f"path {name}"] = time.perf_counter() - t
-    results.setdefault("path_launches", {})[name] = launches
-    log(f"{name} path launches {launches}")
-    for k in kernels:
-        check(launches[k] > 0, f"kernel {k} was not launched on the {name} path")
-    return {k: launches[k] for k in kernels}
+    done = {r.rid: r for r in srv.run()}
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t
+    check(len(done) == 8, f"server finished {len(done)} of 8 requests")
+
+    def offline(prompt, max_new):
+        """Greedy decode_step loop on a batch of the server's shape (the
+        request in lane 0, idle lanes at token 0)."""
+        cache = model.init_cache(cfg, slots, max_len, "cuda")
+        out = []
+        with torch.no_grad():
+            for t in range(len(prompt) + max_new - 1):
+                cur = prompt[t] if t < len(prompt) else out[-1]
+                toks = torch.tensor([cur] + [0] * (slots - 1), device="cuda")
+                pos = torch.tensor([t] + [0] * (slots - 1), device="cuda")
+                lg, cache = model.decode_step(cfg, srv.params, cache, toks, pos)
+                if t >= len(prompt) - 1:
+                    out.append(int(lg[0].argmax()))
+        return out
+
+    same = [done[r.rid].out == offline(r.prompt, r.max_new) for r in reqs]
+    new_tokens = sum(len(r.out) for r in done.values())
+    out = {"steps": srv.steps, "serve_s": t_serve, "new_tokens": new_tokens,
+           "ms_per_step": t_serve / srv.steps * 1e3, "equal_offline": same}
+    log(f"lm_serve 8 requests on 4 slots: {srv.steps} steps, {out['ms_per_step']:.2f} "
+        f"ms/step, {new_tokens} new tokens in {t_serve:.2f} s; equal to offline greedy "
+        f"{same}")
+    check(all(same), "served tokens differ from offline greedy decoding")
+
+    # a 3072-token prompt: the forward (flash kernel) against decode_step,
+    # on a 4-layer cut of the same widths (at 28 layers the 3072 decode
+    # steps take minutes: decoding is launch-bound)
+    cfg4, p4 = layer_cut(cfg, params, 4)
+    p4 = model.compute_params(cfg4, p4)
+    toks = lm_tokens(torch, cfg, 1, 3072, seed=2)
+    with torch.no_grad():
+        x = model.forward(cfg4, p4, toks)
+        full = model.logits_fn(cfg4, p4, x[:, -8:])[0]
+        del x
+        cache = model.init_cache(cfg4, 1, 3072, "cuda")
+        dec = []
+        t = time.perf_counter()
+        for i in range(3072):
+            lg, cache = model.decode_step(cfg4, p4, cache, toks[:, i], i)
+            if i >= 3072 - 8:
+                dec.append(lg[0])
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t
+    dec = torch.stack(dec)
+    rel = rel_err(dec, full)
+    err = float((dec.float() - full.float()).abs().max())
+    gap = top2_gap(full)
+    agree = dec.argmax(-1) == full.argmax(-1)
+    out.update({"decode_3072_s": t_dec, "decode_vs_forward_rel": rel,
+                "decode_vs_forward_abs": err, "argmax_equal": agree.tolist(),
+                "top2_gap": gap.tolist()})
+    log(f"lm_serve 3072-token prompt, 4 layers, decoded token by token ({t_dec:.1f} s) "
+        f"vs the forward at the last 8 positions: rel {rel:.3g} (tol {LM_DECODE_REL_TOL}), "
+        f"argmax equal {agree.tolist()}, top-2 gaps {[round(g, 4) for g in gap.tolist()]}, "
+        f"max abs err {err:.4g}")
+    results["lm_serve"] = out
+    check(rel <= LM_DECODE_REL_TOL, f"decode vs forward {rel:.3g}")
+    check(bool(agree[gap > 2 * err].all()), "decode argmax differs from the forward's "
+                                            "where the top-2 gap exceeds twice the error")
+    del cache
+    torch.cuda.empty_cache()
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
-              file=sys.stderr)
-        return 2
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a checkout "
-              f"of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log(smi)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
-    results = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-               "kernels": [], "phase_s": {}}
-    t_start = time.perf_counter()
+def lm_breakdown(torch, results, name: str, fn, reps: int = 2) -> None:
+    """Device time of ``fn`` by category (the attention kernels, matrix
+    products, everything else), its median time, and the device's busy
+    share of the profiled window."""
+    from torch.profiler import ProfilerActivity, profile
+    ms = cuda_ms(torch, fn, reps=3, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    cats = {"attention_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    top = []
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        key = ev.key.lower()
+        if "flash_" in key:
+            cat = "attention_kernels"
+        elif any(s in key for s in ("gemm", "xmma", "cutlass", "nvjet", "matmul", "cublas")):
+            cat = "matmul"
+        else:
+            cat = "other"
+        cats[cat] += us / reps
+        top.append((us / reps, ev.key[:60]))
+    top.sort(reverse=True)
+    total = sum(cats.values())
+    results.setdefault("lm_breakdown", {})[name] = {
+        "ms": ms, "device_busy_share": total * reps / wall_us,
+        "device_ms_by_category": {k: v / 1e3 for k, v in cats.items()},
+        "share_by_category": {k: (v / total if total else 0.0) for k, v in cats.items()},
+        "device_us_per_call": [[k, us] for us, k in top[:10]]}
+    log(f"breakdown {name}: {ms:.2f} ms per call, device busy {total * reps / wall_us:.3f}; "
+        + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in cats.items()))
+    for us, k in top[:5]:
+        log(f"  {us / 1e3:9.3f} ms  {k}")
 
+
+def lm_paths(torch, results) -> dict:
+    """The LM paths at Qwen3-0.6B's full width, each under run_path."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model
+    t = time.perf_counter()
+    cfg, params = lm_setup(torch)
+    results["phase_s"]["lm setup"] = time.perf_counter() - t
+    n_layers = cfg.n_layers
+    launches = run_path(torch, results, "lm_prefill", ("flash_fwd",),
+                        lambda: lm_prefill(torch, results, cfg, params))
+    check(launches["flash_fwd"] == n_layers,
+          f"lm_prefill launched flash_fwd {launches['flash_fwd']} times, not {n_layers}")
+    grad_kernels = ("flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")
+    launches.update(run_path(torch, results, "lm_grad", grad_kernels,
+                             lambda: lm_grad(torch, results, cfg, params)))
+    for k in grad_kernels:
+        check(launches[k] == n_layers, f"lm_grad launched {k} {launches[k]} times, "
+                                       f"not {n_layers}")
+    t = time.perf_counter()
+    lm_grad_vs_plain(torch, results, cfg, params)
+    results["phase_s"]["lm_grad vs plain"] = time.perf_counter() - t
+    run_path(torch, results, "lm_serve", ("flash_fwd",),
+             lambda: lm_serve(torch, results, cfg, params))
+
+    t = time.perf_counter()
+    toks = lm_tokens(torch, cfg, 2, 4096)
+    prefill = make_prefill_step(cfg)
+    lm_breakdown(torch, results, "lm_prefill", lambda: prefill(params, {"tokens": toks}))
+    toks1 = lm_tokens(torch, cfg, 1, 4096, seed=1)
+    leaves = [p for _, p in model._leaves(params)]
+
+    def grad_step():
+        for p in leaves:
+            p.requires_grad_()
+        g = torch.autograd.grad(model.loss_fn(cfg, params, {"tokens": toks1}), leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        return g
+
+    lm_breakdown(torch, results, "lm_grad", grad_step)
+    bd = results["lm_breakdown"]
+    results["lm_prefill"]["ms"] = bd["lm_prefill"]["ms"]
+    results["lm_prefill"]["tokens_per_s"] = 2 * 4096 / (bd["lm_prefill"]["ms"] / 1e3)
+    results["lm_grad"]["ms"] = bd["lm_grad"]["ms"]
+    results["lm_grad"]["tokens_per_s"] = 4096 / (bd["lm_grad"]["ms"] / 1e3)
+    results["phase_s"]["lm breakdown"] = time.perf_counter() - t
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def projector_phases(torch, results) -> dict:
+    """The projector kernels' cells and paths, and their profile; returns the
+    launches of each projector kernel on its own path."""
     from repro_torch import VolumeGeometry, cone_beam, parallel_beam
     from repro_torch.core.geometry import cone_as_modular
     from repro_torch.data.phantoms import random_ellipse_phantom
-    from repro_torch.kernels import build
-
-    t = time.perf_counter()
-    build.build_all()
-    results["build_s"] = time.perf_counter() - t
-    log(f"build {results['build_s']:.1f} s")
 
     main_vol = VolumeGeometry(512, 512, 1)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1076,21 +1482,80 @@ def main() -> int:
     torch.cuda.synchronize()
     results["phase_s"]["profile"] = time.perf_counter() - t
 
-    fams = families()
-    own_cell = {"par": "main", "fan": "fan", "cone": "cone", "modular": "helical"}
+    return launches
+
+
+def run_path(torch, results, name: str, kernels, fn) -> dict:
+    """Run one path with every launch count set to 0 just before it and read
+    just after; fail if a kernel of the path was not launched.  Returns the
+    counts of the path's own kernels."""
+    from repro_torch import kernels as K
+    t = time.perf_counter()
+    K.reset_launches()
+    fn()
+    launches = K.launches()
+    results["phase_s"][f"path {name}"] = time.perf_counter() - t
+    results.setdefault("path_launches", {})[name] = launches
+    log(f"{name} path launches {launches}")
+    for k in kernels:
+        check(launches[k] > 0, f"kernel {k} was not launched on the {name} path")
+    return {k: launches[k] for k in kernels}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a checkout "
+              f"of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    results = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+               "kernels": [], "phase_s": {}}
+    t_start = time.perf_counter()
+
+    from repro_torch.kernels import build
+
+    t = time.perf_counter()
+    build.build_all()
+    results["build_s"] = time.perf_counter() - t
+    log(f"build {results['build_s']:.1f} s")
+
+    launches = projector_phases(torch, results)
+    flash_phase(torch, results)
+    launches.update(lm_paths(torch, results))
+
+    # each kernel at its own path's cell and dtype: the projectors' main
+    # cells in f32, the attention kernels at Qwen3's shapes in its bf16
+    own = {}
+    for F in families().values():
+        for i, kname in enumerate(F["names"]):
+            cell = {"par": "main", "fan": "fan", "cone": "cone",
+                    "modular": "helical"}[kname.split("_")[1]]
+            own[kname] = (cell, "float32", F["source"], F["replaces"][i])
+    for kname, replaces in FLASH_REPLACES.items():
+        own[kname] = ("qwen3_attn", "bfloat16", FLASH_SOURCE, replaces)
     line = []
-    for fam in ("par", "fan", "cone", "modular"):
-        F = fams[fam]
-        for row in results["kernels"]:
-            if row["cell"] != own_cell[fam] or row["dtype"] != "float32":
-                continue
-            i = F["names"].index(row["kernel"])
-            line.append({"name": row["kernel"], "route": "cuda", "source": F["source"],
-                         "replaces": F["replaces"][i],
-                         "launches": launches[row["kernel"]],
-                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    for row in results["kernels"]:
+        cell, dtype, source, replaces = own[row["kernel"]]
+        if row["cell"] != cell or row["dtype"] != dtype:
+            continue
+        line.append({"name": row["kernel"], "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches.get(row["kernel"], 0),
+                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     results["wall_s"] = time.perf_counter() - t_start
     log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in results["phase_s"].items()))
     log(f"wall {results['wall_s']:.1f} s")

@@ -1,0 +1,13 @@
+"""olmoe-1b-7b [moe]: 16L d_model=2048 16H (kv=16, MHA) d_ff=1024/expert
+vocab=50304, MoE 64 experts top-8.  [arXiv:2409.02060]"""
+from repro_torch.models.config import ModelConfig, MoEConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        grad_accum=2,
+        name="olmoe-1b-7b", family="moe",
+        n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16, d_ff=1024,
+        vocab_size=50304, mlp="swiglu", rope="standard", qk_norm=True,
+        moe=MoEConfig(n_experts=64, top_k=8, expert_d_ff=1024),
+    )

@@ -1,7 +1,8 @@
-"""CUDA kernels + plain PyTorch references for the differentiable projectors.
+"""CUDA kernels + plain PyTorch references for the differentiable projectors
+and for the language model's flash attention (``flash``).
 
-Importing this package registers every ported kernel pair with the dispatch
-table in ``repro_torch.kernels.ops``.  It neither builds nor loads the
+Importing this package registers every ported projector pair with the
+dispatch table in ``repro_torch.kernels.ops``.  It neither builds nor loads the
 compiled libraries: ``kernels/build.py`` does that on the first launch.
 
 :func:`launches` merges the launch counts of every kernel module;
@@ -9,13 +10,14 @@ compiled libraries: ``kernels/build.py`` does that on the first launch.
 """
 from typing import Dict
 
-from repro_torch.kernels import (fp_cone, fp_fan, fp_modular, fp_par,  # noqa: F401
-                                 ops, ref, tune)
+from repro_torch.kernels import (flash, fp_cone, fp_fan, fp_modular,  # noqa: F401
+                                 fp_par, ops, ref, tune)
 from repro_torch.kernels.tune import KernelConfig  # noqa: F401
 
-_MODULES = (fp_par, fp_fan, fp_cone, fp_modular)
+_PAIRS = (fp_par, fp_fan, fp_cone, fp_modular)
+_MODULES = _PAIRS + (flash,)
 
-for _m in _MODULES:
+for _m in _PAIRS:
     _m.register()
 
 

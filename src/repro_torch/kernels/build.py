@@ -76,6 +76,19 @@ _SIGNATURES = {
             _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
     },
 }
+# The flash kernels: (dtype, hd[, stats]), the tensors, a host array of
+# (batch, head, sequence) strides, (B, H, KV, S, window, scale), the stream.
+_LL = _c.POINTER(_c.c_longlong)
+_FLASH_TAIL = [_LL, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+               _c.c_float, _c.c_void_p]
+_SIGNATURES["flash"] = {
+    "flash_fwd_launch": [_c.c_int, _c.c_int, _c.c_int] + [_c.c_void_p] * 5
+    + _FLASH_TAIL,
+    "flash_bwd_dq_launch": [_c.c_int, _c.c_int] + [_c.c_void_p] * 7
+    + _FLASH_TAIL,
+    "flash_bwd_dkv_launch": [_c.c_int, _c.c_int] + [_c.c_void_p] * 8
+    + _FLASH_TAIL,
+}
 # The modular pair's entry points take the cone pair's arguments (sdd is the
 # reference distance sdd_ref).
 _SIGNATURES["fp_modular"] = {

@@ -1,0 +1,153 @@
+"""Batched serving driver: continuous-batching greedy decode on one card,
+the counterpart of the reference package's ``launch/serve.py`` (without
+its mesh).
+
+A slot-based scheduler keeps a fixed-shape decode batch full (finished
+sequences free their slot for the next queued request), with per-request
+max-token / EOS stopping and step-time telemetry.  Prompts are prefilled
+token by token through the decode step.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --device cpu --requests 8 --batch-slots 4 --max-new 16
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import make_serve_step
+from repro_torch.models import model as MD
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class Server:
+    """Fixed-slot continuous batching.  Each slot holds one request; the KV
+    cache is (layers, slots, ...) and slots are recycled as requests
+    finish.  ``params`` is a parameter tree on ``device``; without one the
+    server initializes its own from ``seed``.  The server keeps the weights
+    cast to the compute dtype once (``model.compute_params``)."""
+
+    def __init__(self, cfg, slots: int = 4, max_len: int = 256,
+                 eos_id: Optional[int] = None, seed: int = 0, device=None,
+                 params: Optional[dict] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device, "Server")
+        self.slots = slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self._step = make_serve_step(cfg)
+        self.load_params(params if params is not None else MD.init_params(
+            cfg, torch.Generator(device=self.device).manual_seed(seed)))
+        self.cache = MD.init_cache(cfg, slots, max_len, self.device)
+        self.positions = np.zeros(slots, np.int64)
+        self.active: List[Optional[Request]] = [None] * slots
+        self.queue: List[Request] = []
+        self.steps = 0
+
+    def load_params(self, params):
+        self.params = MD.compute_params(self.cfg, params)
+
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _admit(self):
+        for s in range(self.slots):
+            if self.active[s] is None and self.queue:
+                self.active[s] = self.queue.pop(0)
+                self.positions[s] = 0
+                for c in self.cache.values():      # reset this slot's lanes
+                    c[:, s] = 0
+
+    def _slot_token(self, s: int) -> int:
+        req = self.active[s]
+        if req is None:
+            return 0
+        pos = int(self.positions[s])
+        if pos < len(req.prompt):
+            return req.prompt[pos]
+        if req.out:
+            return req.out[-1]
+        return req.prompt[-1]
+
+    def step(self) -> bool:
+        """One synchronous decode step across all slots."""
+        self._admit()
+        if not any(self.active):
+            return False
+        toks = torch.tensor([self._slot_token(s) for s in range(self.slots)],
+                            dtype=torch.int64, device=self.device)
+        pos = torch.from_numpy(self.positions).to(self.device)
+        nxt, _, self.cache = self._step(self.params, self.cache, toks, pos)
+        nxt = nxt.cpu().numpy()
+        for s in range(self.slots):
+            req = self.active[s]
+            if req is None:
+                continue
+            self.positions[s] += 1
+            pos_s = int(self.positions[s])
+            if pos_s >= len(req.prompt):       # generating
+                tok = int(nxt[s])
+                req.out.append(tok)
+                if (len(req.out) >= req.max_new
+                        or (self.eos_id is not None and tok == self.eos_id)
+                        or pos_s >= self.max_len - 1):
+                    req.done = True
+                    self.active[s] = None
+        self.steps += 1
+        return True
+
+    def run(self) -> List[Request]:
+        pending = list(self.queue)
+        t0 = time.perf_counter()
+        while self.step():
+            pass
+        dt = time.perf_counter() - t0
+        finished = [r for r in pending if r.done]
+        if self.steps:
+            print(f"[serve] {self.steps} steps, "
+                  f"{dt / max(self.steps, 1) * 1e3:.1f} ms/step, "
+                  f"{len(finished)} requests")
+        return finished
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--full", action="store_true",
+                    help="the published widths instead of the smoke config")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--batch-slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    args = ap.parse_args(argv)
+
+    cfg = configs.get(args.arch) if args.full else configs.get_smoke(args.arch)
+    srv = Server(cfg, slots=args.batch_slots, max_len=128, device=args.device)
+    rng = np.random.default_rng(0)
+    for rid in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab_size,
+                              size=rng.integers(3, 10)).tolist()
+        srv.submit(Request(rid, prompt, args.max_new))
+    done = srv.run()
+    for r in done[:4]:
+        print(f"req {r.rid}: prompt[{len(r.prompt)}] -> {r.out}")
+
+
+if __name__ == "__main__":
+    main()

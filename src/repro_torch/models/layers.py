@@ -1,0 +1,211 @@
+"""Transformer building blocks of the dense family, the counterparts of the
+reference package's ``models/layers.py``: norms, RoPE, GQA attention (full,
+optionally sliding-window, the long-sequence flash path, and single-step
+decode against a KV cache), and the MLP variants.
+
+Activations keep the reference's ``(B, S, H, hd)`` layout.  The long branch
+of :func:`attention_train` (``S > 2048``) goes through
+``repro_torch.kernels.flash``.  Its ``backend`` picks the route, as a
+projector spec's does: ``"auto"`` runs the kernels on a CUDA tensor and the
+plain version (the reference's 1024-wide chunked online softmax) on a CPU
+tensor; ``"ref"`` runs the plain version on any device, the reference that
+the kernels are held against on the card.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import flash
+from repro_torch.models.config import ModelConfig
+
+NEG_INF = -1e30
+
+# Sequences longer than this take the flash path (layers.py:128 of the
+# reference); it works in chunks of FLASH_CHUNK query rows and keys.
+SDPA_MAX_SEQ = 2048
+FLASH_CHUNK = 1024
+
+BACKENDS = ("auto", "ref")
+
+
+# --------------------------------------------------------------------------- #
+# Norms
+# --------------------------------------------------------------------------- #
+def rms_norm(x, scale, eps: float = 1e-5):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Rotary embeddings
+# --------------------------------------------------------------------------- #
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(head_dim: int, theta: float, device: torch.device):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    """(head_dim / 2,) f32 inverse frequencies, made once per (head_dim,
+    theta, device): a decode step applies RoPE twice in every layer."""
+    return _rope_freqs(head_dim, theta, torch.device(device or "cpu"))
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, n_heads, head_dim); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    ang = positions[..., None].float() * freqs              # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Attention
+# --------------------------------------------------------------------------- #
+def _qkv(params, x, cfg: ModelConfig, positions):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(B, S, H, hd)
+    k = (x @ params["wk"]).reshape(B, S, KV, hd)
+    v = (x @ params["wv"]).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    if cfg.rope == "standard":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, cfg: ModelConfig):
+    """q: (B,S,H,hd) k,v: (B,T,KV,hd); mask (S,T) bool (True=keep)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    q = q.reshape(B, S, KV, G, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", q, k).float()
+    scores = scores / math.sqrt(hd)
+    scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", w, v)
+    return out.reshape(B, S, H, hd)
+
+
+def _causal_mask(S: int, T: int, window: Optional[int], device=None):
+    """(S, T) keep-mask; a global layer passes ``window=None``."""
+    qp = torch.arange(S, device=device)[:, None]
+    kp = torch.arange(T, device=device)[None, :]
+    m = kp <= qp
+    if window is not None:
+        m &= kp > qp - window
+    return m
+
+
+def _flash(q, k, v, window: Optional[int], backend: str):
+    """The long branch: (B, S, H, hd) in and out, through the flash module
+    on transposed views (no copies: the kernels take strides)."""
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if backend == "ref":
+        run = flash.flash_attention_plain
+    elif needs_grad:
+        run = flash.flash_attention_diff
+    else:
+        run = flash.flash_attention
+    return run(q, k, v, window).transpose(1, 2)
+
+
+def attention_train(params, x, cfg: ModelConfig, positions,
+                    window: Optional[int] = None, backend: str = "auto"):
+    """Full-sequence causal attention.  ``S <= 2048``: dense masked softmax;
+    longer: flash attention (memory O(S * chunk) instead of O(S^2)), whose
+    chunks need ``S % 1024 == 0`` as in the reference, on ``backend``
+    (``"auto"`` or ``"ref"``, see the module's docstring)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown attention backend {backend!r}; expected "
+                         f"one of {BACKENDS}")
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(params, x, cfg, positions)
+    if S <= SDPA_MAX_SEQ:
+        out = _sdpa(q, k, v, _causal_mask(S, S, window, device=x.device), cfg)
+    else:
+        if S % FLASH_CHUNK:
+            raise ValueError(
+                f"sequences longer than {SDPA_MAX_SEQ} run the chunked flash "
+                f"path, which needs S to be a multiple of {FLASH_CHUNK}; got "
+                f"S={S}")
+        out = _flash(q, k, v, window, backend)
+    return out.reshape(B, S, H * hd) @ params["wo"]
+
+
+def attention_decode(params, x, cfg: ModelConfig, cache_k, cache_v,
+                     position):
+    """One-token decode of a global-attention layer.  cache_k/v: (B, S_max,
+    KV, hd), written in place at each sequence's slot; position: (B,)
+    per-sequence write index (continuous batching: every slot may be at a
+    different depth).  Returns (out (B,1,d), cache_k, cache_v)."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    position = torch.as_tensor(position, dtype=torch.int64,
+                               device=x.device).expand(B)
+    q, k, v = _qkv(params, x, cfg, position[:, None])
+    S_max = cache_k.shape[1]
+    bidx = torch.arange(B, device=x.device)
+    cache_k[bidx, position] = k[:, 0]
+    cache_v[bidx, position] = v[:, 0]
+    kp = torch.arange(S_max, device=x.device)[None, :]        # (1, S)
+    valid = kp <= position[:, None]
+    q = q.reshape(B, 1, KV, H // KV, hd)
+    s = torch.einsum("bskgh,btkh->bkgst", q, cache_k).float()
+    s = s / math.sqrt(hd)
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", w, cache_v).reshape(B, 1, H * hd)
+    return out @ params["wo"], cache_k, cache_v
+
+
+# --------------------------------------------------------------------------- #
+# MLPs
+# --------------------------------------------------------------------------- #
+def mlp_apply(params, x, kind: str):
+    if kind == "swiglu":
+        return (F.silu(x @ params["w1"]) * (x @ params["w3"])) @ params["w2"]
+    if kind == "sq_relu":
+        return torch.relu(x @ params["w1"]).square() @ params["w2"]
+    if kind == "gelu":
+        return F.gelu(x @ params["w1"], approximate="tanh") @ params["w2"]
+    raise ValueError(kind)
+
+
+# --------------------------------------------------------------------------- #
+# Parameter shapes (used by model.init_params)
+# --------------------------------------------------------------------------- #
+def attn_param_shapes(cfg: ModelConfig):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    shapes = {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
+              "wo": (H * hd, d)}
+    if cfg.qk_norm:
+        shapes["q_norm"] = (hd,)
+        shapes["k_norm"] = (hd,)
+    return shapes
+
+
+def mlp_param_shapes(cfg: ModelConfig):
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp == "swiglu":
+        return {"w1": (d, ff), "w3": (d, ff), "w2": (ff, d)}
+    return {"w1": (d, ff), "w2": (ff, d)}

@@ -13,8 +13,11 @@ from repro_torch import (Projector, ProjectorSpec, VolumeGeometry, cone_beam,
 from repro_torch import kernels as K
 from repro_torch.core.geometry import cone_as_modular
 from repro_torch.device import requires_cuda
-from repro_torch.kernels import (fp_cone, fp_fan, fp_modular, fp_par,
+from repro_torch.kernels import (flash, fp_cone, fp_fan, fp_modular, fp_par,
                                  precision, tune)
+from repro_torch.launch.steps import make_prefill_step
+from repro_torch.models import model
+from repro_torch.models.config import ModelConfig
 from repro_torch.kernels.fp_cone import ConePlan
 from repro_torch.kernels.fp_fan import FanPlan
 from repro_torch.kernels.fp_modular import ModularPlan
@@ -243,3 +246,90 @@ def test_cone_family_instances_match_plain(family, spt, batch):
         rel = float((got - want).abs().max() / want.abs().max())
         assert rel <= 2e-4, rel
     assert all(n >= 1 for n in tally.values()), tally
+
+
+FLASH = {
+    # name: (B, H, KV, S, hd, window)
+    "gqa2_hd64": (1, 4, 2, 256, 64, None),
+    "qwen3_heads": (2, 16, 8, 512, 128, None),
+    "g8_window": (1, 32, 4, 384, 64, 100),      # TinyLlama's G = 8
+    "ragged_window": (1, 4, 2, 200, 128, 64),   # S not a multiple of 64
+}
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", FLASH)
+def test_flash_kernels_match_plain(name, dtype):
+    """Rows 9-12 element by element against their plain versions: the
+    forward (with lse) against the plain forward at the kernels' tile, dq
+    and dk/dv against flash_bwd_plain on the kernels' lse and delta; the
+    autograd Function's gradients are those wrappers' outputs."""
+    requires_cuda()
+    B, H, KV, S, hd, window = FLASH[name]
+    dt = getattr(torch, dtype)
+    tol, f32 = flash.KERNEL_TOL[dt], flash.KERNEL_TOL[torch.float32]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((B, n, S, hd), generator=gen, device="cuda").to(dt)
+               for n in (H, KV, KV))
+    do = torch.randn((B, H, S, hd), generator=gen, device="cuda").to(dt)
+    flash.reset_launches()
+    want, want_lse = flash.flash_attention_plain(
+        q, k, v, window, chunk=flash.KERNEL_TILE, return_lse=True)
+    assert flash.kernel_mismatch(flash.flash_attention(q, k, v, window), want, *tol) <= 1
+    o, lse = flash.flash_fwd_with_stats(q, k, v, window)
+    assert o.dtype == dt and lse.shape == (B, KV, H // KV, S)
+    assert flash.kernel_mismatch(o, want, *tol) <= 1
+    assert flash.kernel_mismatch(lse, want_lse, *f32) <= 1
+    delta = flash.flash_delta(o, do)
+    got = (flash.flash_bwd_dq(q, k, v, do, lse, delta, window),
+           *flash.flash_bwd_dkv(q, k, v, do, lse, delta, window))
+    ref = flash.flash_bwd_plain(q, k, v, do, lse, delta, window)
+    for g, r in zip(got, ref):
+        worst = flash.kernel_mismatch(g, r, *tol)
+        assert g.dtype == dt and worst <= 1, (worst, tol)
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad((flash.flash_attention_diff(*args, window) * do).sum(), args)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, got):
+        assert torch.equal(g, r)
+    assert flash.LAUNCHES == {"flash_fwd": 1, "flash_fwd_stats": 2,
+                              "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+
+
+def test_flash_refuses_what_it_has_no_kernel_for():
+    requires_cuda()
+    q = torch.zeros((1, 2, 64, 32), device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        flash.flash_attention(q, q[:, :1], q[:, :1])
+    q = torch.zeros((1, 2, 64, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash.flash_attention(q, q[:, :1], q[:, :1])
+
+
+def test_long_prefill_and_gradient_run_the_kernels():
+    """The model's long branch (S = 3072) on the card: prefill launches the
+    forward kernel once per layer, a gradient the three others once per
+    layer, and both agree with the plain attention."""
+    requires_cuda()
+    cfg = ModelConfig(name="small", family="dense", n_layers=2, d_model=128,
+                      n_heads=4, n_kv_heads=2, head_dim=64, d_ff=256,
+                      vocab_size=512, qk_norm=True, compute_dtype="float32")
+    params = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, 512, (1, 3072), device="cuda")
+    K.reset_launches()
+    lg = make_prefill_step(cfg)(params, {"tokens": toks})
+    assert K.launches()["flash_fwd"] == 2
+    assert _rel(lg, make_prefill_step(cfg, backend="ref")(params, {"tokens": toks})) <= 1e-4
+    leaves = [t.requires_grad_() for _, t in model._leaves(params)]
+    K.reset_launches()
+    got = torch.autograd.grad(model.loss_fn(cfg, params, {"tokens": toks}), leaves)
+    n = K.launches()
+    assert n["flash_fwd_stats"] == n["flash_bwd_dq"] == n["flash_bwd_dkv"] == 2, n
+    want = torch.autograd.grad(
+        model.loss_fn(cfg, params, {"tokens": toks}, backend="ref"), leaves)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-4

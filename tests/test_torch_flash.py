@@ -1,0 +1,211 @@
+"""The port's flash attention (the CPU path of its kernel wrappers: the
+chunked online softmax, and the dense oracle) against the reference
+package's Pallas kernels in interpret mode, its oracle and its model's
+chunked attention."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash as jflash
+from repro.models.layers import _flash_attention as jnp_chunked
+
+from repro_torch import kernels
+from repro_torch.kernels import flash
+
+F32 = dict(rtol=2e-5, atol=2e-5)        # tests/test_flash.py's forward bound
+GRAD = dict(rtol=3e-5, atol=3e-5)       # and its gradient bound
+BF16_ABS = 0.05                         # its bf16 bound against the f32 oracle
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def _qkv(B, H, KV, S, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, H, S, hd)).astype(np.float32),
+            rng.normal(size=(B, KV, S, hd)).astype(np.float32),
+            rng.normal(size=(B, KV, S, hd)).astype(np.float32))
+
+
+def _t(*xs, dtype=torch.float32):
+    return [torch.from_numpy(x).to(dtype) for x in xs]
+
+
+def _j(*xs, dtype=jnp.float32):
+    return [jnp.asarray(x, dtype) for x in xs]
+
+
+# tests/test_flash.py:18-22: GQA 2:1, MHA with rectangular blocks, MQA
+SHAPES = [(1, 4, 2, 128, 32, 32, 32), (2, 2, 2, 256, 16, 64, 128),
+          (1, 8, 1, 128, 64, 64, 32)]
+
+
+@pytest.mark.parametrize("chunk", [flash.PLAIN_CHUNK, 32])
+@pytest.mark.parametrize("B,H,KV,S,hd,bq,bk", SHAPES)
+def test_forward_matches_pallas_and_oracle(B, H, KV, S, hd, bq, bk, chunk):
+    q, k, v = _qkv(B, H, KV, S, hd)
+    want = np.asarray(jflash.flash_attention(*_j(q, k, v), bq=bq, bk=bk))
+    got = flash.flash_attention_plain(*_t(q, k, v), chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    np.testing.assert_allclose(flash.flash_ref(*_t(q, k, v)).numpy(),
+                               np.asarray(jflash.flash_ref(*_j(q, k, v))), **F32)
+    # the wrappers take the plain version for CPU tensors
+    np.testing.assert_allclose(flash.flash_attention(*_t(q, k, v)).numpy(),
+                               want, **F32)
+
+
+@pytest.mark.parametrize("chunk", [flash.PLAIN_CHUNK, 32])
+@pytest.mark.parametrize("window", [32, 64, 96])
+def test_sliding_window_matches_pallas(window, chunk):
+    """With 32-wide chunks the chunks before the window are fully masked and
+    come first: the finite NEG_INF must wipe what they add."""
+    q, k, v = _qkv(1, 4, 2, 256, 32, seed=1)
+    want = np.asarray(jflash.flash_attention(*_j(q, k, v), window=window,
+                                             bq=32, bk=32))
+    got = flash.flash_attention_plain(*_t(q, k, v), window=window, chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    np.testing.assert_allclose(
+        flash.flash_ref(*_t(q, k, v), window=window).numpy(),
+        np.asarray(jflash.flash_ref(*_j(q, k, v), window=window)), **F32)
+
+
+def test_bf16_within_reference_bound():
+    q, k, v = _qkv(1, 2, 2, 128, 32, seed=2)
+    oracle = np.asarray(jflash.flash_ref(*_j(q, k, v)))
+    for chunk in (flash.PLAIN_CHUNK, 32):
+        got = flash.flash_attention_plain(*_t(q, k, v, dtype=torch.bfloat16),
+                                          chunk=chunk)
+        assert got.dtype == torch.bfloat16
+        assert float(np.abs(got.float().numpy() - oracle).max()) < BF16_ABS
+    pal = np.asarray(jflash.flash_attention(*_j(q, k, v, dtype=jnp.bfloat16),
+                                            bq=64, bk=64).astype(jnp.float32))
+    assert float(np.abs(pal - oracle).max()) < BF16_ABS
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_lse_matches_pallas_stats(window):
+    q, k, v = _qkv(1, 4, 2, 128, 32, seed=3)
+    o_j, lse_j = jflash._fwd_with_stats(*_j(q, k, v), window, 32, 32)
+    o, lse = flash.flash_fwd_with_stats(*_t(q, k, v), window)
+    assert lse.shape == (1, 2, 2, 128) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), **F32)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_j).reshape(o.shape),
+                               **F32)
+
+
+@pytest.mark.parametrize("chunk", [flash.PLAIN_CHUNK, 32])
+@pytest.mark.parametrize("window", [None, 48])
+def test_gradients_match_pallas_custom_vjp(window, chunk):
+    """dq, dk, dv: autograd through the plain version against jax.grad of
+    the reference's flash_attention_diff (its block-skipping backward
+    kernels in interpret mode)."""
+    q, k, v = _qkv(1, 4, 2, 128, 32, seed=4)
+    do = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+    want = jax.grad(lambda *a: jnp.sum(jflash.flash_attention_diff(
+        *a, window, 32, 32) * do), (0, 1, 2))(*_j(q, k, v))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = flash.flash_attention_plain(tq, tk, tv, window, chunk=chunk)
+    got = torch.autograd.grad((out * torch.from_numpy(do)).sum(), (tq, tk, tv))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD)
+    # flash_attention_diff on CPU tensors is the same autograd path
+    tq2, tk2, tv2 = (t.requires_grad_() for t in _t(q, k, v))
+    out2 = flash.flash_attention_diff(tq2, tk2, tv2, window)
+    got2 = torch.autograd.grad((out2 * torch.from_numpy(do)).sum(),
+                               (tq2, tk2, tv2))
+    for g, w in zip(got2, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD)
+
+
+@pytest.mark.parametrize("chunk", [flash.PLAIN_CHUNK, 32])
+@pytest.mark.parametrize("window", [None, 48])
+def test_backward_plain_matches_pallas_backward(window, chunk):
+    """The plain version of the two backward kernels, on their inputs (the
+    forward's lse, delta = rowsum(dO o)), against the reference's backward
+    kernels in interpret mode on the same inputs; the CPU wrappers run it."""
+    q, k, v = _qkv(1, 4, 2, 128, 32, seed=6)
+    do = np.random.default_rng(7).normal(size=q.shape).astype(np.float32)
+    jq, jk, jv = _j(q, k, v)
+    o_j, lse_j = jflash._fwd_with_stats(jq, jk, jv, window, 32, 32)
+    want = jflash._fa_bwd(window, 32, 32, (jq, jk, jv, o_j, lse_j),
+                          jnp.asarray(do))
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    o = torch.from_numpy(np.asarray(o_j)).reshape(tq.shape)
+    lse = torch.from_numpy(np.asarray(lse_j))
+    delta = flash.flash_delta(o, tdo)
+    got = flash.flash_bwd_plain(tq, tk, tv, tdo, lse, delta, window,
+                                chunk=chunk)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD)
+    kernels.reset_launches()
+    dq = flash.flash_bwd_dq(tq, tk, tv, tdo, lse, delta, window)
+    dk, dv = flash.flash_bwd_dkv(tq, tk, tv, tdo, lse, delta, window)
+    for g, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD)
+    assert flash.LAUNCHES == {k: 0 for k in flash.LAUNCHES}
+
+
+def test_plain_matches_model_chunked_attention():
+    """The plain version is the reference model's chunked attention, in the
+    kernel layout (as tests/test_flash.py:46-56 holds the Pallas kernel)."""
+    q, k, v = _qkv(1, 4, 2, 256, 32, seed=7)
+    want = np.asarray(jnp_chunked(*[jnp.asarray(x.transpose(0, 2, 1, 3))
+                                    for x in (q, k, v)], None, None, 64, 64))
+    got = flash.flash_attention_plain(*_t(q, k, v), chunk=64)
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 1, 3), want,
+                               rtol=3e-5, atol=3e-5)
+
+
+def test_strided_views_and_no_launch_on_cpu():
+    """The model hands the kernels transposed (B, S, H, hd) views; on CPU
+    tensors nothing launches, and the launch entry points refuse them."""
+    q, k, v = _qkv(1, 4, 2, 128, 64, seed=8)
+    tq, tk, tv = _t(q, k, v)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (tq, tk, tv)]
+    kernels.reset_launches()
+    np.testing.assert_allclose(flash.flash_attention(*views).numpy(),
+                               flash.flash_attention(tq, tk, tv).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    flash.flash_attention_diff(*views, 16)
+    flash.flash_fwd_with_stats(*views)
+    assert flash.LAUNCHES == {k: 0 for k in flash.LAUNCHES}
+    assert set(flash.LAUNCHES) <= set(kernels.launches())
+    with pytest.raises(ValueError, match="CUDA"):
+        flash._launch_fwd(tq, tk, tv, None, stats=False)
+    with pytest.raises(ValueError):
+        flash.flash_attention(tq, tk[:, :, :64], tv)
+    with pytest.raises(ValueError):
+        flash.flash_attention(tq[:, :3], tk, tv)
+    # a last chunk shorter than the others, as the kernels' last tile
+    np.testing.assert_allclose(
+        flash.flash_attention_plain(tq, tk, tv, 40, chunk=96).numpy(),
+        flash.flash_ref(tq, tk, tv, 40).numpy(), **F32)
+    with pytest.raises(ValueError):
+        flash._window(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_check_sees_one_key_at_the_window_edge(dtype):
+    """The element-wise kernel-vs-plain check passes the plain output
+    against itself and fails it with one key fewer at each row's window
+    edge (the check the card runs on every flash kernel)."""
+    q, k, v = _t(*_qkv(1, 4, 2, 256, 64, seed=9), dtype=dtype)
+    tol = flash.KERNEL_TOL[dtype]
+    o, lse = flash.flash_attention_plain(q, k, v, 40, chunk=64, return_lse=True)
+    assert flash.kernel_mismatch(o, o, *tol) == 0.0
+    short, short_lse = flash.flash_attention_plain(q, k, v, 39, chunk=64,
+                                                   return_lse=True)
+    assert flash.kernel_mismatch(short, o, *tol) > 1
+    assert flash.kernel_mismatch(short_lse, lse,
+                                 *flash.KERNEL_TOL[torch.float32]) > 1
+    # a zero row is held exactly
+    z = torch.zeros((2, 8))
+    assert flash.kernel_mismatch(z, z, *tol) == 0.0
+    assert flash.kernel_mismatch(z + 1e-30, z, *tol) == float("inf")

@@ -133,7 +133,8 @@ def test_wrappers_count_no_launch_on_cpu_and_reject_bad_shapes():
     assert fp_par.LAUNCHES == {"fp_par_sf": 0, "bp_par_sf": 0}
     assert kernels.launches() == {k: 0 for k in (
         "fp_par_sf", "bp_par_sf", "fp_fan_sf", "bp_fan_sf", "fp_cone_sf",
-        "bp_cone_sf", "fp_modular_sf", "bp_modular_sf")}
+        "bp_cone_sf", "fp_modular_sf", "bp_modular_sf", "flash_fwd",
+        "flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")}
     with pytest.raises(ValueError):
         fp_cone.fp_cone_sf(torch.zeros(vol.shape[:2]), cone)
     with pytest.raises(ValueError):
