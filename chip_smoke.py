@@ -80,6 +80,10 @@ path through the public API at the paper's sizes:
   positions, on the first 4 layers: decoding is launch-bound, ~70 ms a
   step at 28 layers).
 
+After the build it prints ptxas's registers and spills of the bf16 flash
+backward kernels (nvcc runs with ``-Xptxas=-v``) and, from the card, their
+shared memory a block and resident blocks per SM.
+
 Each path runs with every kernel launch count set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
 Last, a torch.profiler breakdown of one projector pair of the main, fan
@@ -1006,6 +1010,31 @@ def attn_pairs(S: int, window) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
+def bwd_tc_report(results) -> None:
+    """ptxas's registers and spills of the bf16 backward kernels (from the
+    build's log) and, on this card, their dynamic shared memory and
+    resident blocks per SM, at hd 64 and 128."""
+    import re
+    from repro_torch.kernels import build, flash
+    rows = {}
+    for mangled, rep in build.ptxas_report("flash").items():
+        m = re.search(r"(flash_bwd_\w+?_tc_kernel)ILi(\d+)E", mangled)
+        if m:
+            rows[(m.group(1), int(m.group(2)))] = dict(rep)
+    for hd in flash.KERNEL_HEAD_DIMS:
+        for kname, info in flash.bwd_tc_info(hd).items():
+            row = rows.setdefault((f"{kname}_tc_kernel", hd), {})
+            row.update(info)
+    check(len(rows) == 2 * len(flash.KERNEL_HEAD_DIMS),
+          f"ptxas report of the bf16 backward kernels: {sorted(rows)}")
+    results["flash_bwd_tc_build"] = {f"{k}<{hd}>": v for (k, hd), v in sorted(rows.items())}
+    for (k, hd), r in sorted(rows.items()):
+        log(f"ptxas {k}<{hd}>: {r['registers']} registers, {r['spill_stores']} bytes "
+            f"spill stores, {r['spill_loads']} bytes spill loads, {r['stack']} bytes "
+            f"stack; {r['smem_bytes']} bytes dynamic shared a block, "
+            f"{r['blocks_per_sm']} blocks per SM")
+
+
 def flash_phase(torch, results):
     """The four flash kernels against their plain versions (the chunked
     attention and ``flash_bwd_plain``) on the card, with times, bounds and
@@ -1531,6 +1560,7 @@ def main() -> int:
     build.build_all()
     results["build_s"] = time.perf_counter() - t
     log(f"build {results['build_s']:.1f} s")
+    bwd_tc_report(results)
 
     launches = projector_phases(torch, results)
     flash_phase(torch, results)

@@ -4,12 +4,15 @@ Each ``csrc/<name>.cu`` is compiled on first use, with ``nvcc`` alone, into
 a shared library with a plain C interface and loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas=-v -o build/repro_torch/<name>-<hash>.so
+         csrc/<name>.cu
 
 The output lands in ``build/repro_torch/`` at the root of the checkout
 (git-ignored), named by a hash of every source under ``csrc/`` so that a
-stale library is never loaded.  Without ``nvcc`` this raises: there is no
-fallback.
+stale library is never loaded, with nvcc's output beside it
+(``<name>-<hash>.log``: ptxas's registers, spills and shared memory of
+every kernel, read by :func:`ptxas_report`).  Without ``nvcc`` this raises:
+there is no fallback.
 """
 from __future__ import annotations
 
@@ -17,17 +20,19 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
 from typing import Dict, List
 
-__all__ = ["build_all", "library", "BUILD_DIR", "CSRC"]
+__all__ = ["build_all", "library", "parse_ptxas", "ptxas_report",
+           "BUILD_DIR", "CSRC"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -88,6 +93,7 @@ _SIGNATURES["flash"] = {
     + _FLASH_TAIL,
     "flash_bwd_dkv_launch": [_c.c_int, _c.c_int] + [_c.c_void_p] * 8
     + _FLASH_TAIL,
+    "flash_bwd_tc_info": [_c.c_int, _c.c_int, _c.POINTER(_c.c_int)],
 }
 # The modular pair's entry points take the cone pair's arguments (sdd is the
 # reference distance sdd_ref).
@@ -146,6 +152,7 @@ def _compile(names: List[str]) -> None:
         if proc.returncode != 0:
             failed.append(f"{n}.cu:\n{log.decode(errors='replace')}")
             continue
+        out.with_suffix(".log").write_bytes(log)
         os.replace(tmp, out)             # atomic against concurrent builds
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -177,6 +184,39 @@ def build_all() -> None:
         _compile(names)
         for n in names:
             _LIBS[n] = _load(n)
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """ptxas's ``-v`` report on each kernel, by mangled name: ``registers``,
+    ``stack`` (bytes a thread), ``spill_stores`` and ``spill_loads``
+    (bytes), ``smem`` (static shared bytes; dynamic shared memory is set at
+    launch)."""
+    report: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = report.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return report
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_ptxas` of library ``name``'s build log."""
+    library(name)
+    return parse_ptxas(_target(name).with_suffix(".log").read_text())
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -6,8 +6,10 @@
 //   :55  `_flash_kernel`            -> flash_fwd_tc_kernel<HD, false> (bf16),
 //                                      flash_fwd_kernel<float, HD, false>
 //   :150 `_flash_fwd_stats_kernel`  -> the same with STATS = true
-//   :196 `_flash_bwd_dq_kernel`     -> flash_bwd_dq_kernel<T, HD>
-//   :239 `_flash_bwd_dkv_kernel`    -> flash_bwd_dkv_kernel<T, HD>
+//   :196 `_flash_bwd_dq_kernel`     -> flash_bwd_dq_tc_kernel<HD> (bf16),
+//                                      flash_bwd_dq_kernel<HD> (f32)
+//   :239 `_flash_bwd_dkv_kernel`    -> flash_bwd_dkv_tc_kernel<HD> (bf16),
+//                                      flash_bwd_dkv_kernel<HD> (f32)
 // They compute what those compute, not how.  On the TPU the kv (or q) tile
 // axis is the last, sequential grid axis and the accumulators live in VMEM
 // scratch across its steps.  Here blocks run in parallel in no order, so a
@@ -21,12 +23,15 @@
 //                k's dtype and sums them outside).  No atomics: every output
 //                element is written by one thread, so results are
 //                deterministic.
+// The blocks with the most tiles to walk are launched first.
 //
 // Block skipping.  This is why the kernels exist: a tile pair that is fully
 // masked is never touched.  Causal: kv tile kt is needed by q tile qt iff its
 // first key is at or before the tile's last query.  Window w (keys kp with
 // qp - w < kp <= qp): iff also its last key is after the first query's
-// window start.  The loops run from the first needed tile to the last.
+// window start.  The loops run from the first needed tile to the last.  The
+// bf16 dK/dV also skips a 32-query half of a q tile that none of its keys
+// sees (its products would add exact zeros).
 //
 // The finite mask value.  Scores outside the mask are NEG_INF = -1e30, as in
 // the reference.  A processed kv tile in which a row is fully masked (the
@@ -35,36 +40,86 @@
 // corr = exp(NEG_INF - m) = 0.  That needs the ascending tile order and the
 // finite constant (-INFINITY would give inf - inf = NaN); every row's last
 // processed tile holds its diagonal, so every row ends with a real score.
+// The backward needs none of that: p = exp(s - lse) where kept, else 0.
 //
-// Numerics, as the reference: q.k products exact in f32 (inputs upcast),
-// scaled by 1/sqrt(hd) after the sum; m, l and the accumulator f32; in the
-// forward p is rounded to v's dtype before p.V; l floored at 1e-30; output
-// in q's dtype, lse = m + log(l) in f32.  The backward upcasts dO and v to
-// f32 and recomputes p = exp(s - lse) under the mask (0 outside).
+// Numerics, as the reference: q.k products exact in f32 (bf16 products are
+// exact in f32), scaled by 1/sqrt(hd) after the sum; m, l and the
+// accumulator f32; in the forward p is rounded to v's dtype before p.V; l
+// floored at 1e-30; output in q's dtype, lse = m + log(l) in f32.  The
+// backward recomputes p = expf(s * scale - lse) under the mask (0 outside),
+// dS = p (dP - delta) scale, all in f32, and multiplies p and dS, which the
+// reference keeps in f32, into dV = P^T dO, dK = dS^T Q and dQ = dS K.  The
+// bf16 backward does those three products on the tensor cores, which take
+// bf16 operands, so it splits each f32 value x into hi = bf16(x) and
+// lo = bf16(x - hi) and issues two products, hi then lo, into one f32
+// accumulator.  x - hi is exact in f32, |x - hi| <= 2^-8 |x| and lo rounds
+// it to 8 bits, so |hi + lo - x| <= 2^-16 |x|: far below the one bf16
+// rounding (2^-8) of each output, where a single bf16 rounding of p and dS
+// (FlashAttention-2's) would put 2^-8 on every term.  The other operands
+// (q, k, v, dO) are bf16 and exact.  Products are summed in the tensor
+// cores' order, not the reference's; the one exception, dP of a row with a
+// single kept key, is explained at flash_bwd_dq_tc_kernel.
 //
 // Layout.  q, o, dO, dQ are (B, H, S, hd) and k, v, dK, dV (B, KV, S, hd)
 // as strided views: the caller passes each tensor's (batch, head, sequence)
 // strides, hd is contiguous.  So the model's (B, S, H, hd) activations go
 // in without a transposed copy.  Query head h reads kv head h / G.  lse and
 // delta are (B, H, S) f32, contiguous.  S need not be a multiple of the
-// tile: rows past S are zero-filled and masked.
+// tile: rows past S are zero-filled and masked.  The bf16 backward copies
+// rows in 16-byte pieces, so it takes only 16-byte aligned pointers and
+// strides that are multiples of 8 elements (the wrapper ensures both).
 //
 // What bounds them.  Per causal (B, H, S, hd) call the forward does
 // 2 B H S^2 hd flops and moves ~(2 H + 2 KV) B S hd elements, about 1300
-// flops per byte at Qwen3's widths: bound by operations, so by the tensor
-// cores for bf16.  The bf16 forward runs its two tile products as wmma
-// fragments on the tensor cores (exact bf16 products, f32 sums: the
-// reference's numerics).  The f32 forward and the backward run them on the
-// CUDA cores in f32 (64 x 64 tiles, each thread a 4 x 4 register block of
-// scores and a 4 x hd/16 block of the output, tiles staged in f32 shared
-// memory with a padded row so that the 16 threads of a row group hit 16
-// banks): the backward's second products take f32 operands (p and dS, as
-// the reference keeps them), which bf16 fragments would round.  Copies
-// through TMA, wgmma and a bf16-rounded backward are later work.
+// flops per byte at Qwen3's widths; dQ recomputes S and dP and does three
+// tile products, dK/dV four, on about 1.5-2x the forward's bytes.  All four
+// are bound by operations, so, for bf16, by the tensor cores.
+//   bf16 forward: its two tile products as wmma fragments (16x16x16) through
+//     shared memory, 2-byte loads, the softmax on the CUDA cores per thread.
+//   bf16 backward: all five tile products on the tensor cores as wgmma
+//     (m64nNk16, bf16 -> f32), one warpgroup a block.  S = Q K^T and
+//     dP = dO V^T (dK/dV: S^T = K Q^T, dP^T = V dO^T, so that P^T and dS^T
+//     come out with rows = keys, the rows of dV and dK) read both operands
+//     from shared memory.  p and dS are formed in the S and dP accumulators,
+//     split there into bf16 hi and lo, and fed to the three later products
+//     as the A operand from registers: a warp's 16 accumulator rows are, two
+//     columns packed to a register, exactly an A fragment, so nothing goes
+//     back through shared memory.  B of those products (K for dQ; dO, Q for
+//     dV, dK) is read from shared memory MN-major, the transposed mode, so
+//     one tile serves both the K-major reads of S, dP and the MN-major ones.
+//     Tiles stay bf16 in shared memory in wgmma's 128-byte swizzled layout,
+//     filled by 16-byte cp.async copies (rows past S zero-filled by a source
+//     size of 0; a proxy fence hands them to wgmma) in a two-stage ring: the
+//     streamed operand (dQ: K and V per kv tile; dK/dV: Q, dO, lse and
+//     delta per (head, q tile)) loads the next tile while the block
+//     multiplies this one; the resident operand (dQ: Q, dO; dK/dV: K, V)
+//     loads once.  dQ does a 64 x 64 tile a step, dK/dV a 64 x 32 half of
+//     one, so that the two f32 accumulators (hd/2 each a thread) fit beside
+//     S and dP.  Per block, as ptxas and the card reported them on an H100
+//     (chip_smoke.py prints them):
+//                    registers  spills  shared bytes  blocks per SM
+//       dQ    hd 128       245       0        99,328              2
+//       dQ    hd 64        168       0        50,176              3
+//       dK/dV hd 128       254       0       100,352              2
+//       dK/dV hd 64        161       0        51,200              3
+//     Registers bound both kernels to two or three warpgroups an SM; the
+//     tensor cores idle while a warpgroup forms p and dS.  Letting one
+//     tile's last products run on under the next tile's first (the ring's
+//     wait moved after them) was slower on the card: later copies in dQ,
+//     spills in dK/dV.
+//   f32: every kernel on the CUDA cores (64 x 64 tiles, each thread a 4 x 4
+//     register block of scores and a 4 x hd/16 block of the output, tiles
+//     staged in f32 shared memory with a padded row so that the 16 threads
+//     of a row group hit 16 banks).
+// Later work: TMA copies and warp-specialised warpgroups for the backward
+// (a producer warp for the copies, two consumer warpgroups taking turns on
+// the tensor cores), and the forward on wgmma.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <cstdint>
+#include <initializer_list>
 #include <type_traits>
 
 #include "tile.cuh"
@@ -86,10 +141,6 @@ __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // rows [row0, row0 + 64) of one (S, HD) head into a (64, HD + 1) f32 tile;
@@ -380,15 +431,18 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+
 // ------------------------------------------------------------------------- //
-// dQ (row 11): one block per (q tile, query head, batch)
+// dQ (row 11) for f32, on the CUDA cores: one block per (q tile, query head,
+// batch)
 // ------------------------------------------------------------------------- //
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
+                        const float* __restrict__ delta, float* __restrict__ dq,
                         Strides qs, Strides ks, Strides vs, Strides dos,
                         Strides dqs, int H, int KV, int S, int window,
                         float scale) {
@@ -404,10 +458,10 @@ __global__ void __launch_bounds__(NT)
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
   const int q0 = qt * BQ;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
-  load_tile<T, HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
-  load_tile<T, HD>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, S);
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
+  load_tile<float, HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
+  load_tile<float, HD>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, S);
   const long long row0 = ((long long)b * H + h) * S;
   float lse_r[4], delta_r[4], acc[4][NC];
 #pragma unroll
@@ -423,12 +477,12 @@ __global__ void __launch_bounds__(NT)
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                // the last tile's dS.K is done
-    load_tile<T, HD>(KVs, vb, vs.s, k0, S);
+    load_tile<float, HD>(KVs, vb, vs.s, k0, S);
     __syncthreads();
     float dp[4][4] = {};
     dot_block<HD>(dp, dOs, ty, KVs, tx);
     __syncthreads();                // V read
-    load_tile<T, HD>(KVs, kb, ks.s, k0, S);
+    load_tile<float, HD>(KVs, kb, ks.s, k0, S);
     __syncthreads();
     float s[4][4] = {};
     dot_block<HD>(s, Qs, ty, KVs, tx);
@@ -462,25 +516,29 @@ __global__ void __launch_bounds__(NT)
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= S) continue;
-    T* dst = dq + b * dqs.b + h * dqs.h + (long long)r * dqs.s;
+    float* dst = dq + b * dqs.b + h * dqs.h + (long long)r * dqs.s;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dst[tx + 16 * c] = from_f32<T>(acc[i][c]);
+    for (int c = 0; c < NC; ++c) dst[tx + 16 * c] = acc[i][c];
   }
 }
 
 // ------------------------------------------------------------------------- //
-// dK, dV (row 12): one block per (kv tile, kv head, batch), summing over the
-// G query heads of the kv head and over the q tiles that see the kv tile
+// dK, dV (row 12) for f32, on the CUDA cores: one block per (kv tile, kv
+// head, batch), summing over the G query heads of the kv head and over the q
+// tiles that see the kv tile
 // ------------------------------------------------------------------------- //
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, Strides qs, Strides ks,
-                         Strides vs, Strides dos, Strides dks, Strides dvs,
-                         int H, int KV, int S, int window, float scale) {
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         Strides qs, Strides ks, Strides vs, Strides dos,
+                         Strides dks, Strides dvs, int H, int KV, int S,
+                         int window, float scale) {
   constexpr int LD = HD + 1, NC = HD / 16;
   extern __shared__ float smem[];
   float* Ks = smem;                 // (BK, LD)
@@ -496,8 +554,8 @@ __global__ void __launch_bounds__(NT)
   const int kvh = blockIdx.y, b = blockIdx.z, G = H / KV;
   const int k0 = kt * BK;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_tile<T, HD>(Ks, k + b * ks.b + kvh * ks.h, ks.s, k0, S);
-  load_tile<T, HD>(Vs, v + b * vs.b + kvh * vs.h, vs.s, k0, S);
+  load_tile<float, HD>(Ks, k + b * ks.b + kvh * ks.h, ks.s, k0, S);
+  load_tile<float, HD>(Vs, v + b * vs.b + kvh * vs.h, vs.s, k0, S);
   float dk_acc[4][NC], dv_acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -514,8 +572,8 @@ __global__ void __launch_bounds__(NT)
     for (int qt = qt_first; qt <= qt_last; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();              // the last tile's products are done
-      load_tile<T, HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
-      load_tile<T, HD>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, S);
+      load_tile<float, HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
+      load_tile<float, HD>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, S);
       for (int r = threadIdx.x; r < BQ; r += NT) {
         lse_s[r] = q0 + r < S ? lse[row0 + q0 + r] : 0.0f;
         delta_s[r] = q0 + r < S ? delta[row0 + q0 + r] : 0.0f;
@@ -564,18 +622,558 @@ __global__ void __launch_bounds__(NT)
   for (int i = 0; i < 4; ++i) {
     const int r = k0 + ty + 16 * i;
     if (r >= S) continue;
-    T* kd = dk + b * dks.b + kvh * dks.h + (long long)r * dks.s;
-    T* vd = dv + b * dvs.b + kvh * dvs.h + (long long)r * dvs.s;
+    float* kd = dk + b * dks.b + kvh * dks.h + (long long)r * dks.s;
+    float* vd = dv + b * dvs.b + kvh * dvs.h + (long long)r * dvs.s;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      kd[tx + 16 * c] = from_f32<T>(dk_acc[i][c]);
-      vd[tx + 16 * c] = from_f32<T>(dv_acc[i][c]);
+      kd[tx + 16 * c] = dk_acc[i][c];
+      vd[tx + 16 * c] = dv_acc[i][c];
     }
+  }
+}
+
+// ------------------------------------------------------------------------- //
+// The bf16 backward on the tensor cores (rows 11 and 12): wgmma products, a
+// cp.async ring (see the note at the top).  A block is one warpgroup; warp
+// w holds rows 16 w .. 16 w + 16 of every 64-row product.  Accumulator
+// layout of wgmma.m64nNk16 (g = lane / 4, t = lane % 4): element 4 j + e of
+// a thread is (row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2).  The A
+// operand from registers is a warp's 16 rows as an mma.m16n8k16 A fragment:
+// (g, 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..).  So the
+// accumulator elements 8 s .. 8 s + 8 are, pairwise packed, the A operand of
+// the k16 step s over the accumulator's columns.
+// ------------------------------------------------------------------------- //
+constexpr int NTC = 128;        // one warpgroup
+constexpr int STAGES = 2;       // depth of the streamed operand's ring
+static_assert(NTC == 2 * BQ, "one thread per lse or delta row of a tile");
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !ok (no bytes are
+// read, src need only be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's copy groups are in flight, then
+// make what arrived visible to wgmma (which reads through the async proxy)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A (64, HD) bf16 tile in the 128-byte swizzled layout that wgmma reads: HD
+// / 64 column blocks of 64 rows of 128 bytes, 8 KB each; the 16-byte piece
+// c of row r of a block sits at piece c ^ (r % 8).  Element offset of
+// (r, c):
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 6) * (BQ * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
+         (c & 7);
+}
+
+// rows [row0, row0 + 64) of one (S, HD) bf16 head into a swizzled tile;
+// rows at or past S are zero
+template <int HD>
+__device__ __forceinline__ void load_tile_async(bf16* dst,
+                                                const bf16* __restrict__ src,
+                                                long long ss, int row0,
+                                                int S) {
+  constexpr int CPR = HD / 8;                 // 16-byte pieces a row
+#pragma unroll
+  for (int j = 0; j < BQ * CPR / NTC; ++j) {
+    const int i = threadIdx.x + j * NTC;
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + swz(r, c), ok ? src + (long long)(row0 + r) * ss + c : src,
+               ok);
+  }
+}
+
+// lse then delta rows [q0, q0 + 64) of one head (from its row0) into
+// (2, 64) f32; rows at or past S are zero
+__device__ __forceinline__ void load_stats_async(float* dst,
+                                                 const float* __restrict__ lse,
+                                                 const float* __restrict__ delta,
+                                                 long long row0, int q0,
+                                                 int S) {
+  const int r = threadIdx.x & (BQ - 1);
+  const float* src = threadIdx.x < BQ ? lse : delta;
+  const bool ok = q0 + r < S;
+  cp_async4(dst + threadIdx.x, ok ? src + row0 + q0 + r : src, ok);
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, 128-byte swizzle
+__device__ __forceinline__ uint64_t gmma_desc(const bf16* p, unsigned lbo,
+                                              unsigned sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+// K-major operand: rows [r0, r0 + N) of a swizzled tile (r0 a multiple of
+// 8), columns [16 s, 16 s + 16); 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int r0, int s) {
+  return gmma_desc(tile + (s >> 2) * (BQ * 64) + r0 * 64 + (s & 3) * 16, 16,
+                   1024);
+}
+// MN-major operand, the B of a product summed over the tile's rows: rows
+// [16 s, 16 s + 16) as K, the columns as N; 8-row groups 1024 bytes apart,
+// 64-column blocks 8 KB apart
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int s) {
+  return gmma_desc(tile + s * 16 * 64, BQ * 64 * 2, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of accumulators across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 32 f32, 16 a thread) = (accumulate ? d : 0) + A B^T, A (64 x 16)
+// and B (32 x 16) K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 f32, 32 a thread) = (accumulate ? d : 0) + A B^T, A (64 x 16)
+// and B (64 x 16) K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 f32) += A B, A (64 x 16) from registers (a warp's 16 rows as
+// an mma.m16n8k16 A fragment), B (16 x 64) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const unsigned (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128 f32) += A B, A (64 x 16) from registers (a warp's 16 rows as
+// an mma.m16n8k16 A fragment), B (16 x 128) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const unsigned (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x HD) += A B over one k16 step, B the MN-major rows [16 s, 16 s +
+// 16) of a tile
+template <int HD>
+__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
+                                         const unsigned (&a)[4],
+                                         const bf16* tile, int s) {
+  if constexpr (HD == 128)
+    wgmma_rs_n128(d, a, desc_mn(tile, s));
+  else
+    wgmma_rs_n64(d, a, desc_mn(tile, s));
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// The A operand of a k16 step from 8 accumulator elements c[0..8), split
+// as hi = bf16(x), lo = bf16(x - hi): |hi + lo - x| <= 2^-16 |x|.
+__device__ __forceinline__ void split_a(const float* c, unsigned (&hi)[4],
+                                        unsigned (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(c[2 * i], c[2 * i + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    hi[i] = bf16x2_bits(h);
+    lo[i] = bf16x2_bits(
+        __floats2bfloat162_rn(c[2 * i] - hf.x, c[2 * i + 1] - hf.y));
+  }
+}
+
+// row ra of swizzled tile A . row rb of swizzled tile B over HD, as one
+// ascending f32 FMA chain
+template <int HD>
+__device__ __forceinline__ float dot_ascending(const bf16* A, int ra,
+                                            const bf16* B, int rb) {
+  float acc = 0.0f;
+  for (int d = 0; d < HD; ++d)
+    acc = fmaf(__bfloat162float(A[swz(ra, d)]), __bfloat162float(B[swz(rb, d)]),
+               acc);
+  return acc;
+}
+
+// accumulator elements v[0..4) (rows r, r + 8; cols c, c + 1) rounded to
+// bf16 into a row-major (rows, stride ss) output; rows at or past S are
+// skipped
+__device__ __forceinline__ void store_c(bf16* out, long long ss, int r, int c,
+                                        const float* v, int S) {
+  if (r < S)
+    *reinterpret_cast<__nv_bfloat162*>(out + (long long)r * ss + c) =
+        __floats2bfloat162_rn(v[0], v[1]);
+  if (r + 8 < S)
+    *reinterpret_cast<__nv_bfloat162*>(out + (long long)(r + 8) * ss + c) =
+        __floats2bfloat162_rn(v[2], v[3]);
+}
+
+// The dynamic shared memory of a block, its start rounded up to the 1024
+// bytes the swizzled tiles need (the launch asks for 1 KB more)
+__device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// dQ for bf16: one block per (q tile, query head, batch), walking the kv
+// tiles: S = Q K^T and dP = dO V^T (64 x 64, A and B from shared memory),
+// dS, then dQ += dS K (A = dS hi and lo from registers, B = K MN-major).
+//
+// Rows with one kept key (the first query; every row under a one-key
+// window) have dS = p (dP - delta) scale = 0 in exact arithmetic: their dq
+// is the rounding residue of dP - delta alone, and the element-wise check,
+// which scales each row by its own largest entry, holds a row of residues to
+// the bits.  The plain version's f32 product sums dP as one ascending FMA
+// chain over hd; the tensor cores sum in another order.  So for such a row
+// the kernel forms dP with that chain on the CUDA cores (one dot product of
+// hd a row).
+template <int HD>
+__global__ void __launch_bounds__(NTC)
+    flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dq, Strides qs, Strides ks,
+                           Strides vs, Strides dos, Strides dqs, int H, int KV,
+                           int S, int window, float scale) {
+  constexpr int TILE = BQ * HD;
+  extern __shared__ unsigned char smem_bwd[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_1k(smem_bwd));
+  bf16* dOs = Qs + TILE;
+  bf16* ring = dOs + TILE;          // stage st: K at 2 st TILE, V after it
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt = nq - 1 - (int)blockIdx.x;   // most kv tiles first
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+  const int kt_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int kt_last = (min(q0 + BQ, S) - 1) / BK;
+  const int nkt = kt_last - kt_first + 1;
+
+  load_tile_async<HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
+  load_tile_async<HD>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, S);
+  load_tile_async<HD>(ring, kb, ks.s, kt_first * BK, S);
+  load_tile_async<HD>(ring + TILE, vb, vs.s, kt_first * BK, S);
+  cp_async_commit();
+
+  const int qr[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  const long long row0 = ((long long)b * H + h) * S;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse_r[i] = qr[i] < S ? lse[row0 + qr[i]] : 0.0f;
+    delta_r[i] = qr[i] < S ? delta[row0 + qr[i]] : 0.0f;
+  }
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+
+  for (int it = 0; it < nkt; ++it) {
+    const int k0 = (kt_first + it) * BK;
+    if (it + 1 < nkt) {             // the next kv tile into the other stage
+      bf16* nxt = ring + 2 * ((it + 1) % STAGES) * TILE;
+      load_tile_async<HD>(nxt, kb, ks.s, k0 + BK, S);
+      load_tile_async<HD>(nxt + TILE, vb, vs.s, k0 + BK, S);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();             // this tile's copies are done
+    __syncthreads();                // and everyone's
+    const bf16* Ks = ring + 2 * (it % STAGES) * TILE;
+    const bf16* Vs = Ks + TILE;
+    float s[32], dp[32];
+    wg_fence();
+#pragma unroll
+    for (int d = 0; d < HD / 16; ++d)
+      wgmma_ss_n64(s, desc_k(Qs, 0, d), desc_k(Ks, 0, d), d);
+    wg_commit();
+#pragma unroll
+    for (int d = 0; d < HD / 16; ++d)
+      wgmma_ss_n64(dp, desc_k(dOs, 0, d), desc_k(Vs, 0, d), d);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int i = (x >> 1) & 1, kp = k0 + 8 * (x >> 2) + 2 * t + (x & 1);
+      const bool kept = keep(qr[i], kp, window) && qr[i] < S;
+      if (kept && kp == qr[i] && (kp == 0 || window == 1))   // one key
+        dp[x] = dot_ascending<HD>(dOs, qr[i] - q0, Vs, kp - k0);
+      const float p = kept ? expf(s[x] * scale - lse_r[i]) : 0.0f;
+      s[x] = p * (dp[x] - delta_r[i]) * scale;               // dS
+    }
+    unsigned hi[BK / 16][4], lo[BK / 16][4];
+#pragma unroll
+    for (int st = 0; st < BK / 16; ++st) split_a(s + 8 * st, hi[st], lo[st]);
+    wg_fence();
+#pragma unroll
+    for (int st = 0; st < BK / 16; ++st) {
+      wgmma_rs<HD>(acc, hi[st], Ks, st);
+      wgmma_rs<HD>(acc, lo[st], Ks, st);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    __syncthreads();                // this stage is read; it is refilled next
+  }
+
+  bf16* out = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+    store_c(out, dqs.s, qr[0], 8 * n + 2 * t, acc + 4 * n, S);
+}
+
+// dK, dV for bf16: one block per (kv tile, kv head, batch), walking the G
+// query heads of the kv head and their q tiles, each in two 32-query
+// halves, transposed: S^T = K Q^T and dP^T = V dO^T (64 keys x 32 queries),
+// then dV += P^T dO and dK += dS^T Q (A = P^T, dS^T hi and lo from
+// registers, B = dO, Q MN-major).
+template <int HD>
+__global__ void __launch_bounds__(NTC)
+    flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            Strides qs, Strides ks, Strides vs, Strides dos,
+                            Strides dks, Strides dvs, int H, int KV, int S,
+                            int window, float scale) {
+  constexpr int TILE = BQ * HD;
+  extern __shared__ unsigned char smem_bwd[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_1k(smem_bwd));
+  bf16* Vs = Ks + TILE;
+  bf16* ring = Vs + TILE;           // stage st: Q at 2 st TILE, dO after it
+  float* stats = reinterpret_cast<float*>(ring + 2 * STAGES * TILE);
+                                    // stage st: lse, delta at 2 st BQ
+
+  const int kt = blockIdx.x;        // the first kv tiles see the most q tiles
+  const int kvh = blockIdx.y, b = blockIdx.z, G = H / KV;
+  const int k0 = kt * BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt_first = k0 / BQ;
+  const int qt_last =
+      window > 0 ? min(nq - 1, (k0 + BK + window - 2) / BQ) : nq - 1;
+  const int nqt = qt_last - qt_first + 1, nit = G * nqt;
+  const bf16* qb = q + b * qs.b + kvh * G * qs.h;
+  const bf16* dob = dout + b * dos.b + kvh * G * dos.h;
+  const long long rows = ((long long)b * H + kvh * G) * S;  // lse row of g 0
+
+  // stage st <- (head g, q tile qt) of iteration i
+  auto load_stage = [&](int i, int st) {
+    const int gi = i / nqt, q0 = (qt_first + i % nqt) * BQ;
+    bf16* dst = ring + 2 * st * TILE;
+    load_tile_async<HD>(dst, qb + gi * qs.h, qs.s, q0, S);
+    load_tile_async<HD>(dst + TILE, dob + gi * dos.h, dos.s, q0, S);
+    load_stats_async(stats + 2 * st * BQ, lse, delta, rows + gi * S, q0, S);
+  };
+  load_tile_async<HD>(Ks, k + b * ks.b + kvh * ks.h, ks.s, k0, S);
+  load_tile_async<HD>(Vs, v + b * vs.b + kvh * vs.h, vs.s, k0, S);
+  load_stage(0, 0);
+  cp_async_commit();
+
+  const int kr[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
+  float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  for (int it = 0; it < nit; ++it) {
+    const int q0 = (qt_first + it % nqt) * BQ;
+    if (it + 1 < nit) load_stage(it + 1, (it + 1) % STAGES);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Qs = ring + 2 * (it % STAGES) * TILE;
+    const bf16* dOs = Qs + TILE;
+    const float* lse_s = stats + 2 * (it % STAGES) * BQ;
+    const float* delta_s = lse_s + BQ;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = q0 + 32 * half;  // the half's first query
+      if (c0 >= S || c0 + 31 < k0 || (window > 0 && k0 + BK - 1 <= c0 - window))
+        continue;
+      float s[16], dp[16];
+      wg_fence();
+#pragma unroll
+      for (int d = 0; d < HD / 16; ++d)
+        wgmma_ss_n32(s, desc_k(Ks, 0, d), desc_k(Qs, 32 * half, d), d);
+      wg_commit();
+#pragma unroll
+      for (int d = 0; d < HD / 16; ++d)
+        wgmma_ss_n32(dp, desc_k(Vs, 0, d), desc_k(dOs, 32 * half, d), d);
+      wg_commit();
+      wg_wait<1>();                 // S^T is in
+      fence_regs(s);
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int col = 32 * half + 8 * (x >> 2) + 2 * t + (x & 1);
+        s[x] = keep(q0 + col, kr[(x >> 1) & 1], window) && q0 + col < S
+                   ? expf(s[x] * scale - lse_s[col])
+                   : 0.0f;                                    // P^T
+      }
+      unsigned ph[2][4], pl[2][4];
+      split_a(s, ph[0], pl[0]);
+      split_a(s + 8, ph[1], pl[1]);
+      wg_fence();
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {                        // dV += P^T dO
+        wgmma_rs<HD>(dv_acc, ph[st], dOs, 2 * half + st);
+        wgmma_rs<HD>(dv_acc, pl[st], dOs, 2 * half + st);
+      }
+      wg_commit();
+      wg_wait<1>();                 // dP^T is in
+      fence_regs(dp);
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int col = 32 * half + 8 * (x >> 2) + 2 * t + (x & 1);
+        s[x] = s[x] * (dp[x] - delta_s[col]) * scale;       // dS^T
+      }
+      unsigned dh[2][4], dl[2][4];
+      split_a(s, dh[0], dl[0]);
+      split_a(s + 8, dh[1], dl[1]);
+      wg_fence();
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {                        // dK += dS^T Q
+        wgmma_rs<HD>(dk_acc, dh[st], Qs, 2 * half + st);
+        wgmma_rs<HD>(dk_acc, dl[st], Qs, 2 * half + st);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+    }
+    __syncthreads();
+  }
+
+  bf16* kd = dk + b * dks.b + kvh * dks.h;
+  bf16* vd = dv + b * dvs.b + kvh * dvs.h;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    store_c(kd, dks.s, kr[0], 8 * n + 2 * t, dk_acc + 4 * n, S);
+    store_c(vd, dvs.s, kr[0], 8 * n + 2 * t, dv_acc + 4 * n, S);
   }
 }
 
 constexpr size_t tile_bytes(int hd) { return sizeof(float) * BQ * (hd + 1); }
 constexpr size_t score_bytes() { return sizeof(float) * BQ * LP; }
+// the bf16 backward: two resident and 2 STAGES streamed swizzled bf16
+// tiles, for dK/dV the lse and delta rows of each stage, and 1 KB to align
+// the tiles
+constexpr size_t bwd_tc_bytes(int hd, bool dkv) {
+  return sizeof(bf16) * (2 + 2 * STAGES) * BQ * hd +
+         (dkv ? sizeof(float) * 2 * STAGES * BQ : 0) + 1024;
+}
 
 Strides strides(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
@@ -584,11 +1182,12 @@ Strides strides(const long long* st, int i) {
 // Sets the kernel's dynamic shared memory limit (above 48 KB it must be
 // raised explicitly) and launches it.
 template <typename K, typename... Args>
-int launch(K kernel, dim3 grid, size_t smem, cudaStream_t s, Args... args) {
+int launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s,
+           Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, NT, smem, s>>>(args...);
+  kernel<<<grid, threads, smem, s>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -603,43 +1202,65 @@ int fwd(int stats, const void* q, const void* k, const void* v, void* o,
         void* lse, const long long* st, int B, int H, int KV, int S,
         int window, float scale, cudaStream_t s) {
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<T, bf16>::value) {
     const size_t smem = tc_bytes(HD);
     if (stats)
-      return launch(flash_fwd_tc_kernel<HD, true>, grid, smem, s,
+      return launch(flash_fwd_tc_kernel<HD, true>, grid, NT, smem, s,
                     (const T*)q, (const T*)k, (const T*)v, (T*)o,
                     (float*)lse, strides(st, 0), strides(st, 1),
                     strides(st, 2), strides(st, 3), H, KV, S, window, scale);
-    return launch(flash_fwd_tc_kernel<HD, false>, grid, smem, s, (const T*)q,
-                  (const T*)k, (const T*)v, (T*)o, (float*)lse,
+    return launch(flash_fwd_tc_kernel<HD, false>, grid, NT, smem, s,
+                  (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
                   strides(st, 0), strides(st, 1), strides(st, 2),
                   strides(st, 3), H, KV, S, window, scale);
   } else {
     const size_t smem = 2 * tile_bytes(HD) + score_bytes();
     if (stats)
-      return launch(flash_fwd_kernel<T, HD, true>, grid, smem, s, (const T*)q,
-                    (const T*)k, (const T*)v, (T*)o, (float*)lse,
-                    strides(st, 0), strides(st, 1), strides(st, 2),
-                    strides(st, 3), H, KV, S, window, scale);
-    return launch(flash_fwd_kernel<T, HD, false>, grid, smem, s, (const T*)q,
-                  (const T*)k, (const T*)v, (T*)o, (float*)lse,
+      return launch(flash_fwd_kernel<T, HD, true>, grid, NT, smem, s,
+                    (const T*)q, (const T*)k, (const T*)v, (T*)o,
+                    (float*)lse, strides(st, 0), strides(st, 1),
+                    strides(st, 2), strides(st, 3), H, KV, S, window, scale);
+    return launch(flash_fwd_kernel<T, HD, false>, grid, NT, smem, s,
+                  (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
                   strides(st, 0), strides(st, 1), strides(st, 2),
                   strides(st, 3), H, KV, S, window, scale);
   }
 }
 
+// The bf16 backward's 16-byte copies need 16-byte aligned pointers and
+// strides of whole 16-byte pieces.
+bool aligned16(std::initializer_list<const void*> ptrs, const long long* st,
+               int n_strides) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
+  for (int i = 0; i < n_strides; ++i)
+    if (st[i] & 7) return false;
+  return true;
+}
+
+// bf16 runs the tensor-core backward, f32 the CUDA-core one.
 template <typename T, int HD>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, const long long* st,
            int B, int H, int KV, int S, int window, float scale,
            cudaStream_t s) {
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  const size_t smem = 3 * tile_bytes(HD) + score_bytes();
-  return launch(flash_bwd_dq_kernel<T, HD>, grid, smem, s, (const T*)q,
-                (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-                (const float*)delta, (T*)dq, strides(st, 0), strides(st, 1),
-                strides(st, 2), strides(st, 3), strides(st, 4), H, KV, S,
-                window, scale);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (!aligned16({q, k, v, dout, dq}, st, 15))
+      return (int)cudaErrorMisalignedAddress;
+    return launch(flash_bwd_dq_tc_kernel<HD>, grid, NTC, bwd_tc_bytes(HD, false),
+                  s, (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+                  (const float*)lse, (const float*)delta, (T*)dq,
+                  strides(st, 0), strides(st, 1), strides(st, 2),
+                  strides(st, 3), strides(st, 4), H, KV, S, window, scale);
+  } else {
+    return launch(flash_bwd_dq_kernel<HD>, grid, NT,
+                  3 * tile_bytes(HD) + score_bytes(), s, (const T*)q,
+                  (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+                  (const float*)delta, (T*)dq, strides(st, 0), strides(st, 1),
+                  strides(st, 2), strides(st, 3), strides(st, 4), H, KV, S,
+                  window, scale);
+  }
 }
 
 template <typename T, int HD>
@@ -648,13 +1269,25 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const long long* st, int B, int H, int KV, int S, int window,
             float scale, cudaStream_t s) {
   const dim3 grid((S + BK - 1) / BK, KV, B);
-  const size_t smem =
-      4 * tile_bytes(HD) + 2 * score_bytes() + 2 * sizeof(float) * BQ;
-  return launch(flash_bwd_dkv_kernel<T, HD>, grid, smem, s, (const T*)q,
-                (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-                (const float*)delta, (T*)dk, (T*)dv, strides(st, 0),
-                strides(st, 1), strides(st, 2), strides(st, 3),
-                strides(st, 4), strides(st, 5), H, KV, S, window, scale);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (!aligned16({q, k, v, dout, dk, dv}, st, 18))
+      return (int)cudaErrorMisalignedAddress;
+    return launch(flash_bwd_dkv_tc_kernel<HD>, grid, NTC,
+                  bwd_tc_bytes(HD, true), s, (const T*)q, (const T*)k,
+                  (const T*)v, (const T*)dout, (const float*)lse,
+                  (const float*)delta, (T*)dk, (T*)dv, strides(st, 0),
+                  strides(st, 1), strides(st, 2), strides(st, 3),
+                  strides(st, 4), strides(st, 5), H, KV, S, window, scale);
+  } else {
+    return launch(flash_bwd_dkv_kernel<HD>, grid, NT,
+                  4 * tile_bytes(HD) + 2 * score_bytes() +
+                      2 * sizeof(float) * BQ,
+                  s, (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+                  (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
+                  strides(st, 0), strides(st, 1), strides(st, 2),
+                  strides(st, 3), strides(st, 4), strides(st, 5), H, KV, S,
+                  window, scale);
+  }
 }
 
 // Calls F::run<T, HD>() for the (dtype, hd) pair; cudaErrorInvalidValue for
@@ -663,10 +1296,8 @@ template <typename F, typename... Args>
 int dispatch(int dtype, int hd, Args... args) {
   if (dtype == 0 && hd == 64) return F::template run<float, 64>(args...);
   if (dtype == 0 && hd == 128) return F::template run<float, 128>(args...);
-  if (dtype == 1 && hd == 64)
-    return F::template run<__nv_bfloat16, 64>(args...);
-  if (dtype == 1 && hd == 128)
-    return F::template run<__nv_bfloat16, 128>(args...);
+  if (dtype == 1 && hd == 64) return F::template run<bf16, 64>(args...);
+  if (dtype == 1 && hd == 128) return F::template run<bf16, 128>(args...);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -682,6 +1313,21 @@ struct BwdDkv {
   template <typename T, int HD, typename... A>
   static int run(A... a) { return bwd_dkv<T, HD>(a...); }
 };
+
+// dynamic shared bytes a block and resident blocks per SM of one bf16
+// backward kernel on this card (ptxas reports its registers and spills)
+template <typename K>
+int tc_info(K kernel, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NTC,
+                                                        smem);
+  out[0] = (int)smem;
+  out[1] = blocks;
+  return (int)err;
+}
 
 }  // namespace
 
@@ -726,4 +1372,16 @@ extern "C" int flash_bwd_dkv_launch(int dtype, int hd, const void* q,
   return dispatch<BwdDkv>(dtype, hd, q, k, v, dout, lse, delta, dk, dv,
                           strides, B, H, KV, S, window, scale,
                           (cudaStream_t)stream);
+}
+
+// The bf16 backward kernel `dkv` (0: dQ, 1: dK/dV) at head dim hd (64, 128):
+// out[0..1] = dynamic shared memory a block in bytes, resident blocks per SM.
+extern "C" int flash_bwd_tc_info(int hd, int dkv, int* out) {
+  if (hd == 64)
+    return dkv ? tc_info(flash_bwd_dkv_tc_kernel<64>, bwd_tc_bytes(64, true), out)
+               : tc_info(flash_bwd_dq_tc_kernel<64>, bwd_tc_bytes(64, false), out);
+  if (hd == 128)
+    return dkv ? tc_info(flash_bwd_dkv_tc_kernel<128>, bwd_tc_bytes(128, true), out)
+               : tc_info(flash_bwd_dq_tc_kernel<128>, bwd_tc_bytes(128, false), out);
+  return (int)cudaErrorInvalidValue;
 }

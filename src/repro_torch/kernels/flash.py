@@ -4,7 +4,9 @@ CUDA tensors run the hand-written kernels of ``csrc/flash.cu``, which
 replace the TPU kernels of ``repro/kernels/flash.py`` (``_flash_kernel``,
 ``_flash_fwd_stats_kernel``, ``_flash_bwd_dq_kernel``,
 ``_flash_bwd_dkv_kernel``) and skip every fully masked (q tile, kv tile)
-pair.  CPU tensors run the plain versions: :func:`flash_attention_plain`,
+pair; in bf16 the backward's five tile products run on the tensor cores,
+p and dS split into bf16 hi + lo pairs (see the note in ``flash.cu``).
+CPU tensors run the plain versions: :func:`flash_attention_plain`,
 the chunked online softmax of the reference's ``models/layers.py``
 ``_flash_attention`` in the kernels' layout and numerics, for the two
 forward kernels (its backward is torch autograd), and
@@ -218,6 +220,17 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _rows16(t: torch.Tensor) -> torch.Tensor:
+    """:func:`_rows`, and rows that start on 16 bytes (an aligned pointer,
+    (batch, head, sequence) strides of whole 16-byte pieces), as the bf16
+    backward's 16-byte copies need; a copy only when they do not."""
+    t = _rows(t)
+    if t.data_ptr() % 16 or any(s * t.element_size() % 16
+                                for s in t.stride()[:3]):
+        t = t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
 def _strides(*ts: torch.Tensor):
     """The (batch, head, sequence) strides of each tensor, as the C array
     the kernels read."""
@@ -260,7 +273,7 @@ def _bwd_args(q, k, v, do, lse, delta, what: str):
         raise ValueError(f"{what}: lse and delta must hold (B, KV, G, S) = "
                          f"{(B, KV, H // KV, S)} rows, got {tuple(lse.shape)}, "
                          f"{tuple(delta.shape)}")
-    q, k, v, do = _rows(q), _rows(k), _rows(v), _rows(do.to(q.dtype))
+    q, k, v, do = (_rows16(t) for t in (q, k, v, do.to(q.dtype)))
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     return (q, k, v, do, lse, delta), (B, H, KV, S, hd)
 
@@ -308,6 +321,19 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, window: Optional[int] = None):
     build.check("flash", rc, "flash_bwd_dkv launch")
     LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv
+
+
+def bwd_tc_info(hd: int) -> Dict[str, Dict[str, int]]:
+    """The bf16 backward kernels at head dim ``hd`` on the current card:
+    dynamic shared memory a block (bytes) and resident blocks per SM."""
+    from repro_torch.kernels import build
+    out = {}
+    for kname, dkv in (("flash_bwd_dq", 0), ("flash_bwd_dkv", 1)):
+        vals = (ctypes.c_int * 2)()
+        build.check("flash", build.library("flash").flash_bwd_tc_info(
+            hd, dkv, vals), f"{kname} info")
+        out[kname] = {"smem_bytes": vals[0], "blocks_per_sm": vals[1]}
+    return out
 
 
 def flash_delta(o, do) -> torch.Tensor:

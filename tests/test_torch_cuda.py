@@ -254,6 +254,9 @@ FLASH = {
     "qwen3_heads": (2, 16, 8, 512, 128, None),
     "g8_window": (1, 32, 4, 384, 64, 100),      # TinyLlama's G = 8
     "ragged_window": (1, 4, 2, 200, 128, 64),   # S not a multiple of 64
+    # 32 kv tiles for the last q tile, 2 x 32 (head, q tile) stages for the
+    # first kv tile: the bf16 backward's two-stage copy ring wraps many times
+    "long_ring": (1, 16, 8, 2048, 128, None),
 }
 
 

@@ -191,6 +191,53 @@ def test_strided_views_and_no_launch_on_cpu():
         flash._window(0)
 
 
+def test_bwd_inputs_start_rows_on_16_bytes():
+    """The bf16 backward copies rows in 16-byte pieces: the wrapper passes
+    an aligned view as it is and copies one that is not."""
+    buf = torch.arange(2 * 3 * 64 * 128 + 8, dtype=torch.float32).to(
+        torch.bfloat16)
+    t = buf[:-8].view(2, 3, 64, 128)
+    assert flash._rows16(t).data_ptr() == t.data_ptr()
+    view = t.transpose(1, 2).contiguous().transpose(1, 2)   # model layout
+    assert flash._rows16(view).data_ptr() == view.data_ptr()
+    shifted = buf[1:-7].view(2, 3, 64, 128)                 # 2 bytes off
+    got = flash._rows16(shifted)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, shifted)
+    odd = torch.zeros((1, 2, 8, 136), dtype=torch.bfloat16)[..., :128]
+    assert odd.stride(2) % 8 == 0
+    assert flash._rows16(odd).data_ptr() == odd.data_ptr()
+    odd = torch.zeros((1, 2, 8, 132), dtype=torch.bfloat16)[..., :128]
+    got = flash._rows16(odd)                                # 264-byte rows
+    assert got.stride(2) == 128 and torch.equal(got, odd)
+
+
+def test_ptxas_report_is_parsed():
+    """The build keeps nvcc's -Xptxas=-v output; the card run reads each
+    kernel's registers, spills and stack from it."""
+    from repro_torch.kernels import build
+    log = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_"
+        "bwd_dq_tc_kernelILi128EEEvPK13__nv_bfloat16' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_122flash_"
+        "bwd_dq_tc_kernelILi128EEEvPK13__nv_bfloat16\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers, 8 bytes "
+        "cumulative stack size, 560 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooPf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, 1024 bytes smem, 360 bytes "
+        "cmem[0]\n")
+    rep = build.parse_ptxas(log)
+    assert rep == {
+        "_ZN12_GLOBAL__N_122flash_bwd_dq_tc_kernelILi128EEEvPK13__nv_bfloat16":
+            dict(stack=8, spill_stores=4, spill_loads=12, registers=255,
+                 smem=0),
+        "_Z3fooPf": dict(stack=0, spill_stores=0, spill_loads=0,
+                         registers=32, smem=1024)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_check_sees_one_key_at_the_window_edge(dtype):
     """The element-wise kernel-vs-plain check passes the plain output
@@ -209,3 +256,74 @@ def test_kernel_check_sees_one_key_at_the_window_edge(dtype):
     z = torch.zeros((2, 8))
     assert flash.kernel_mismatch(z, z, *tol) == 0.0
     assert flash.kernel_mismatch(z + 1e-30, z, *tol) == float("inf")
+
+
+
+def _tc_bwd_emulated(q, k, v, do, lse, delta, window, split: bool):
+    """The bf16 backward kernels' operand rounding, in torch: S and dP from
+    the bf16 inputs in f32, p and dS handed to dV = P^T dO, dK = dS^T Q and
+    dQ = dS K either as a bf16 hi + lo pair (``split``: two products into
+    one f32 sum, as the kernels do) or rounded to bf16 once
+    (FlashAttention-2's rounding).  dq, dk, dv in f32, before the kernels'
+    one rounding to bf16."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    scale = 1.0 / np.sqrt(hd)
+    qf = q.float().reshape(B, KV, G, S, hd)
+    dof = do.float().reshape(B, KV, G, S, hd)
+    kf, vf = k.float(), v.float()
+    lse = lse.float().reshape(B, KV, G, S, 1)
+    delta = delta.float().reshape(B, KV, G, S, 1)
+    pos = torch.arange(S)
+    keep = flash._keep(pos[:, None], pos[None, :], window)
+    s = torch.einsum("bkgsh,bkth->bkgst", qf, kf) * scale
+    p = torch.where(keep, torch.exp(s - lse), 0.0)
+    dp = torch.einsum("bkgsh,bkth->bkgst", dof, vf)
+    ds = p * (dp - delta) * scale
+
+    def parts(x):
+        hi = x.to(torch.bfloat16).float()
+        return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
+
+    dq = sum(torch.einsum("bkgst,bkth->bkgsh", a, kf) for a in parts(ds))
+    dk = sum(torch.einsum("bkgst,bkgsh->bkth", a, qf) for a in parts(ds))
+    dv = sum(torch.einsum("bkgst,bkgsh->bkth", a, dof) for a in parts(p))
+    return dq.reshape(B, H, S, hd), dk, dv
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_split_operands_hold_the_plain_backward(window):
+    """The bf16 backward kernels' numerics on the qwen3 smoke heads (4 query
+    heads, 2 kv heads) at Qwen3's head dim 128, element by element against
+    flash_bwd_plain at KERNEL_TOL[bfloat16].  With p and dS split into bf16
+    hi + lo, dq, dk and dv hold after their rounding to bf16, and before it
+    sit far inside half the allowance; a single bf16 rounding of p and dS
+    (FlashAttention-2's) takes more than half of it before the outputs'
+    own rounding.  (After that rounding both variants show one-step flips
+    of about half the allowance, so the comparison that separates them is
+    the f32 one.)"""
+    q, k, v = _t(*_qkv(1, 4, 2, 256, 128, seed=10), dtype=torch.bfloat16)
+    do = _t(np.random.default_rng(11).normal(size=q.shape).astype(np.float32),
+            dtype=torch.bfloat16)[0]
+    tol = flash.KERNEL_TOL[torch.bfloat16]
+    o, lse = flash.flash_fwd_with_stats(q, k, v, window)
+    delta = flash.flash_delta(o, do)
+    want = flash.flash_bwd_plain(q, k, v, do, lse, delta, window)
+    # the same plain math on the same values, before the rounding to bf16
+    want32 = flash.flash_bwd_plain(q.float(), k.float(), v.float(),
+                                   do.float(), lse, delta, window)
+    worst, worst32 = {}, {}
+    for split in (True, False):
+        got = _tc_bwd_emulated(q, k, v, do, lse, delta, window, split)
+        worst32[split] = [flash.kernel_mismatch(g, w, *tol)
+                          for g, w in zip(got, want32)]
+        worst[split] = [flash.kernel_mismatch(g.to(torch.bfloat16), w, *tol)
+                        for g, w in zip(got, want)]
+    print(f"\nworst |emulated - plain| / allowance (dq, dk, dv), window "
+          f"{window}: hi + lo {worst32[True]} in f32, {worst[True]} in "
+          f"bf16; single rounding {worst32[False]} in f32, {worst[False]} "
+          f"in bf16")
+    assert max(worst[True]) <= 1, worst
+    assert max(worst32[True]) <= 0.5, worst32
+    assert min(worst32[False]) > 0.5, worst32
