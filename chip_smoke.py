@@ -53,6 +53,12 @@ path through the public API at the paper's sizes:
 * cone_as_modular — the cone cell re-expressed as modular frames: one FP
   and one BP against the cone kernels on the same inputs (relative norm
   < 1e-4); its kernels are held against the plain versions on views 7, 31.
+* cone128_dv1.5 and modular_wobbly_dv1.5 (kernel phase) — cone128 and
+  modular_wobbly with 1.5 mm detector rows: a row pitch that is not a power
+  of two, whose division the cone-family FP must round as the plain
+  version does.  Before the cells, the FP's division (``sf_div_rn``) is
+  held bit for bit against ``__fdiv_rn`` over every float overlap with a
+  normal quotient, at the cells' pitches and at published detector pitches.
 
 * flash attention (kernel phase) — the four kernels of
   ``csrc/flash.cu`` against the plain chunked attention and the plain
@@ -81,8 +87,19 @@ path through the public API at the paper's sizes:
   step at 28 layers).
 
 After the build it prints ptxas's registers and spills of the bf16 flash
-backward kernels (nvcc runs with ``-Xptxas=-v``) and, from the card, their
-shared memory a block and resident blocks per SM.
+backward kernels and of the eight cone-family FP instances (nvcc runs with
+``-Xptxas=-v``) and, from the card, their shared memory a block and
+resident blocks per SM (the FP's with its tile at the cone and helical
+cells).  Each cone-family FP row carries the thread-per-output FP's time
+of run 15I (``FP_15I_MS``) beside its own.  After the kernel phase it
+builds the FP with its phase profile compiled in (``-DSF_FP_PHASES``) and
+prints, per cell, each phase's share of the cycles and the passes,
+survivors and (survivor, slice) pairs.
+
+    python3 chip_smoke.py --cells cone128,cone128_dv1.5
+
+runs only the build and the named cells of the projector kernel phase,
+for comparing kernel sources on one card, and prints no ok line.
 
 Each path runs with every kernel launch count set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
@@ -128,6 +145,28 @@ LM_GRAD_REL_TOL = 5e-2
 # Decode (plain attention over the cache, bf16 scores) against the forward
 # (flash kernel) at the same positions.
 LM_DECODE_REL_TOL = 5e-2
+
+# The cone-family FP before its redesign (one thread per column and 4 rows),
+# as this script measured it on an NVIDIA H100 80GB HBM3 at 700.00 W (run
+# 15I in PERF.md): ms by (cell, dtype), and on the paths, printed beside
+# this run's.
+FP_15I_MS = {
+    ("cone", "float32"): 87.08367919921875,
+    ("cone", "bfloat16"): 90.89785766601562,
+    ("cone_edges", "float32"): 210.8814697265625,
+    ("cone128", "float32"): 27.001248359680176,
+    ("cone128", "bfloat16"): 27.714431762695312,
+    ("helical", "float32"): 553.864990234375,
+    ("helical_cut", "float32"): 94.18750381469727,
+    ("helical_cut", "bfloat16"): 97.48515319824219,
+    ("modular_wobbly", "float32"): 42.25998306274414,
+    ("modular_wobbly", "bfloat16"): 43.2545280456543,
+    ("cone_as_modular", "float32"): 87.79004669189453,
+    ("cone_as_modular", "bfloat16"): 91.12630081176758,
+}
+FP_15I_PATH_MS = {"cone_fp": 4311.29296875, "helical_fp": 554.047119140625,
+                  "fp_modular_sf_spt1": 363.3875732421875,
+                  "fp_modular_sf_spt8": 516.4280395507812}
 
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
 FLASH_REPLACES = {"flash_fwd": "src/repro/kernels/flash.py:55",
@@ -444,10 +483,13 @@ def kernel_phase(torch, cells, results):
                        "bytes": nbytes, "ops": ops, "nnz": nnz,
                        "library_note": None if library else
                        f"not built: {nnz} nonzeros > {LIB_NNZ_MAX} (int32 CSR)"}
+                if kname in ("fp_cone_sf", "fp_modular_sf"):
+                    row["ms_15I"] = FP_15I_MS.get((cell, name))
                 results["kernels"].append(row)
                 log(f"kernel {kname:10s} {cell:10s} {name:8s} rel_err {err:.3g} "
                     f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms} "
-                    f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
+                    f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})"
+                    + (f" 15I_ms {row['ms_15I']}" if row.get("ms_15I") else ""))
         del x_f32, x, q
         torch.cuda.empty_cache()
         results["phase_s"][f"kernels {cell}"] = time.perf_counter() - t_cell
@@ -599,7 +641,15 @@ def helical_views() -> list:
     return sorted(keep + [others[int(i * step)] for i in range(90 - len(keep))])
 
 
-def wobbly_geometry():
+def cone128_geometry(pixel_height: float = 2.0):
+    """The cone cell cut to 128^3 and 45 views (2 mm columns)."""
+    from repro_torch import VolumeGeometry, cone_beam
+    return cone_beam(45, 128, 192, VolumeGeometry(128, 128, 128), sod=256.0,
+                     sdd=512.0, pixel_width=2.0, pixel_height=pixel_height,
+                     angular_range=360.0)
+
+
+def wobbly_geometry(pixel_height: float = 2.0):
     """The irregular trajectory of the reference's tests/test_modular.py:38-57
     scaled x8: non-uniform angles, per-view sod/sdd/source-height wobble,
     per-view in-plane and axial detector shifts, e_v flipped on odd views."""
@@ -620,7 +670,7 @@ def wobbly_geometry():
            + rng.uniform(-24, 24, na)[:, None] * ev)
     return modular_beam(src, ctr, eu, ev, n_rows=128, n_cols=192,
                         vol=VolumeGeometry(128, 128, 64), pixel_width=2.0,
-                        pixel_height=2.0)
+                        pixel_height=pixel_height)
 
 
 def helical_phantoms(torch, vol, seeds=range(8)):
@@ -756,11 +806,13 @@ def cone_path(torch, results):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * nnz / PEAK_OPS["float32"] * 1e3
     results["cone"] = {"dot": rel, "fp_first_s": t_fp, "bp_first_s": t_bp,
-                       "fp_ms": fp_ms, "bp_ms": bp_ms, "fdk_s": t_fdk,
+                       "fp_ms": fp_ms, "fp_ms_15I": FP_15I_PATH_MS["cone_fp"],
+                       "bp_ms": bp_ms, "fdk_s": t_fdk,
                        "fdk_centre_rel": centre / 0.02 - 1.0, "nnz": nnz,
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    log(f"cone 512^3/180 views: FP {fp_ms:.1f} ms, BP {bp_ms:.1f} ms, nnz {nnz}, "
+    log(f"cone 512^3/180 views: FP {fp_ms:.1f} ms (15I: "
+        f"{FP_15I_PATH_MS['cone_fp']:.1f}), BP {bp_ms:.1f} ms, nnz {nnz}, "
         f"bound {max(t_bytes, t_ops):.4f} ms; FDK {t_fdk:.2f} s, cylinder centre "
         f"{centre:.6f} (rel {centre / 0.02 - 1.0:.4f})")
     check(abs(centre / 0.02 - 1.0) < 0.05, "FDK cylinder centre off by >= 5 %")
@@ -795,6 +847,7 @@ def helical_path(torch, results):
     check(tuple(sino.shape) == (8,) + geom.sino_shape and bool(torch.isfinite(sino).all()),
           "helical sinogram shape/finite")
     out["fp_ms"] = cuda_ms(torch, lambda: proj(x), reps=3, warmup=0)
+    out["fp_ms_15I"] = FP_15I_PATH_MS["helical_fp"]
     out["bp_ms"] = cuda_ms(torch, lambda: proj.T(sino), reps=3, warmup=0)
 
     xg = (0.5 * x).requires_grad_()
@@ -853,7 +906,8 @@ def helical_path(torch, results):
                                                          "measured view")
     del x_dc, completed, x_sirt
     out["path_s"] = time.perf_counter() - t_start
-    log(f"helical FP {out['fp_ms']:.1f} ms, BP {out['bp_ms']:.1f} ms (batch 8); "
+    log(f"helical FP {out['fp_ms']:.1f} ms (15I: {out['fp_ms_15I']:.1f}), BP "
+        f"{out['bp_ms']:.1f} ms (batch 8); "
         f"SIRT-30 {out['sirt_psnr']:.2f} dB ({out['sirt30_s']:.2f} s), CGLS-20 "
         f"{out['cgls_psnr']:.2f} dB ({out['cgls20_s']:.2f} s, residual ratio "
         f"{out['cgls_residual_ratio']:.3g}), FISTA-TV-30 {out['fista_tv_psnr']:.2f} dB "
@@ -997,9 +1051,13 @@ def instance_times(torch, results) -> None:
         rel = rel_err(got[8], got[1])
         out[f"{kname}_bit_equal"] = bool(torch.equal(got[8], got[1]))
         check(rel < 1e-6, f"{kname} batch 1: 8-sample instance vs 1-sample {rel:.3g}")
+        was = ("" if kname != "fp_modular_sf" else
+               f" (15I: {FP_15I_PATH_MS['fp_modular_sf_spt1']:.1f} and "
+               f"{FP_15I_PATH_MS['fp_modular_sf_spt8']:.1f})")
         log(f"{kname} batch 1 on the helical cell: 1 sample per thread "
             f"{out[f'{kname}_spt1_ms']:.1f} ms, 8 per thread "
-            f"{out[f'{kname}_spt8_ms']:.1f} ms (bit-equal {out[f'{kname}_bit_equal']})")
+            f"{out[f'{kname}_spt8_ms']:.1f} ms{was} (bit-equal "
+            f"{out[f'{kname}_bit_equal']})")
     results["instances"] = out
 
 
@@ -1008,6 +1066,117 @@ def attn_pairs(S: int, window) -> int:
     if window is None or window >= S:
         return S * (S + 1) // 2
     return window * (window + 1) // 2 + (S - window) * window
+
+
+def fp_build_report(results) -> None:
+    """ptxas's registers and spills of the cone-family FP instances (from
+    the build's log) and, on this card, each one's tile, dynamic shared
+    memory a block and resident blocks per SM at the cone cell (cone
+    kernels) and the helical cell (modular kernels)."""
+    import re
+    import torch
+    from repro_torch.kernels import build, fp_cone, fp_modular
+    plans = {"fp_cone": fp_cone.ConePlan(cone_geometry()),
+             "fp_modular": fp_modular.ModularPlan(helical_geometry())}
+    rows = {}
+    for lib, plan in plans.items():
+        for mangled, rep in build.ptxas_report(lib).items():
+            m = re.search(rf"({lib}_sf_kernel)I(f|13__nv_bfloat16)Li(\d)E", mangled)
+            if not m:
+                continue
+            dtype = torch.float32 if m.group(2) == "f" else torch.bfloat16
+            spt = int(m.group(3))
+            key = f"{m.group(1)}<{str(dtype)[6:]}, {spt}>"
+            rows[key] = dict(rep, **fp_cone.fp_info(lib, plan, dtype, spt))
+    check(len(rows) == 8, f"ptxas report of the cone-family FP kernels: {sorted(rows)}")
+    results["fp_sf_build"] = rows
+    for k, r in sorted(rows.items()):
+        log(f"ptxas {k}: {r['registers']} registers, {r['spill_stores']} bytes spill "
+            f"stores, {r['spill_loads']} bytes spill loads, {r['stack']} bytes stack; "
+            f"tile {r['tile_rows']} x {r['tile_cols']}, {r['smem_bytes']} bytes dynamic "
+            f"shared a block, {r['blocks_per_sm']} blocks per SM")
+
+
+# Detector row pitches (mm) at which the cone-family FP's division is held
+# against __fdiv_rn: the cells' (2, 1.5), powers of two, published
+# flat-panel and CT detector pitches (0.1, 0.127, 0.139, 0.2, 0.388,
+# 0.625, 0.75), and both ends of the range the kernel accepts.
+FP_DIV_PITCHES = (2.0, 1.5, 1.0, 0.5, 0.1, 0.127, 0.139, 0.2, 0.388, 0.625,
+                  0.75, 1.2, 2.0 ** -20, 3.0 * 2.0 ** -21, 2.0 ** 20,
+                  1.75 * 2.0 ** 19)
+
+
+def fp_division_check(torch, results) -> None:
+    """The cone-family FP divides each overlap by the row pitch without a
+    division instruction (csrc/cone_sf.cuh ``sf_div_rn``): at each pitch of
+    FP_DIV_PITCHES, every float overlap with a normal quotient must give
+    __fdiv_rn's bits."""
+    from repro_torch.kernels import fp_cone
+    t = time.perf_counter()
+    bad = {dv: fp_cone.division_mismatches(dv) for dv in FP_DIV_PITCHES}
+    torch.cuda.synchronize()
+    results["fp_division"] = {"pitches": list(FP_DIV_PITCHES),
+                              "mismatches": list(bad.values()),
+                              "s": time.perf_counter() - t}
+    log(f"FP division against __fdiv_rn at {len(bad)} pitches, every float "
+        f"overlap with a normal quotient: {sum(bad.values())} differ "
+        f"({time.perf_counter() - t:.2f} s)")
+    check(not any(bad.values()), f"FP division differs from __fdiv_rn: {bad}")
+
+
+# The kernel-phase cells whose FP is profiled by phase (fp_phases).
+FP_PHASE_CELLS = ("cone128", "cone128_dv1.5", "modular_wobbly",
+                  "modular_wobbly_dv1.5", "cone", "helical_cut")
+FP_PHASES = ("classify", "wu", "pairs", "sum")
+
+
+def fp_phases(torch, cells, results) -> None:
+    """Where the cone-family FP's cycles go, from its build with the phase
+    profile compiled in (csrc/cone_sf.cuh SF_FP_PHASES): per cell of
+    FP_PHASE_CELLS, the instrumented kernel's time, each phase's share of
+    thread 0's cycles summed over the blocks, and per pass the survivors,
+    (survivor, slice) pairs and classification rounds."""
+    import ctypes
+    from repro_torch.kernels import build, fp_cone
+    fams = families()
+    out = {}
+    for cell in FP_PHASE_CELLS:
+        if cell not in cells:
+            continue
+        c = cells[cell]
+        lib = f"fp_{c.family}"
+        kname = f"{lib}_sf"
+        plan = fams[c.family]["plan"](c.geom)
+        x = c.make_x()
+        read = getattr(build.library(lib, "phases"), f"{lib}_phases_read")
+        sums = (ctypes.c_ulonglong * 8)()
+
+        def run():
+            return fp_cone.launch(lib, kname, x, plan, {kname: 0},
+                                  variant="phases")
+
+        run()
+        torch.cuda.synchronize()
+        build.check(lib, read(sums), "phases read")          # zero the sums
+        run()
+        torch.cuda.synchronize()
+        build.check(lib, read(sums), "phases read")
+        v = list(sums)
+        cycles = max(sum(v[:4]), 1)
+        passes = max(v[4], 1)
+        row = {"ms": cuda_ms(torch, run, reps=5, warmup=1),
+               "shares": {p: v[i] / cycles for i, p in enumerate(FP_PHASES)},
+               "passes": v[4], "survivors_a_pass": v[5] / passes,
+               "pairs_a_pass": v[6] / passes, "rounds_a_pass": v[7] / passes,
+               "cycles_a_pass": cycles / passes}
+        out[cell] = row
+        log(f"fp phases {cell}: {row['ms']:.3f} ms (instrumented); cycle shares "
+            + ", ".join(f"{p} {x:.3f}" for p, x in row["shares"].items())
+            + f"; {v[4]} passes, a pass {row['survivors_a_pass']:.1f} survivors, "
+            f"{row['pairs_a_pass']:.1f} (survivor, slice) pairs, "
+            f"{row['rounds_a_pass']:.2f} rounds")
+        del x
+    results["fp_phases"] = out
 
 
 def bwd_tc_report(results) -> None:
@@ -1425,9 +1594,10 @@ def lm_paths(torch, results) -> dict:
     return launches
 
 
-def projector_phases(torch, results) -> dict:
+def projector_phases(torch, results, only=None) -> dict:
     """The projector kernels' cells and paths, and their profile; returns the
-    launches of each projector kernel on its own path."""
+    launches of each projector kernel on its own path.  ``only``: the names
+    of the kernel-phase cells to run, and nothing else."""
     from repro_torch import VolumeGeometry, cone_beam, parallel_beam
     from repro_torch.core.geometry import cone_as_modular
     from repro_torch.data.phantoms import random_ellipse_phantom
@@ -1447,9 +1617,7 @@ def projector_phases(torch, results) -> dict:
     cone_two = cone.subset([7, 31])
     # the axes and both sides of the 45 and 135 degree group boundaries
     cone_edges = cone.subset([0, 22, 23, 45, 67, 68, 90])
-    cone128 = cone_beam(45, 128, 192, VolumeGeometry(128, 128, 128), sod=256.0,
-                        sdd=512.0, pixel_width=2.0, pixel_height=2.0,
-                        angular_range=360.0)
+    cone128 = cone128_geometry()
     cells = {
         "main": Cell("par", parallel_beam(720, 1, 768, main_vol, angular_range=180.0),
                      8, phantom_lanes, plain_reps=1),
@@ -1470,6 +1638,9 @@ def projector_phases(torch, results) -> dict:
                            "dtype does not change; f32; no library matrix",
                            ("float32",)),
         "cone128": Cell("cone", cone128, 1, rand(1, 128, 128, 128), 2),
+        "cone128_dv1.5": Cell("cone", cone128_geometry(1.5), 1,
+                              rand(1, 128, 128, 128), 2,
+                              "cone128 with 1.5 mm rows (not a power of two)"),
     }
     helical = helical_geometry()
     cells.update({
@@ -1483,11 +1654,21 @@ def projector_phases(torch, results) -> dict:
                             "spaced others), with the library matrix"),
         "modular_wobbly": Cell("modular", wobbly_geometry(), 1, rand(1, 128, 128, 64),
                                2),
+        "modular_wobbly_dv1.5": Cell("modular", wobbly_geometry(1.5), 1,
+                                     rand(1, 128, 128, 64), 2,
+                                     "modular_wobbly with 1.5 mm rows (not a "
+                                     "power of two)"),
         "cone_as_modular": Cell("modular", cone_as_modular(cone_two), 1,
                                 rand(1, 512, 512, 512), 0,
                                 "views 7 and 31 of the cone cell as modular frames"),
     })
+    if only is not None:
+        kernel_phase(torch, {k: cells[k] for k in only}, results)
+        return {}
     kernel_phase(torch, cells, results)
+    t = time.perf_counter()
+    fp_phases(torch, cells, results)
+    results["phase_s"]["fp phases"] = time.perf_counter() - t
     t = time.perf_counter()
     instance_times(torch, results)
     results["phase_s"]["instances"] = time.perf_counter() - t
@@ -1556,13 +1737,30 @@ def main() -> int:
 
     from repro_torch.kernels import build
 
+    only = None
+    if len(sys.argv) > 2 and sys.argv[1] == "--cells":
+        only = sys.argv[2].split(",")
     t = time.perf_counter()
-    build.build_all()
+    if only is None:
+        build.build_all(extra=[("fp_cone", "phases"), ("fp_modular", "phases")])
+    else:
+        build.build_all()
     results["build_s"] = time.perf_counter() - t
     log(f"build {results['build_s']:.1f} s")
     bwd_tc_report(results)
+    fp_build_report(results)
+    if only is None:
+        fp_division_check(torch, results)
 
-    launches = projector_phases(torch, results)
+    launches = projector_phases(torch, results, only)
+    if only is not None:
+        for row in results["kernels"]:
+            log(json.dumps({k: row[k] for k in ("kernel", "cell", "dtype", "ms",
+                                                "rel_err", "library_ms")}))
+        outdir = ROOT / "chiprun_out"
+        outdir.mkdir(exist_ok=True)
+        (outdir / "chip_smoke_cells.json").write_text(json.dumps(results, indent=1))
+        return 0
     flash_phase(torch, results)
     launches.update(lm_paths(torch, results))
 

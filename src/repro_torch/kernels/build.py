@@ -11,8 +11,11 @@ The output lands in ``build/repro_torch/`` at the root of the checkout
 (git-ignored), named by a hash of every source under ``csrc/`` so that a
 stale library is never loaded, with nvcc's output beside it
 (``<name>-<hash>.log``: ptxas's registers, spills and shared memory of
-every kernel, read by :func:`ptxas_report`).  Without ``nvcc`` this raises:
-there is no fallback.
+every kernel, read by :func:`ptxas_report`).  A variant of a library is
+the same source built with more flags into ``<name>-<variant>-<hash>.so``:
+``"phases"`` compiles in the cone-family FP's phase profile
+(``-DSF_FP_PHASES``, csrc/cone_sf.cuh), which the kernels the port runs
+never carry.  Without ``nvcc`` this raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+from typing import Dict, Iterable, List, Tuple
 
 __all__ = ["build_all", "library", "parse_ptxas", "ptxas_report",
            "BUILD_DIR", "CSRC"]
@@ -34,7 +37,10 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+# extra nvcc flags by variant ("" is the library the port runs)
+VARIANTS = {"": [], "phases": ["-DSF_FP_PHASES"]}
+
+_LIBS: Dict[Tuple[str, str], ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 _c = ctypes
@@ -72,7 +78,8 @@ _SIGNATURES = {
             _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
             _c.c_longlong, _c.c_longlong, _c.c_int, _c.c_int, _c.c_float,
             _c.c_float, _c.c_float, _c.c_float, _c.c_float, _c.c_float,
-            _c.c_float, _c.c_float, _c.c_float, _c.c_void_p],
+            _c.c_float, _c.c_float, _c.c_float, _c.c_int, _c.c_int,
+            _c.c_int, _c.c_int, _c.c_void_p],
         "bp_cone_sf_launch": [
             _c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int,
             _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
@@ -95,11 +102,20 @@ _SIGNATURES["flash"] = {
     + _FLASH_TAIL,
     "flash_bwd_tc_info": [_c.c_int, _c.c_int, _c.POINTER(_c.c_int)],
 }
+# The FP's shared bytes and blocks per SM at a layout: (dtype, spt, tv,
+# ncap, smax, emax, out bytes, out blocks).
+_SIGNATURES["fp_cone"]["fp_cone_sf_info"] = [
+    _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+    _c.POINTER(_c.c_int), _c.POINTER(_c.c_int)]
+# The FP's division against __fdiv_rn: (dv, lo, hi, device counter, stream).
+_SIGNATURES["fp_cone"]["fp_cone_div_check"] = [
+    _c.c_float, _c.c_uint, _c.c_uint, _c.c_void_p, _c.c_void_p]
 # The modular pair's entry points take the cone pair's arguments (sdd is the
 # reference distance sdd_ref).
 _SIGNATURES["fp_modular"] = {
     "fp_modular_sf_launch": _SIGNATURES["fp_cone"]["fp_cone_sf_launch"],
     "bp_modular_sf_launch": _SIGNATURES["fp_cone"]["bp_cone_sf_launch"],
+    "fp_modular_sf_info": _SIGNATURES["fp_cone"]["fp_cone_sf_info"],
 }
 
 
@@ -128,22 +144,25 @@ def _sources_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def _target(name: str) -> pathlib.Path:
-    return BUILD_DIR / f"{name}-{_sources_hash()}.so"
+def _target(name: str, variant: str = "") -> pathlib.Path:
+    tag = f"{name}-{variant}" if variant else name
+    return BUILD_DIR / f"{tag}-{_sources_hash()}.so"
 
 
-def _compile(names: List[str]) -> None:
-    """Start one ``nvcc`` per source, all together, and wait for them."""
-    todo = [n for n in names if not _target(n).exists()]
+def _compile(keys: List[Tuple[str, str]]) -> None:
+    """Start one ``nvcc`` per (source, variant), all together, and wait for
+    them."""
+    todo = [k for k in keys if not _target(*k).exists()]
     if not todo:
         return
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for n in todo:
-        out = _target(n)
+    for n, variant in todo:
+        out = _target(n, variant)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *VARIANTS[variant], "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
         procs.append((n, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
@@ -158,9 +177,12 @@ def _compile(names: List[str]) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
-def _load(name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_target(name)))
-    for fn, argtypes in _SIGNATURES[name].items():
+def _load(name: str, variant: str = "") -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(_target(name, variant)))
+    sigs = dict(_SIGNATURES[name])
+    if variant == "phases":
+        sigs[f"{name}_phases_read"] = [_c.c_void_p]
+    for fn, argtypes in sigs.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
@@ -177,13 +199,16 @@ def check(name: str, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def build_all() -> None:
-    """Build (where needed) and load every kernel library."""
+def build_all(extra: Iterable[Tuple[str, str]] = ()) -> None:
+    """Build (where needed) and load every kernel library, and the
+    (library, variant) pairs of ``extra``, with one nvcc each, all
+    together."""
     with _LOCK:
-        names = [n for n in _SIGNATURES if n not in _LIBS]
-        _compile(names)
-        for n in names:
-            _LIBS[n] = _load(n)
+        keys = [(n, "") for n in _SIGNATURES] + list(extra)
+        keys = [k for k in keys if k not in _LIBS]
+        _compile(keys)
+        for k in keys:
+            _LIBS[k] = _load(*k)
 
 
 def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
@@ -219,8 +244,9 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
     return parse_ptxas(_target(name).with_suffix(".log").read_text())
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu``."""
-    if name not in _LIBS:
-        build_all()
-    return _LIBS[name]
+def library(name: str, variant: str = "") -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` (as ``variant``,
+    one of :data:`VARIANTS`)."""
+    if (name, variant) not in _LIBS:
+        build_all(() if not variant else [(name, variant)])
+    return _LIBS[(name, variant)]

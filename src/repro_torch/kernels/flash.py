@@ -39,6 +39,14 @@ KERNEL_TILE = 64
 # Head dims the kernels are instantiated for (Qwen3 128, TinyLlama 64).
 KERNEL_HEAD_DIMS = (64, 128)
 
+
+def has_kernel(hd: int) -> bool:
+    """Whether the kernels are built for head dim ``hd``: the one place
+    that decides it, for the wrappers and for the model's long branch, which
+    both refuse other head dims on CUDA tensors."""
+    return hd in KERNEL_HEAD_DIMS
+
+
 # A kernel's output against its plain version on the same inputs, element
 # by element (kernel_mismatch): |kernel - plain| <= rtol |plain| + atol *
 # (the largest |plain| of its row).  The forward's plain version runs at
@@ -209,7 +217,7 @@ def _check_inputs(q, k, v, what: str):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what}: q, k, v must share one dtype, float32 or "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in KERNEL_HEAD_DIMS:
+    if not has_kernel(hd):
         raise ValueError(f"{what}: the kernels are built for head dims "
                          f"{KERNEL_HEAD_DIMS}, got {hd}")
     return shapes

@@ -27,11 +27,15 @@ view, 20 floats: the affines of the centre's (q, ell) in the voxel indices,
 the corner offsets and the affines of the transaxial ray.  The tables are
 bit-identical to the reference package's.
 
-Curved-detector cone is not ported (ROADMAP.md queue 1): its plan raises.
-Each kernel wrapper counts its launches in :data:`LAUNCHES`.
+The FP kernel gives a block an output tile and walks the tile's voxels in
+passes through shared memory; :func:`fp_layout` sizes the tile and the
+buffers from the plan.  Curved-detector cone is not ported (ROADMAP.md
+queue 1): its plan raises.  Each kernel wrapper counts its launches in
+:data:`LAUNCHES`.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -196,6 +200,7 @@ class ConePlan:
                 "queue 1 lists it")
         px, py, order = _view_params_cone(geom)
         self._set(geom, px, py, order, geom.sdd)
+        self.mag_bounds = _mag_bounds(geom)
         self.hw = _f32(footprint_halfwidth(geom))
         self.taps_u = geom.max_footprint_cols()
         self.taps_v = geom.max_footprint_rows()
@@ -218,6 +223,7 @@ class ConePlan:
         self.sdd = _f32(sdd)
         self.dxv = _f32(v.dx)
         self._on: Dict[str, _DeviceTables] = {}
+        self._layouts: Dict[int, "FpLayout"] = {}
 
     def axial(self, table: torch.Tensor, ell: torch.Tensor, rt2: torch.Tensor,
               zt: torch.Tensor):
@@ -382,14 +388,164 @@ def samples_per_thread(batch: int) -> int:
     return 8 if batch > 1 else 1
 
 
+# The FP's block (csrc/cone_sf.cuh SF_FP_THREADS, SF_FP_COLS): threads, and
+# detector columns each thread owns in its row.
+FP_THREADS = 256
+FP_COLS = 4
+# Rows of an FP tile at most (one warp of rows per column run).
+FP_MAX_ROWS = 32
+# FP blocks an SM by samples a block (csrc/cone_sf.cuh SfFpBlocks), and the
+# dynamic shared memory each may take so that they fit the H100's 227 KB.
+FP_BLOCKS = {1: 3, 8: 2}
+FP_SMEM_BUDGET = {1: 72 * 1024, 8: 100 * 1024}
+# Row pitches (mm) for which the FP's division by the pitch (csrc/cone_sf.cuh
+# ``sf_div_rn``) is proven to round as an IEEE division.
+FP_DV_RANGE = (2.0 ** -20, 2.0 ** 20)
+
+
+@dataclasses.dataclass(frozen=True)
+class FpLayout:
+    """The FP kernel's tile and shared buffers for one plan and instance
+    (:func:`fp_layout`).  ``tv`` x ``tu``: the tile's rows and columns;
+    ``ncap``: the columns a voxel's footprint can meet in a tile;
+    ``nslice``: the slices of a voxel that can meet a tile's rows;
+    ``window``: the voxels of a tile's gather window (the whole line at the
+    pole of the gather map); ``smax``, ``emax``: a pass's survivors and
+    (survivor, slice) pairs; ``passes``: whether a window can need more
+    than one pass; ``smem_bytes``: the block's dynamic shared memory."""
+    tv: int
+    tu: int
+    ncap: int
+    nslice: int
+    window: int
+    smax: int
+    emax: int
+    passes: bool
+    smem_bytes: int
+
+
+def _fp_smem_words(tv: int, ncap: int, smax: int, emax: int,
+                   spt: int) -> int:
+    """The FP's shared memory in 4-byte words at a layout, as
+    csrc/cone_sf.cuh ``sf_fp_smem_words`` counts it; the first launch of
+    each layout on a card checks the two agree (:func:`fp_info`)."""
+    nrc = (ncap + 2 * FP_COLS - 2) // FP_COLS
+    return (smax * (15 + nrc * FP_COLS) + emax * (3 + spt)
+            + 3 * 32 + 2 + (FP_THREADS // tv) * ((smax + 31) // 32)
+            + 3 * (FP_THREADS // 32) + 4 + (emax + 3) // 4)
+
+
+def fp_layout(plan: ConePlan, spt: int) -> FpLayout:
+    """Size the FP kernel's tile and shared buffers for ``plan`` (cone or
+    modular) and ``spt`` samples per block.  Bounds, each from the plan:
+
+    * a voxel's footprint is at most 2 hw wide, so its pixel range with the
+      kernel's margin of one column each side spans at most ceil(2 hw / du)
+      + 3 columns;
+    * a tile's rows span tv dv of the detector, which a voxel's slices of
+      height dz cover at |mag| >= mag_min: its z range, with the kernel's
+      margins, holds at most floor(tv dv / (mag_min dz)) + 6 slices;
+    * a window holds at most the whole gathered line (ng voxels).
+
+    The buffers take as many survivors a pass as fit FP_SMEM_BUDGET[spt]
+    (up to 128: the kernel names a pair's survivor in a byte), and never
+    fewer (survivor, slice) pairs than one voxel's nz (so that any one
+    voxel fits an empty pass).  Raises when even that does not fit, and for
+    a row pitch outside [2^-20, 2^20] (FP_DV_RANGE), where the kernel's
+    exact division is not proven."""
+    if spt in plan._layouts:
+        return plan._layouts[spt]
+    if not FP_DV_RANGE[0] <= plan.dv <= FP_DV_RANGE[1]:
+        raise ValueError(
+            f"the cone-family FP kernel divides by the row pitch exactly "
+            f"for pitches in {FP_DV_RANGE} mm, got {plan.dv}")
+    geom = plan.geom
+    nz, nv = geom.vol.nz, geom.n_rows
+    tv = min(nv, FP_MAX_ROWS)
+    tu = (FP_THREADS // tv) * FP_COLS
+    ncap = min(tu, math.ceil(2.0 * plan.hw / plan.du + 1e-3) + 3)
+    nslice = min(nz, math.floor(tv * plan.dv / (plan.mag_bounds[0] * plan.dz)
+                                + 1e-3) + 6)
+    window = max(plan.group(0)[0], plan.group(1)[0])
+    for smax in (128, 96, 64, 48, 32, 24, 16, 12, 8, 4, 2, 1):
+        emax = max(nz, smax * nslice)
+        words = _fp_smem_words(tv, ncap, smax, emax, spt)
+        if 4 * words <= FP_SMEM_BUDGET[spt]:
+            break
+    else:
+        raise ValueError(
+            f"the cone-family FP kernel cannot hold one voxel's {nz} slices "
+            f"in {FP_SMEM_BUDGET[spt]} bytes of shared memory ({4 * words} "
+            f"needed at {spt} samples a block)")
+    out = FpLayout(tv, tu, ncap, nslice, window, smax, emax, window > smax,
+                   4 * words)
+    plan._layouts[spt] = out
+    return out
+
+
+def fp_info(lib_name: str, plan: ConePlan, dtype: torch.dtype,
+            spt: int) -> Dict[str, int]:
+    """The FP kernel instance of library ``lib_name`` (the cone or the
+    modular pair) for ``dtype`` tiles and ``spt`` samples a block, on this
+    card, at ``plan``'s :func:`fp_layout`: its tile (rows, columns), dynamic
+    shared memory a block (bytes, as the kernel counts it) and resident
+    blocks per SM.  Raises when the kernel's count of its shared memory is
+    not the host's (``_fp_smem_words``)."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fp_par import _DTYPE_CODE
+    lay = fp_layout(plan, spt)
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    info = getattr(build.library(lib_name), f"{lib_name}_sf_info")
+    build.check(lib_name, info(_DTYPE_CODE[dtype], spt, lay.tv, lay.ncap,
+                               lay.smax, lay.emax, ctypes.byref(smem),
+                               ctypes.byref(blocks)), f"{lib_name}_sf info")
+    if smem.value != lay.smem_bytes:
+        raise RuntimeError(
+            f"{lib_name}_sf carves {smem.value} bytes of shared memory from "
+            f"the layout {lay}, the host counted {lay.smem_bytes}: "
+            f"csrc/cone_sf.cuh sf_fp_smem_words and fp_cone._fp_smem_words "
+            f"disagree")
+    return {"tile_rows": lay.tv, "tile_cols": lay.tu,
+            "smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+
+
+def division_mismatches(dv: float) -> int:
+    """How many floats ov in [dv 2^-126, 2 dv] (every overlap whose quotient
+    is a normal float) the FP kernel's division ``sf_div_rn`` divides by the
+    row pitch ``dv`` to other bits than ``__fdiv_rn`` does, on the card
+    (``fp_cone_div_check``); 0 is the claim."""
+    from repro_torch.kernels import build
+    dv = np.float32(dv)
+    low = float(dv) * 2.0 ** -126
+    lo = np.float32(low)
+    if float(lo) < low:
+        lo = np.nextafter(lo, np.float32(np.inf))
+    bits = np.array([lo, 2 * dv], dtype=np.float32).view(np.uint32)
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    build.check("fp_cone", build.library("fp_cone").fp_cone_div_check(
+        float(dv), int(bits[0]), int(bits[1]) + 1, bad.data_ptr(), stream),
+        "fp_cone_div_check")
+    return int(bad.item())
+
+
+# (library, dtype, samples a block, layout) whose shared memory count the
+# kernel has confirmed (fp_info), each once a process.
+_CHECKED: set = set()
+
+
 def launch(lib_name: str, kname: str, x: torch.Tensor, plan: ConePlan,
-           counts: Dict[str, int], spt: Optional[int] = None) -> torch.Tensor:
+           counts: Dict[str, int], spt: Optional[int] = None,
+           variant: str = "") -> torch.Tensor:
     """Launch the cone-family kernel ``kname`` of library ``lib_name`` (the
     cone or the modular pair) once per non-empty view group on the CUDA
     tensor ``x``, adding one to ``counts[kname]`` per launch.  The FP's last
-    argument is the footprint half-width bound; the BP's says whether to add
-    into the output (the second group) or overwrite it.  ``spt`` (samples
-    per thread, 1 or 8) defaults to :func:`samples_per_thread`."""
+    arguments are the footprint half-width bound and its :func:`fp_layout`;
+    the BP's says whether to add into the output (the second group) or
+    overwrite it.  ``spt`` (samples per thread, 1 or 8) defaults to
+    :func:`samples_per_thread`; ``variant`` names a build of the library
+    (``build.VARIANTS``: the phase profile)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.fp_par import _DTYPE_CODE, _check_tile
     geom = plan.geom
@@ -400,8 +556,14 @@ def launch(lib_name: str, kname: str, x: torch.Tensor, plan: ConePlan,
     _check_tile(x, (batch,) + in_shape, kname)
     out = torch.empty((batch,) + out_shape, dtype=torch.float32, device=x.device)
     dt = plan.on(x.device)
-    run = getattr(build.library(lib_name), f"{kname}_launch")
+    run = getattr(build.library(lib_name, variant), f"{kname}_launch")
     spt = samples_per_thread(batch) if spt is None else spt
+    if fp:
+        lay = fp_layout(plan, spt)
+        tail = (plan.hw, lay.tv, lay.ncap, lay.smax, lay.emax)
+        if (lib_name, x.dtype, spt, lay) not in _CHECKED:
+            fp_info(lib_name, plan, x.dtype, spt)
+            _CHECKED.add((lib_name, x.dtype, spt, lay))
     accumulate = 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -416,7 +578,7 @@ def launch(lib_name: str, kname: str, x: torch.Tensor, plan: ConePlan,
                 x.data_ptr(), out.data_ptr(), ng, nl, geom.vol.nz, gs, ls,
                 geom.n_cols, geom.n_rows, plan.e0, plan.du, plan.ev0, plan.dv,
                 plan.z0, plan.dz, plan.sdd, plan.dxv,
-                plan.hw if fp else accumulate, stream)
+                *(tail if fp else (accumulate,)), stream)
             build.check(lib_name, rc, f"{kname} launch")
             counts[kname] += 1
             accumulate = 1

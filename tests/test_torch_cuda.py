@@ -4,6 +4,8 @@ These need a CUDA device and nvcc; they skip elsewhere.  On the GPU machine:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -248,6 +250,138 @@ def test_cone_family_instances_match_plain(family, spt, batch):
     assert all(n >= 1 for n in tally.values()), tally
 
 
+def _fp_tile_cases():
+    """The FP's tile traps, small (name: family, geometry): a cone whose
+    detector spans 3 x 3 tiles of 32 x 32, both ragged (75 columns, 70
+    rows), at views 0, 44, 45, 46, 134, 135 and 136 degrees (the view-group
+    edges); a cone whose detector reaches past the pole of the gather map
+    (|u| = sdd tan 45 = 40 mm on a 200 mm detector), where a window is the
+    whole line; the wobbly frames (signed magnification) and a helical scan
+    (a moving source, 6 rows in one tile)."""
+    return {
+        "tiles_edges": ("cone", cone_beam(
+            360, 70, 75, VolumeGeometry(20, 20, 30), sod=60.0, sdd=120.0,
+            pixel_width=1.0, pixel_height=1.0).subset([0, 44, 45, 46, 134, 135, 136])),
+        "pole": ("cone", cone_beam(
+            8, 6, 200, VolumeGeometry(16, 16, 6), sod=30.0, sdd=40.0,
+            pixel_width=1.0, pixel_height=2.0)),
+        "wobbly": ("modular", _wobbly()),
+        "helical": ("modular", MODULAR["helical"][0]),
+    }
+
+
+def _fp_family(family, g):
+    plan = ConePlan(g) if family == "cone" else ModularPlan(g)
+    return plan, f"fp_{family}", f"fp_{family}_sf"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 3, 9])
+@pytest.mark.parametrize("name", ["tiles_edges", "pole", "wobbly", "helical"])
+def test_fp_tiles_match_plain_and_both_instances(name, batch, dtype):
+    """The cone-family FP on ragged tiles, at the view-group edges and the
+    pole of the gather map, under signed magnification and a moving
+    source, at batch 1, 3 and 9 (ragged against the 8 samples a block): both
+    instances against the plain version (2e-4 in f32, BF16_KERNEL_REL_TOL
+    in bf16) and bit-equal to each other; in f32 the dot test against the
+    BP (< 1e-4)."""
+    requires_cuda()
+    family, g = _fp_tile_cases()[name]
+    plan, lib, kname = _fp_family(family, g)
+    gen = torch.Generator(device="cuda").manual_seed(batch)
+    dt = getattr(torch, dtype)
+    x = torch.randn((batch,) + g.vol.shape, generator=gen, device="cuda").to(dt)
+    tally = {kname: 0, f"bp_{family}_sf": 0}
+    got = {spt: fp_cone.launch(lib, kname, x, plan, tally, spt=spt) for spt in (1, 8)}
+    torch.cuda.synchronize()
+    want = fp_cone.fp_batch_plain(x, plan)
+    tol = 2e-4 if dtype == "float32" else precision.BF16_KERNEL_REL_TOL
+    for spt, out in got.items():
+        assert bool(torch.isfinite(out).all()), spt
+        assert _rel(out, want) <= tol, (spt, _rel(out, want))
+    assert torch.equal(got[1], got[8])
+    if dtype == "float32":
+        y = torch.randn((batch,) + g.sino_shape, generator=gen, device="cuda")
+        aty = fp_cone.launch(lib, f"bp_{family}_sf", y, plan, tally)
+        lhs = float((got[8].double() * y.double()).sum())
+        rhs = float((x.double() * aty.double()).sum())
+        assert abs(lhs - rhs) / abs(lhs) < 1e-4
+    assert tally[kname] >= 2
+
+
+@pytest.mark.parametrize("name", ["tiles_edges", "pole", "helical"])
+def test_fp_passes_give_the_same_sums(name, monkeypatch):
+    """Buffers of three survivors and one voxel's slices a pass: every
+    window is walked in many passes, which must give the default layout's
+    output bit for bit."""
+    requires_cuda()
+    family, g = _fp_tile_cases()[name]
+    plan, lib, kname = _fp_family(family, g)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((3,) + g.vol.shape, generator=gen, device="cuda")
+    tally = {kname: 0}
+    want = fp_cone.launch(lib, kname, x, plan, tally)
+    layout = fp_cone.fp_layout
+
+    def tiny(plan, spt):
+        lay, nz = layout(plan, spt), plan.geom.vol.nz
+        words = fp_cone._fp_smem_words(lay.tv, lay.ncap, 3, nz, spt)
+        return dataclasses.replace(lay, smax=3, emax=nz, smem_bytes=4 * words)
+
+    monkeypatch.setattr(fp_cone, "fp_layout", tiny)
+    got = fp_cone.launch(lib, kname, x, plan, tally)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["tiles_edges", "pole", "wobbly", "helical"])
+def test_fp_shared_memory_count_is_the_kernels(name):
+    """The host's count of the FP's shared memory (``fp_layout``) is the
+    one the kernel carves (``fp_info`` raises otherwise), and the blocks
+    per SM the host planned for (``FP_BLOCKS``) fit on the card, for both
+    instances and dtypes."""
+    requires_cuda()
+    family, g = _fp_tile_cases()[name]
+    plan, lib, _ = _fp_family(family, g)
+    for spt in (1, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            info = fp_cone.fp_info(lib, plan, dtype, spt)
+            assert info["smem_bytes"] == fp_cone.fp_layout(plan, spt).smem_bytes
+            assert info["blocks_per_sm"] >= fp_cone.FP_BLOCKS[spt], info
+
+
+@pytest.mark.parametrize("dv", [2.0, 1.5, 0.388, 0.625, 0.139, 2.0 ** -20,
+                                2.0 ** 20])
+def test_fp_division_rounds_as_ieee(dv):
+    """The cone-family FP divides each overlap by the row pitch as
+    ``sf_div_rn`` (a product and two corrections): over every float overlap
+    with a normal quotient it gives ``__fdiv_rn``'s bits, at power-of-two,
+    published and extreme pitches."""
+    requires_cuda()
+    assert fp_cone.division_mismatches(dv) == 0
+
+
+@pytest.mark.parametrize("name", ["tiles_edges", "helical"])
+def test_fp_phase_build_gives_the_same_sums(name):
+    """The FP built with its phase profile (``build.VARIANTS["phases"]``)
+    gives the bits of the FP the port runs, and counts at least one pass."""
+    requires_cuda()
+    import ctypes
+    from repro_torch.kernels import build
+    family, g = _fp_tile_cases()[name]
+    plan, lib, kname = _fp_family(family, g)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((3,) + g.vol.shape, generator=gen, device="cuda")
+    tally = {kname: 0}
+    want = fp_cone.launch(lib, kname, x, plan, tally)
+    got = fp_cone.launch(lib, kname, x, plan, tally, variant="phases")
+    sums = (ctypes.c_ulonglong * 8)()
+    torch.cuda.synchronize()
+    read = getattr(build.library(lib, "phases"), f"{lib}_phases_read")
+    assert read(sums) == 0 and sums[4] >= 1
+    assert torch.equal(got, want)
+
+
 FLASH = {
     # name: (B, H, KV, S, hd, window)
     "gqa2_hd64": (1, 4, 2, 256, 64, None),
@@ -336,3 +470,30 @@ def test_long_prefill_and_gradient_run_the_kernels():
         model.loss_fn(cfg, params, {"tokens": toks}, backend="ref"), leaves)
     for g, w in zip(got, want):
         assert _rel(g, w) <= 1e-4
+
+
+def test_long_branch_without_kernels_refuses_on_the_card():
+    """A dense config whose head dim has no kernel (192: d_model 768 over 4
+    heads, no head_dim, as Nemotron-4 340B's 18432 / 96): on the card the
+    long branch (S = 3072) raises NotImplementedError naming the ROADMAP
+    item, before any flash launch, for the forward and the gradient;
+    backend="ref" runs it, and the dense branch (S = 2048) runs on
+    "auto" and gives what backend="ref" gives."""
+    requires_cuda()
+    cfg = ModelConfig(name="hd192", family="dense", n_layers=2, d_model=768,
+                      n_heads=4, n_kv_heads=2, d_ff=256, vocab_size=512,
+                      compute_dtype="float32")
+    assert cfg.resolved_head_dim == 192 and not flash.has_kernel(192)
+    params = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, 512, (1, 3072), device="cuda")
+    K.reset_launches()
+    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
+        make_prefill_step(cfg)(params, {"tokens": toks})
+    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
+        model.loss_fn(cfg, params, {"tokens": toks})
+    assert all(K.launches()[k] == 0 for k in flash.LAUNCHES), K.launches()
+    lg = make_prefill_step(cfg, backend="ref")(params, {"tokens": toks})
+    assert bool(torch.isfinite(lg).all())
+    short = toks[:, :2048]
+    got = make_prefill_step(cfg)(params, {"tokens": short})
+    assert _rel(got, make_prefill_step(cfg, backend="ref")(params, {"tokens": short})) <= 1e-4

@@ -191,6 +191,13 @@ def test_strided_views_and_no_launch_on_cpu():
         flash._window(0)
 
 
+def test_has_kernel_names_the_built_head_dims():
+    """``has_kernel`` is the one decision: the wrappers and, on the card,
+    the model's long branch refuse the head dims it rejects."""
+    assert all(flash.has_kernel(hd) for hd in flash.KERNEL_HEAD_DIMS)
+    assert not any(flash.has_kernel(hd) for hd in (32, 80, 96, 192, 256))
+
+
 def test_bwd_inputs_start_rows_on_16_bytes():
     """The bf16 backward copies rows in 16-byte pieces: the wrapper passes
     an aligned view as it is and copies one that is not."""

@@ -19,6 +19,7 @@ from repro.models import model as JMD
 
 from repro_torch import configs as tconfigs
 from repro_torch.data.tokens import TokenPipeline
+from repro_torch.kernels import flash
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TMD
@@ -178,6 +179,29 @@ def test_long_branch_forward_and_gradient_match_reference():
     jl, jg, tl, tg = _loss_and_grads(jcfg, tcfg, jp, tp, toks)
     assert abs(tl - jl) <= F32["rtol"] * abs(jl)
     _assert_grads(jg, tg, "float32")
+
+
+def test_long_branch_at_a_head_dim_without_kernels_matches_reference():
+    """Head dim 192 (Nemotron-4 340B's 18432 / 96), which the flash
+    kernels are not built for: on CPU tensors the port's long branch (S =
+    3072, 4 query heads over 2 kv heads) takes the plain version, forward
+    and gradient (on the card it refuses), and matches the reference's chunked jnp attention
+    (``layers._flash_attention``), which takes any head dim.  The gradients
+    are compared relative to each one's largest entry."""
+    B, S, H, KV, hd = 1, 3072, 4, 2, 192
+    assert not flash.has_kernel(hd)
+    rng = np.random.default_rng(5)
+    q, k, v, do = (rng.normal(size=(B, S, n, hd)).astype(np.float32)
+                   for n in (H, KV, KV, H))
+    want, vjp = jax.vjp(
+        lambda *a: JL._flash_attention(*a, None, None, 1024, 1024), q, k, v)
+    args = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = TL._flash(*args, None, "auto")
+    np.testing.assert_allclose(_np(got), _f32(want), **F32)
+    grads = torch.autograd.grad((got * torch.from_numpy(do)).sum(), args)
+    for g, w in zip(grads, vjp(jnp.asarray(do))):
+        scale = float(np.abs(_f32(w)).max())
+        np.testing.assert_allclose(_np(g) / scale, _f32(w) / scale, **F32)
 
 
 @pytest.mark.parametrize("S", [256, 3072])

@@ -252,6 +252,89 @@ def test_dot_gradient_and_double_backward():
     torch.testing.assert_close(hv, proj.T(proj(v)), rtol=1e-4, atol=1e-5)
 
 
+def _cone_tiles(G):
+    """A cone whose detector spans 3 x 2 FP tiles of 32 x 32, both ragged."""
+    return G.cone_beam(12, 40, 70, G.VolumeGeometry(20, 20, 16), sod=60.0,
+                       sdd=120.0, pixel_width=1.0, pixel_height=1.0)
+
+
+def _fp_pattern(plan, lay):
+    """From the plain version's nonzero weights (``fp_cone.chunk_taps``):
+    the most columns one voxel meets in a view, the most voxels of one
+    (view, column tile, row tile, li) with a nonzero there, and the most
+    slices of one (view, voxel, row tile) with a nonzero there, for the FP
+    tile of ``lay``."""
+    geom = plan.geom
+    nu, nv, nz = geom.n_cols, geom.n_rows, geom.vol.nz
+    nct, nrt = -(-nu // lay.tu), -(-nv // lay.tv)
+    dt = plan.on(torch.device("cpu"))
+    cols = vox = slices = 0
+    for grp in (0, 1):
+        ng, nl = plan.group(grp)[:2]
+        table = dt.tables[grp]
+        nvw = table.shape[0]
+        if nvw == 0:
+            continue
+        umin = torch.full((nvw, ng * nl), nu)
+        umax = torch.full((nvw, ng * nl), -1)
+        hit_v = torch.zeros((nvw, nct, nrt, ng, nl), dtype=torch.bool)
+        hit_s = torch.zeros((nvw, ng * nl, nrt, nz), dtype=torch.bool)
+        for pix, wu, wz in fp_cone.chunk_taps(plan, table, ng, nl, 0, nz,
+                                              torch.empty(0)):
+            m = (wu * wz) != 0
+            u, v = pix % nu, pix // nu
+            anyz = m.any(-1)
+            umin = torch.where(anyz, torch.minimum(umin, u[..., 0]), umin)
+            umax = torch.where(anyz, torch.maximum(umax, u[..., 0]), umax)
+            a, n, k = m.nonzero(as_tuple=True)
+            ct, rt = u[a, n, k] // lay.tu, v[a, n, k] // lay.tv
+            hit_v[a, ct, rt, n // nl, n % nl] = True
+            hit_s[a, n, rt, k] = True
+        cols = max(cols, int((umax - umin + 1).max()))
+        vox = max(vox, int(hit_v.sum(3).max()))
+        slices = max(slices, int(hit_s.sum(-1).max()))
+    return cols, vox, slices
+
+
+@pytest.mark.parametrize("make", [_cone_tiles, _wobbly, _helical, _tall],
+                         ids=lambda m: m.__name__[1:])
+def test_fp_layout_bounds_hold_the_nonzero_pattern(make):
+    """The host's sizes of the FP kernel's shared buffers
+    (``fp_cone.fp_layout``) against the plain version's nonzero pattern:
+    a voxel's columns within ``ncap`` (and within the bound ceil(2 hw / du)
+    + 2 that ``ncap`` is derived from), a tile's slices of a voxel within
+    ``nslice``, and a tile's voxels within one pass (``smax``) unless the
+    layout walks windows in passes.  An empty pass holds any one voxel."""
+    g = make(tgeo)
+    plan = (fp_cone.ConePlan if g.geom_type == "cone" else ModularPlan)(g)
+    for spt in (1, 8):
+        lay = fp_cone.fp_layout(plan, spt)
+        cols, vox, slices = _fp_pattern(plan, lay)
+        bound = int(np.ceil(2 * plan.hw / plan.du)) + 2
+        assert cols <= bound <= lay.ncap, (cols, lay)
+        assert slices <= lay.nslice, (slices, lay)
+        assert vox <= lay.smax or lay.passes, (vox, lay)
+        assert vox <= lay.window
+        nz = g.vol.nz
+        assert lay.emax >= nz and lay.smax >= 1
+        assert lay.smem_bytes * fp_cone.FP_BLOCKS[spt] <= 227 * 1024
+        assert lay.tv == min(g.n_rows, fp_cone.FP_MAX_ROWS)
+        assert lay.tu == (fp_cone.FP_THREADS // lay.tv) * fp_cone.FP_COLS
+
+
+@pytest.mark.parametrize("dv", [1e-7, 2.0e6])
+def test_fp_layout_refuses_pitches_outside_the_exact_division(dv):
+    """The FP kernel's division by the row pitch is proven exact for pitches
+    in ``FP_DV_RANGE``: the layout refuses others (the plain version, on
+    the CPU, takes any pitch)."""
+    g = tgeo.cone_beam(4, 6, 10, tgeo.VolumeGeometry(8, 8, 4), sod=60.0,
+                       sdd=120.0, pixel_width=1.0, pixel_height=dv)
+    plan = fp_cone.ConePlan(g)
+    with pytest.raises(ValueError, match="row pitch"):
+        fp_cone.fp_layout(plan, 1)
+    assert fp_cone.fp_layout(fp_cone.ConePlan(_cone_tiles(tgeo)), 1).smax >= 1
+
+
 @pytest.mark.parametrize("backend", ["auto", "ref", "cuda"])
 @pytest.mark.parametrize("make", [_tilted, _source_inside],
                          ids=["tilted", "source_inside"])
