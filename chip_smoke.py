@@ -66,13 +66,20 @@ path through the public API at the paper's sizes:
   qwen3_attn (B 2, 16 query heads, 8 kv heads, S 4096, hd 128; bf16 and
   f32), qwen3_attn_window (the same with a 2048 window, Hymba's
   ``sliding_window``; bf16), tinyllama_attn (B 1, 32 heads, 4 kv heads,
-  S 3072, hd 64; bf16) and window_edges (qwen3_attn's heads at batch 1
+  S 3072, hd 64; bf16), window_edges (qwen3_attn's heads at batch 1
   with a 100-key window, which ends inside a tile on both sides; bf16 and
-  f32).  Every output is held element by element (``flash.KERNEL_TOL``)
-  against the plain forward at the kernels' tile and the plain backward
-  (``flash_bwd_plain``) on the kernels' lse and delta, and each cell shows
-  that this check fails the plain output with one key fewer at each row's
-  window edge.
+  f32) and nemotron_attn (Nemotron-4 340B's attention: B 1, 96 heads, 8 kv
+  heads, S 4096, hd 192; bf16 and f32).  Every output is held element by
+  element (``flash.KERNEL_TOL``) against the plain forward at the kernels'
+  kv tile and the plain backward (``flash_bwd_plain``) on the kernels' lse
+  and delta, and each cell shows that this check fails the plain output
+  with one key fewer at each row's window edge.
+* nemotron_attn_layer — one attention layer of Nemotron-4 340B at its
+  published widths (``configs/nemotron_4_340b.py``: d_model 18432, 96/8
+  heads of 192), random weights from seed 0, x of (1, 4096, 18432) in
+  bf16: ``layers.attention_train``'s forward and its gradient with respect
+  to x and the four weights on the kernels against the plain attention; one
+  forward launch without grad, one of each gradient kernel with it.
 * LM paths — Qwen3-0.6B at its published widths (``configs/qwen3_0_6b.py``:
   28 layers, d_model 1024, 16/8 heads of 128, d_ff 3072, vocab 151936,
   bf16), random weights from seed 0, tokens from ``TokenPipeline(seed 0)``:
@@ -86,11 +93,12 @@ path through the public API at the paper's sizes:
   positions, on the first 4 layers: decoding is launch-bound, ~70 ms a
   step at 28 layers).
 
-After the build it prints ptxas's registers and spills of the bf16 flash
-backward kernels and of the eight cone-family FP instances (nvcc runs with
-``-Xptxas=-v``) and, from the card, their shared memory a block and
-resident blocks per SM (the FP's with its tile at the cone and helical
-cells).  Each cone-family FP row carries the thread-per-output FP's time
+After the build it prints ptxas's registers and spills of every flash
+kernel instance (four kernels, f32 and bf16, hd 64, 128 and 192) and of
+the eight cone-family FP instances (nvcc runs with ``-Xptxas=-v``) and,
+from the card, their shared memory a block (the kernel's own count, held
+against the host's) and resident blocks per SM (the FP's with its tile at
+the cone and helical cells).  Each cone-family FP row carries the thread-per-output FP's time
 of run 15I (``FP_15I_MS``) beside its own.  After the kernel phase it
 builds the FP with its phase profile compiled in (``-DSF_FP_PHASES``) and
 prints, per cell, each phase's share of the cycles and the passes,
@@ -113,7 +121,9 @@ device, or without the repository's ``src/`` beside it, it exits non-zero
 and prints no result.  Its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists every ported kernel with its launches on its path,
-its error against its plain version, and its times.  Details go to
+its error against its plain version, and its times (the flash kernels at
+qwen3_attn, and their hd-192 instances, ``_hd192``, at nemotron_attn with
+their launches in nemotron_attn_layer).  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 import dataclasses
@@ -180,7 +190,12 @@ FLASH_CELLS = {
     "tinyllama_attn": (1, 32, 4, 3072, 64, None, ("bfloat16",)),
     # a window that ends inside a 64-key tile on both sides, in both bodies
     "window_edges": (1, 16, 8, 4096, 128, 100, ("bfloat16", "float32")),
+    # Nemotron-4 340B's attention (96 query heads, 8 kv heads of 192)
+    "nemotron_attn": (1, 96, 8, 4096, 192, None, ("bfloat16", "float32")),
 }
+# The cell whose bf16 rows stand for the flash kernels in the kernels line,
+# by name suffix: the LM path's (hd 128), and the hd-192 instances'.
+FLASH_LINE_CELLS = {"": "qwen3_attn", "_hd192": "nemotron_attn"}
 
 
 class CheckFailed(RuntimeError):
@@ -1179,29 +1194,36 @@ def fp_phases(torch, cells, results) -> None:
     results["fp_phases"] = out
 
 
-def bwd_tc_report(results) -> None:
-    """ptxas's registers and spills of the bf16 backward kernels (from the
-    build's log) and, on this card, their dynamic shared memory and
-    resident blocks per SM, at hd 64 and 128."""
+def flash_build_report(torch, results) -> None:
+    """ptxas's registers and spills of every flash kernel instance (from the
+    build's log) and, on this card, its dynamic shared memory (the kernel's
+    own count, which ``flash.kernel_info`` holds against the host's) and
+    resident blocks per SM."""
     import re
     from repro_torch.kernels import build, flash
     rows = {}
     for mangled, rep in build.ptxas_report("flash").items():
-        m = re.search(r"(flash_bwd_\w+?_tc_kernel)ILi(\d+)E", mangled)
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))(_tc)?_kernelIf?Li(\d+)E"
+                      r"(?:Lb([01])E)?", mangled)
         if m:
-            rows[(m.group(1), int(m.group(2)))] = dict(rep)
-    for hd in flash.KERNEL_HEAD_DIMS:
-        for kname, info in flash.bwd_tc_info(hd).items():
-            row = rows.setdefault((f"{kname}_tc_kernel", hd), {})
-            row.update(info)
-    check(len(rows) == 2 * len(flash.KERNEL_HEAD_DIMS),
-          f"ptxas report of the bf16 backward kernels: {sorted(rows)}")
-    results["flash_bwd_tc_build"] = {f"{k}<{hd}>": v for (k, hd), v in sorted(rows.items())}
-    for (k, hd), r in sorted(rows.items()):
-        log(f"ptxas {k}<{hd}>: {r['registers']} registers, {r['spill_stores']} bytes "
-            f"spill stores, {r['spill_loads']} bytes spill loads, {r['stack']} bytes "
-            f"stack; {r['smem_bytes']} bytes dynamic shared a block, "
-            f"{r['blocks_per_sm']} blocks per SM")
+            kname = "flash_fwd_stats" if m.group(4) == "1" else m.group(1)
+            dtype = "bfloat16" if m.group(2) else "float32"
+            rows[(kname, dtype, int(m.group(3)))] = dict(rep)
+    for kname in flash.KERNELS:
+        for dtype in ("float32", "bfloat16"):
+            for hd in flash.KERNEL_HEAD_DIMS:
+                rows.setdefault((kname, dtype, hd), {}).update(
+                    flash.kernel_info(kname, getattr(torch, dtype), hd))
+    check(len(rows) == 2 * len(flash.KERNELS) * len(flash.KERNEL_HEAD_DIMS)
+          and all("registers" in r for r in rows.values()),
+          f"ptxas report of the flash kernels: {sorted(rows)}")
+    results["flash_build"] = {f"{k} {dt} hd {hd}": v
+                              for (k, dt, hd), v in sorted(rows.items())}
+    for (k, dt, hd), r in sorted(rows.items()):
+        log(f"ptxas {k} {dt} hd {hd}: {r['registers']} registers, "
+            f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill "
+            f"loads, {r['stack']} bytes stack; {r['smem_bytes']} bytes dynamic "
+            f"shared a block, {r['blocks_per_sm']} blocks per SM")
 
 
 def flash_phase(torch, results):
@@ -1594,6 +1616,87 @@ def lm_paths(torch, results) -> dict:
     return launches
 
 
+def nemotron_attn_layer(torch, results) -> dict:
+    """One attention layer of Nemotron-4 340B at its published widths
+    (``configs/nemotron_4_340b.py``: d_model 18432, 96 query heads and 8 kv
+    heads of 192, standard RoPE): its wq, wk, wv and wo random from seed 0
+    in f32 (0.74e9 parameters, cast to bf16 as a layer is), on x of (1,
+    4096, 18432) in bf16, through ``layers.attention_train``: the forward,
+    and the gradient with respect to x and the four weights, on backend
+    "auto" (the hd-192 kernels) against backend "ref" (the plain attention)
+    at LM_GRAD_REL_TOL.  Returns the launches of each flash kernel: one
+    forward without grad, one each of the three gradient kernels with it."""
+    import math
+    from repro_torch import configs
+    from repro_torch import kernels as K
+    from repro_torch.kernels import flash
+    from repro_torch.models import layers
+    cfg = configs.get("nemotron-4-340b")
+    S = 4096
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = {n: torch.randn(shp, generator=gen, device="cuda") / math.sqrt(shp[0])
+         for n, shp in layers.attn_param_shapes(cfg).items()}
+    x = torch.randn((1, S, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn((1, S, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.arange(S, device="cuda")[None]
+    out = {"params": sum(t.numel() for t in w.values()), "hd": cfg.resolved_head_dim}
+
+    def forward(backend):
+        wb = {n: t.to(torch.bfloat16) for n, t in w.items()}
+        return layers.attention_train(wb, x, cfg, pos, backend=backend)
+
+    launches = {}
+    K.reset_launches()
+    with torch.no_grad():
+        got = forward("auto")
+        torch.cuda.synchronize()
+        launches["forward"] = {k: K.launches()[k] for k in flash.KERNELS}
+        want = forward("ref")
+    out["forward_rel_err"] = rel_err(got, want)
+    check(bool(torch.isfinite(got).all()) and tuple(got.shape) == tuple(x.shape),
+          "nemotron_attn_layer forward non-finite or misshapen")
+    del got, want
+    leaves = [x] + list(w.values())
+    names = ["x"] + list(w)
+    grads = {}
+    for backend in ("auto", "ref"):
+        for t in leaves:
+            t.requires_grad_()
+        K.reset_launches()
+        grads[backend] = torch.autograd.grad(forward(backend), leaves, dy)
+        torch.cuda.synchronize()
+        if backend == "auto":
+            launches["gradient"] = {k: K.launches()[k] for k in flash.KERNELS}
+        for t in leaves:
+            t.requires_grad_(False)
+    out["grad_rel_err"] = {n: rel_err(g, r) for n, g, r in
+                           zip(names, grads["auto"], grads["ref"])}
+    out["launches"] = launches
+    results["nemotron_attn_layer"] = out
+    worst = max(out["grad_rel_err"], key=out["grad_rel_err"].get)
+    log(f"nemotron_attn_layer (d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+        f"of {cfg.resolved_head_dim}, S {S}, bf16): forward vs plain rel "
+        f"{out['forward_rel_err']:.3g}, gradient worst {worst} rel "
+        f"{out['grad_rel_err'][worst]:.3g} (tol {LM_GRAD_REL_TOL}); launches {launches}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads["auto"]),
+          "nemotron_attn_layer non-finite gradient")
+    check(out["forward_rel_err"] <= LM_GRAD_REL_TOL,
+          f"nemotron_attn_layer forward vs plain {out['forward_rel_err']:.3g}")
+    check(out["grad_rel_err"][worst] <= LM_GRAD_REL_TOL,
+          f"nemotron_attn_layer gradient vs plain: {worst} {out['grad_rel_err'][worst]:.3g}")
+    check(launches["forward"] == {"flash_fwd": 1, "flash_fwd_stats": 0,
+                                  "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+          f"nemotron_attn_layer forward launches {launches['forward']}")
+    check(launches["gradient"] == {"flash_fwd": 0, "flash_fwd_stats": 1,
+                                   "flash_bwd_dq": 1, "flash_bwd_dkv": 1},
+          f"nemotron_attn_layer gradient launches {launches['gradient']}")
+    del grads, w, x, dy
+    torch.cuda.empty_cache()
+    return {"flash_fwd": launches["forward"]["flash_fwd"],
+            **{k: launches["gradient"][k]
+               for k in ("flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")}}
+
+
 def projector_phases(torch, results, only=None) -> dict:
     """The projector kernels' cells and paths, and their profile; returns the
     launches of each projector kernel on its own path.  ``only``: the names
@@ -1747,7 +1850,7 @@ def main() -> int:
         build.build_all()
     results["build_s"] = time.perf_counter() - t
     log(f"build {results['build_s']:.1f} s")
-    bwd_tc_report(results)
+    flash_build_report(torch, results)
     fp_build_report(results)
     if only is None:
         fp_division_check(torch, results)
@@ -1763,6 +1866,9 @@ def main() -> int:
         return 0
     flash_phase(torch, results)
     launches.update(lm_paths(torch, results))
+    t = time.perf_counter()
+    line_launches = nemotron_attn_layer(torch, results)
+    results["phase_s"]["nemotron_attn_layer"] = time.perf_counter() - t
 
     # each kernel at its own path's cell and dtype: the projectors' main
     # cells in f32, the attention kernels at Qwen3's shapes in its bf16
@@ -1773,17 +1879,24 @@ def main() -> int:
                     "modular": "helical"}[kname.split("_")[1]]
             own[kname] = (cell, "float32", F["source"], F["replaces"][i])
     for kname, replaces in FLASH_REPLACES.items():
-        own[kname] = ("qwen3_attn", "bfloat16", FLASH_SOURCE, replaces)
+        for suffix, cell in FLASH_LINE_CELLS.items():
+            own[kname + suffix] = (cell, "bfloat16", FLASH_SOURCE, replaces)
+    launches_by = {"": launches, "_hd192": line_launches}
     line = []
     for row in results["kernels"]:
-        cell, dtype, source, replaces = own[row["kernel"]]
-        if row["cell"] != cell or row["dtype"] != dtype:
+        suffix = next((k for k, c in FLASH_LINE_CELLS.items() if c == row["cell"]), "")
+        name = row["kernel"] + suffix
+        if name not in own or own[name][:2] != (row["cell"], row["dtype"]):
             continue
-        line.append({"name": row["kernel"], "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches.get(row["kernel"], 0),
+        source, replaces = own[name][2:]
+        line.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": launches_by[suffix].get(row["kernel"], 0),
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    check(sorted(e["name"] for e in line) == sorted(own),
+          f"kernels line: {sorted(e['name'] for e in line)}, want {sorted(own)}")
     results["wall_s"] = time.perf_counter() - t_start
     log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in results["phase_s"].items()))
     log(f"wall {results['wall_s']:.1f} s")

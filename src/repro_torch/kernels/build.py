@@ -100,7 +100,7 @@ _SIGNATURES["flash"] = {
     + _FLASH_TAIL,
     "flash_bwd_dkv_launch": [_c.c_int, _c.c_int] + [_c.c_void_p] * 8
     + _FLASH_TAIL,
-    "flash_bwd_tc_info": [_c.c_int, _c.c_int, _c.POINTER(_c.c_int)],
+    "flash_info": [_c.c_int, _c.c_int, _c.c_int, _c.POINTER(_c.c_int)],
 }
 # The FP's shared bytes and blocks per SM at a layout: (dtype, spt, tv,
 # ncap, smax, emax, out bytes, out blocks).

@@ -46,6 +46,9 @@
 // exact in f32), scaled by 1/sqrt(hd) after the sum; m, l and the
 // accumulator f32; in the forward p is rounded to v's dtype before p.V; l
 // floored at 1e-30; output in q's dtype, lse = m + log(l) in f32.  The
+// bf16 forward takes exp as exp2 of scores scaled by log2(e) (the f32 one
+// calls expf): each p is within a few f32 ulps of the reference's, which
+// moves its bf16 rounding only where p lies at a boundary.  The
 // backward recomputes p = expf(s * scale - lse) under the mask (0 outside),
 // dS = p (dP - delta) scale, all in f32, and multiplies p and dS, which the
 // reference keeps in f32, into dV = P^T dO, dK = dS^T Q and dQ = dS K.  The
@@ -65,58 +68,71 @@
 // strides, hd is contiguous.  So the model's (B, S, H, hd) activations go
 // in without a transposed copy.  Query head h reads kv head h / G.  lse and
 // delta are (B, H, S) f32, contiguous.  S need not be a multiple of the
-// tile: rows past S are zero-filled and masked.  The bf16 backward copies
-// rows in 16-byte pieces, so it takes only 16-byte aligned pointers and
+// tile: rows past S are zero-filled and masked.  The bf16 kernels copy
+// rows in 16-byte pieces, so they take only 16-byte aligned pointers and
 // strides that are multiples of 8 elements (the wrapper ensures both).
 //
 // What bounds them.  Per causal (B, H, S, hd) call the forward does
 // 2 B H S^2 hd flops and moves ~(2 H + 2 KV) B S hd elements, about 1300
-// flops per byte at Qwen3's widths; dQ recomputes S and dP and does three
-// tile products, dK/dV four, on about 1.5-2x the forward's bytes.  All four
-// are bound by operations, so, for bf16, by the tensor cores.
-//   bf16 forward: its two tile products as wmma fragments (16x16x16) through
-//     shared memory, 2-byte loads, the softmax on the CUDA cores per thread.
-//   bf16 backward: all five tile products on the tensor cores as wgmma
-//     (m64nNk16, bf16 -> f32), one warpgroup a block.  S = Q K^T and
-//     dP = dO V^T (dK/dV: S^T = K Q^T, dP^T = V dO^T, so that P^T and dS^T
-//     come out with rows = keys, the rows of dV and dK) read both operands
-//     from shared memory.  p and dS are formed in the S and dP accumulators,
-//     split there into bf16 hi and lo, and fed to the three later products
-//     as the A operand from registers: a warp's 16 accumulator rows are, two
-//     columns packed to a register, exactly an A fragment, so nothing goes
-//     back through shared memory.  B of those products (K for dQ; dO, Q for
-//     dV, dK) is read from shared memory MN-major, the transposed mode, so
-//     one tile serves both the K-major reads of S, dP and the MN-major ones.
-//     Tiles stay bf16 in shared memory in wgmma's 128-byte swizzled layout,
-//     filled by 16-byte cp.async copies (rows past S zero-filled by a source
-//     size of 0; a proxy fence hands them to wgmma) in a two-stage ring: the
-//     streamed operand (dQ: K and V per kv tile; dK/dV: Q, dO, lse and
-//     delta per (head, q tile)) loads the next tile while the block
-//     multiplies this one; the resident operand (dQ: Q, dO; dK/dV: K, V)
-//     loads once.  dQ does a 64 x 64 tile a step, dK/dV a 64 x 32 half of
-//     one, so that the two f32 accumulators (hd/2 each a thread) fit beside
-//     S and dP.  Per block, as ptxas and the card reported them on an H100
-//     (chip_smoke.py prints them):
-//                    registers  spills  shared bytes  blocks per SM
-//       dQ    hd 128       245       0        99,328              2
-//       dQ    hd 64        168       0        50,176              3
-//       dK/dV hd 128       254       0       100,352              2
-//       dK/dV hd 64        161       0        51,200              3
-//     Registers bound both kernels to two or three warpgroups an SM; the
-//     tensor cores idle while a warpgroup forms p and dS.  Letting one
-//     tile's last products run on under the next tile's first (the ring's
-//     wait moved after them) was slower on the card: later copies in dQ,
-//     spills in dK/dV.
+// flops per byte at Qwen3's widths (2 x 4096 x 128; ~1800 at Nemotron-4
+// 340B's hd 192); dQ recomputes S and dP and does three tile products,
+// dK/dV four, on about 1.5-2x the forward's bytes.  All four are bound by
+// operations, so, for bf16, by the tensor cores.  Head dims 64, 128 and
+// 192 are built, every head dim of the configs in repro_torch/configs.
+//   bf16, every tile product on the tensor cores as wgmma (m64nNk16, bf16
+//     -> f32), a warpgroup on 64 rows.  Tiles stay bf16 in shared memory
+//     in wgmma's 128-byte swizzled layout, filled by 16-byte cp.async
+//     copies (rows past S zero-filled by a source size of 0; a proxy fence
+//     hands them to wgmma) in a ring: the streamed operand (forward, dQ: K
+//     and V per kv tile; dK/dV: Q, dO, lse and delta per (head, q tile))
+//     loads the next tile while the block multiplies this one; the
+//     resident operand (forward: Q; dQ: Q, dO; dK/dV: K, V) loads once.
+//     A product whose A is formed in registers (P for P V; p, dS as hi +
+//     lo for dV, dK, dQ) takes it straight from the accumulator it was
+//     formed in: a warp's 16 accumulator rows are, two columns packed to a
+//     register, exactly an A fragment, so nothing goes back through shared
+//     memory.  B of those products (V; K for dQ; dO, Q for dV, dK) is read
+//     from shared memory MN-major, the transposed mode, so one tile serves
+//     both its K-major and its MN-major reads.  No wgmma sits under a
+//     warpgroup-dependent branch: ptxas serializes every wgmma of a kernel
+//     that has one (its C7520 note), so warpgroups that own different rows
+//     or outputs run the same straight line of products.
+//   bf16 forward: S = Q K^T, then the online softmax on the S accumulator
+//     (in log2 units, exp2; the row max by quad shuffles, the row sums per
+//     thread until the end), and P V with p rounded to bf16, pipelined one
+//     kv tile deep through a three-stage ring (see flash_fwd_tc_kernel).
+//     One warpgroup a block up to hd 128 (two blocks an SM), two at 192.
+//   bf16 backward: S = Q K^T and dP = dO V^T (dK/dV: S^T = K Q^T, dP^T =
+//     V dO^T, so that P^T and dS^T come out with rows = keys, the rows of
+//     dV and dK); p and dS split into bf16 hi and lo for the three later
+//     products.  dQ does a 64 x 64 tile a step, dK/dV a 64 x 32 half of
+//     one, so that the two f32 accumulators (hd/2 each a thread) fit
+//     beside S and dP.  At hd 192 dQ splits its columns over three blocks
+//     and puts two warpgroups in a block, and dK/dV gives dV and dK a
+//     warpgroup each (see the kernels).
+//   Per instance, as ptxas and the card reported them on an H100
+//   (chip_smoke.py prints them; registers, spills, shared bytes, blocks
+//   per SM; the forward with lse within two registers of these):
+//                    hd 64              hd 128              hd 192
+//     forward   152 0 58,368 3     238 0 115,712 2     254 0 197,632 1
+//     dQ        168 0 50,176 3     245 0  99,328 2     203 0 197,632 1
+//     dK/dV     162 0 51,200 3     254 0 100,352 2     193 0 149,504 1
+//   Registers bound every kernel to few warpgroups an SM; the tensor cores
+//   idle while a warpgroup forms p (and dS).  In the forward, a
+//   timing-only build with the copies, P V, exp and the barrier all taken
+//   out kept most of a qwen3_attn call's time: the latency of each tile
+//   step's S product and softmax, not one unit, holds it back.
 //   f32: every kernel on the CUDA cores (64 x 64 tiles, each thread a 4 x 4
 //     register block of scores and a 4 x hd/16 block of the output, tiles
 //     staged in f32 shared memory with a padded row so that the 16 threads
-//     of a row group hit 16 banks).
-// Later work: TMA copies and warp-specialised warpgroups for the backward
-// (a producer warp for the copies, two consumer warpgroups taking turns on
-// the tensor cores), and the forward on wgmma.
+//     of a row group hit 16 banks).  The dK/dV at hd 192 (four (64, 193)
+//     tiles and two score tiles) takes 231,424 of the 232,448 bytes a block
+//     may use.
+// Later work: TMA copies and warp-specialised warpgroups (a producer warp
+// for the copies, consumer warpgroups taking turns on the tensor cores),
+// larger kv tiles in the forward.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 #include <initializer_list>
@@ -125,6 +141,8 @@
 #include "tile.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // keys per tile
@@ -288,149 +306,6 @@ __global__ void __launch_bounds__(NT)
     if (STATS && tx == 0) lse[((long long)b * H + h) * S + r] = m[i] + logf(den);
   }
 }
-
-// ------------------------------------------------------------------------- //
-// Forward on the tensor cores, for bf16 (rows 9 and 10): the block, tiles,
-// loop and online softmax of flash_fwd_kernel, with S = Q K^T and P V as
-// bf16 wmma products (16x16x16 fragments, f32 accumulators) through shared
-// memory.  The numerics stay the reference's: bf16 products are exact and
-// summed in f32, p is rounded to bf16 before P V.  Each of the 8 warps
-// computes 2 of the 16 score fragments and HD/8 of the output fragments;
-// the threads then fold the tile's P V into their f32 registers.
-// ------------------------------------------------------------------------- //
-using bf16 = __nv_bfloat16;
-
-template <int HD>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst,
-                                               const bf16* __restrict__ src,
-                                               long long ss, int row0, int S) {
-  constexpr int LDH = HD + 8;
-  for (int i = threadIdx.x; i < BQ * HD; i += NT) {
-    const int r = i / HD, d = i - r * HD;
-    const int s = row0 + r;
-    dst[r * LDH + d] = s < S ? src[(long long)s * ss + d] : __float2bfloat16(0.0f);
-  }
-}
-
-template <int HD, bool STATS>
-__global__ void __launch_bounds__(NT)
-    flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, bf16* __restrict__ o,
-                        float* __restrict__ lse, Strides qs, Strides ks,
-                        Strides vs, Strides os, int H, int KV, int S,
-                        int window, float scale) {
-  namespace wmma = nvcuda::wmma;
-  // padded rows; every fragment pointer stays 32-byte aligned
-  constexpr int LDH = HD + 8, LDS = BK + 4, LDP = BK + 8, LDO = HD + 4;
-  constexpr int NC = HD / 16, NW = NT / 32;
-  extern __shared__ __align__(128) unsigned char smem_tc[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);           // (BQ, LDH)
-  bf16* Ks = Qs + BQ * LDH;                               // (BK, LDH)
-  bf16* Vs = Ks + BK * LDH;                               // (BK, LDH)
-  float* Ss = reinterpret_cast<float*>(Vs + BK * LDH);    // (BQ, LDS)
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + BQ * LDS);      // (BQ, LDP)
-  float* Os = reinterpret_cast<float*>(Ps + BQ * LDP);    // (BQ, LDO)
-
-  const int nq = (S + BQ - 1) / BQ;
-  const int qt = nq - 1 - (int)blockIdx.x;   // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
-  const int q0 = qt * BQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int warp = threadIdx.x >> 5;
-  const bf16* kb = k + b * ks.b + kvh * ks.h;
-  const bf16* vb = v + b * vs.b + kvh * vs.h;
-  load_tile_bf16<HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-  }
-  const int kt_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
-  const int kt_last = (min(q0 + BQ, S) - 1) / BK;
-  for (int kt = kt_first; kt <= kt_last; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                // the last tile's fold is done
-    load_tile_bf16<HD>(Ks, kb, ks.s, k0, S);
-    load_tile_bf16<HD>(Vs, vb, vs.s, k0, S);
-    __syncthreads();
-    for (int f = warp; f < (BQ / 16) * (BK / 16); f += NW) {
-      const int fi = f / (BK / 16), fj = f % (BK / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(a, Qs + fi * 16 * LDH + kk, LDH);
-        wmma::load_matrix_sync(kf, Ks + fj * 16 * LDH + kk, LDH);
-        wmma::mma_sync(sf, a, kf, sf);
-      }
-      wmma::store_matrix_sync(Ss + fi * 16 * LDS + fj * 16, sf, LDS,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    float corr[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      float s[4], mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float dot = Ss[(ty + 16 * i) * LDS + tx + 16 * j];
-        s[j] = keep(qp, k0 + tx + 16 * j, window) ? dot * scale : NEG_INF;
-        mx = fmaxf(mx, s[j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      corr[i] = expf(m[i] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[j] - m_new);
-        sum += p;
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = __float2bfloat16(p);
-      }
-      l[i] = l[i] * corr[i] + group_sum(sum);
-      m[i] = m_new;
-    }
-    __syncthreads();
-    for (int f = warp; f < (BQ / 16) * (HD / 16); f += NW) {
-      const int fi = f / (HD / 16), fj = f % (HD / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::fill_fragment(of, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, Ps + fi * 16 * LDP + kk, LDP);
-        wmma::load_matrix_sync(vf, Vs + kk * LDH + fj * 16, LDH);
-        wmma::mma_sync(of, pf, vf, of);
-      }
-      wmma::store_matrix_sync(Os + fi * 16 * LDO + fj * 16, of, LDO,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        acc[i][c] = fmaf(acc[i][c], corr[i], Os[(ty + 16 * i) * LDO + tx + 16 * c]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    bf16* dst = o + b * os.b + h * os.h + (long long)r * os.s;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dst[tx + 16 * c] = __float2bfloat16(acc[i][c] / den);
-    if (STATS && tx == 0) lse[((long long)b * H + h) * S + r] = m[i] + logf(den);
-  }
-}
-
 
 // ------------------------------------------------------------------------- //
 // dQ (row 11) for f32, on the CUDA cores: one block per (q tile, query head,
@@ -633,9 +508,9 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ------------------------------------------------------------------------- //
-// The bf16 backward on the tensor cores (rows 11 and 12): wgmma products, a
-// cp.async ring (see the note at the top).  A block is one warpgroup; warp
-// w holds rows 16 w .. 16 w + 16 of every 64-row product.  Accumulator
+// bf16 on the tensor cores (rows 9-12): wgmma products, a cp.async ring
+// (see the note at the top).  A block is one or more warpgroups; warp w of
+// a warpgroup holds rows 16 w .. 16 w + 16 of its 64-row products.  Accumulator
 // layout of wgmma.m64nNk16 (g = lane / 4, t = lane % 4): element 4 j + e of
 // a thread is (row 16 w + g + 8 (e / 2), column 8 j + 2 t + e % 2).  The A
 // operand from registers is a warp's 16 rows as an mma.m16n8k16 A fragment:
@@ -644,7 +519,7 @@ __global__ void __launch_bounds__(NT)
 // the k16 step s over the accumulator's columns.
 // ------------------------------------------------------------------------- //
 constexpr int NTC = 128;        // one warpgroup
-constexpr int STAGES = 2;       // depth of the streamed operand's ring
+constexpr int STAGES = 2;       // depth of the streamed operands' ring
 static_assert(NTC == 2 * BQ, "one thread per lse or delta row of a tile");
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -685,17 +560,18 @@ __device__ __forceinline__ int swz(int r, int c) {
          (c & 7);
 }
 
-// rows [row0, row0 + 64) of one (S, HD) bf16 head into a swizzled tile;
-// rows at or past S are zero
-template <int HD>
+// rows [row0, row0 + 64) of one (S, HD) bf16 head into a swizzled tile, by
+// the block's NTH threads; rows at or past S are zero
+template <int HD, int NTH = NTC>
 __device__ __forceinline__ void load_tile_async(bf16* dst,
                                                 const bf16* __restrict__ src,
                                                 long long ss, int row0,
                                                 int S) {
   constexpr int CPR = HD / 8;                 // 16-byte pieces a row
+  static_assert(BQ * CPR % NTH == 0, "whole pieces a thread");
 #pragma unroll
-  for (int j = 0; j < BQ * CPR / NTC; ++j) {
-    const int i = threadIdx.x + j * NTC;
+  for (int j = 0; j < BQ * CPR / NTH; ++j) {
+    const int i = threadIdx.x + j * NTH;
     const int r = i / CPR, c = (i % CPR) * 8;
     const bool ok = row0 + r < S;
     cp_async16(dst + swz(r, c), ok ? src + (long long)(row0 + r) * ss + c : src,
@@ -704,12 +580,13 @@ __device__ __forceinline__ void load_tile_async(bf16* dst,
 }
 
 // lse then delta rows [q0, q0 + 64) of one head (from its row0) into
-// (2, 64) f32; rows at or past S are zero
+// (2, 64) f32, by the block's first 128 threads; rows at or past S are zero
 __device__ __forceinline__ void load_stats_async(float* dst,
                                                  const float* __restrict__ lse,
                                                  const float* __restrict__ delta,
                                                  long long row0, int q0,
                                                  int S) {
+  if (threadIdx.x >= NTC) return;
   const int r = threadIdx.x & (BQ - 1);
   const float* src = threadIdx.x < BQ ? lse : delta;
   const bool ok = q0 + r < S;
@@ -856,13 +733,65 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d (64 x HD) += A B over one k16 step, B the MN-major rows [16 s, 16 s +
-// 16) of a tile
-template <int HD>
-__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2],
+// d (64 x 192 f32) += A B, A (64 x 16) from registers (a warp's 16 rows as
+// an mma.m16n8k16 A fragment), B (16 x 192) MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                             const unsigned (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// d (64 x N) += A B over one k16 step, B the MN-major rows [16 s, 16 s +
+// 16) of a tile's first N columns
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const unsigned (&a)[4],
                                          const bf16* tile, int s) {
-  if constexpr (HD == 128)
+  static_assert(N == 64 || N == 128 || N == 192, "an instantiated width");
+  if constexpr (N == 192)
+    wgmma_rs_n192(d, a, desc_mn(tile, s));
+  else if constexpr (N == 128)
     wgmma_rs_n128(d, a, desc_mn(tile, s));
   else
     wgmma_rs_n64(d, a, desc_mn(tile, s));
@@ -917,9 +846,248 @@ __device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
   return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
-// dQ for bf16: one block per (q tile, query head, batch), walking the kv
-// tiles: S = Q K^T and dP = dO V^T (64 x 64, A and B from shared memory),
-// dS, then dQ += dS K (A = dS hi and lo from registers, B = K MN-major).
+// The bf16 forward (rows 9 and 10): one block of fwd_wgs(HD) warpgroups
+// per (64 query rows a warpgroup, query head, batch), all sharing one ring
+// of FSTAGES K/V stages, walking the kv tiles in ascending order.  Per
+// warpgroup and kv tile j: S = Q K_j^T (64 x 64, A and B from shared
+// memory); the online softmax on the S accumulator in registers (the row
+// max over a quad by two shuffles, each thread's share of the row sum kept
+// apart until the end); p rounded to bf16 and packed as the A operand of
+// P V, V read MN-major: nothing goes back through shared memory between
+// the two products.  The products are pipelined one tile deep: in step j
+// O is rescaled by tile j-1's correction and P_{j-1} packed, S_j formed
+// and its row max taken, then O += P_{j-1} V_{j-1} issued, and the exps of
+// tile j run while the tensor cores do it.  Tile j's K and tile j-1's V are both read in
+// step j, so tile j+1 is copied into the third stage, from the start of
+// step j (after the one barrier a step, which every warpgroup passes only
+// once done with step j-1).  Every warpgroup walks all of the block's kv
+// tiles (the union of its warpgroups' own) and masks only the tiles that
+// cross its rows' diagonal or window edge.  Blocks are ordered by q tile,
+// most kv tiles first, across every head.  One warpgroup a block up to hd
+// 128; at hd 192 one would spill (a 64 x 192 f32 O is 96 registers a
+// thread), and two keep one block an SM at 8 warps.
+__host__ __device__ constexpr int fwd_wgs(int hd) { return hd > 128 ? 2 : 1; }
+constexpr int FSTAGES = 3;          // K/V stages of the forward's ring
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The online softmax of one 64 x 64 score tile (s, the S accumulator) for
+// rows qr[0], qr[1] of a thread, in log2 units, in two halves.  row_max:
+// scale by scale * log2(e) (sl) and mask (mask: the tile crosses a row's
+// diagonal or window edge), update the running max m (over the row's quad
+// by two shuffles) and set corr = 2^(m_old - m_new).  row_exp: p = 2^(s -
+// m) into s, and the thread's share of the row sums into l (reduced over
+// the quad once, at the end).  A masked score is NEG_INF in these units
+// too, so a row with no kept key in the tile gets p = 1 until a kept key's
+// correction (0) wipes it, as in the reference.
+__device__ __forceinline__ void row_max(float (&s)[32], float (&m)[2],
+                                        float (&corr)[2], const int (&qr)[2],
+                                        int k0, int t, bool mask, int window,
+                                        float sl) {
+  // one branch for the tile, and selects, not branches, per element
+  // (short-circuit tests here compiled to a branch region per element)
+  if (mask) {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int i = (x >> 1) & 1, kp = k0 + 8 * (x >> 2) + 2 * t + (x & 1);
+      const bool kept = (kp <= qr[i]) & ((window <= 0) | (kp > qr[i] - window));
+      s[x] = kept ? s[x] * sl : NEG_INF;
+    }
+  } else {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) s[x] *= sl;
+  }
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int x = 0; x < 32; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {     // a row's four threads are one quad
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    corr[i] = exp2f(m[i] - m_new);
+    m[i] = m_new;
+  }
+}
+
+__device__ __forceinline__ void row_exp(float (&s)[32], const float (&m)[2],
+                                        float (&l)[2],
+                                        const float (&corr)[2]) {
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int i = (x >> 1) & 1;
+    s[x] = exp2f(s[x] - m[i]);
+    sum[i] += s[x];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + sum[i];
+}
+
+template <int HD, bool STATS>
+__global__ void __launch_bounds__(NTC * fwd_wgs(HD))
+    flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ o,
+                        float* __restrict__ lse, Strides qs, Strides ks,
+                        Strides vs, Strides os, int H, int KV, int S,
+                        int window, float scale) {
+  constexpr int TILE = BQ * HD, FWG = fwd_wgs(HD);
+  constexpr int NTH = NTC * FWG, BQF = BQ * FWG;
+  extern __shared__ unsigned char smem_fwd[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_1k(smem_fwd));  // warpgroup w's at w TILE
+  bf16* ring = Qs + FWG * TILE;     // stage st: K at 2 st TILE, V after it
+
+  const int nq = (S + BQF - 1) / BQF;
+  const int hb = gridDim.x / nq;    // (head, batch) pairs
+  const int qt = nq - 1 - (int)blockIdx.x / hb;   // most kv tiles first
+  const int h = (int)blockIdx.x % hb % H, b = (int)blockIdx.x % hb / H;
+  const int kvh = h / (H / KV);
+  const int q0 = qt * BQF;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = q0 + BQ * wg;      // the warpgroup's first row
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+  const int kt_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int kt_last = (min(q0 + BQF, S) - 1) / BK;
+  const int nkt = kt_last - kt_first + 1;
+  const float sl = scale * LOG2E;
+  auto load_kv = [&](int it) {      // kv tile kt_first + it into its stage
+    bf16* dst = ring + 2 * (it % FSTAGES) * TILE;
+    const int k0 = (kt_first + it) * BK;
+    load_tile_async<HD, NTH>(dst, kb, ks.s, k0, S);
+    load_tile_async<HD, NTH>(dst + TILE, vb, vs.s, k0, S);
+  };
+
+#pragma unroll
+  for (int w = 0; w < FWG; ++w)
+    load_tile_async<HD, NTH>(Qs + w * TILE, qb, qs.s, q0 + BQ * w, S);
+  load_kv(0);
+  cp_async_commit();
+
+  const bf16* Qw = Qs + wg * TILE;
+  const int qr[2] = {r0 + 16 * warp + (lane >> 2), r0 + 16 * warp + (lane >> 2) + 8};
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  unsigned pa[BK / 16][4];          // the last tile's p in bf16: the A of P V
+  float corr[2];
+  // the row max of kv tile it's scores s (masked where the tile crosses a
+  // row's diagonal or window edge)
+  auto softmax_max = [&](float (&s)[32], int it) {
+    const int k0 = (kt_first + it) * BK;
+    row_max(s, m, corr, qr, k0, t,
+            k0 + BK - 1 > r0 || (window > 0 && k0 <= r0 + BQ - 1 - window),
+            window, sl);
+  };
+  // O rescaled by a tile's correction and its p rounded to bf16 into pa
+  auto rescale_and_pack = [&](const float (&s)[32]) {
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) acc[x] *= corr[(x >> 1) & 1];
+#pragma unroll
+    for (int st = 0; st < BK / 16; ++st)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[st][i] = bf16x2_bits(__floats2bfloat162_rn(s[8 * st + 2 * i],
+                                                      s[8 * st + 2 * i + 1]));
+  };
+
+  // Every warpgroup walks every kv tile of the block, so that each product
+  // sequence is one straight line (wgmma under a warpgroup-dependent branch
+  // is serialized by ptxas): a tile none of a warpgroup's rows sees is
+  // masked whole and adds exact zeros, or, before the rows' first seen
+  // tile, a sum that that tile's correction (0) wipes out, as the plain
+  // version's masked chunks do.
+  float s[32];                      // S, then p, of the current tile
+  {                                 // tile 0: S only
+    cp_async_wait<0>();
+    __syncthreads();
+    if (nkt > 1) load_kv(1);
+    cp_async_commit();
+    wg_fence();
+#pragma unroll
+    for (int d = 0; d < HD / 16; ++d)
+      wgmma_ss_n64(s, desc_k(Qw, 0, d), desc_k(ring, 0, d), d);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    softmax_max(s, 0);
+    row_exp(s, m, l, corr);
+  }
+  // Step it: O rescaled by tile it - 1's correction and that tile's p
+  // packed, while no product is in flight; S_it, its row max; then O +=
+  // P_{it-1} V_{it-1} issued and the exps of tile it run while it is on the
+  // tensor cores.  The row max comes first: placed after the P V issue,
+  // with its shuffles, it had ptxas put the P V wait ahead of every exp (in
+  // the SASS of each such order tried); this way some of the exps are
+  // scheduled under P V.
+  for (int it = 1; it < nkt; ++it) {
+    cp_async_wait<0>();             // tile it's copies are done
+    __syncthreads();                // and everyone's, and step it - 1
+    if (it + 1 < nkt) load_kv(it + 1);   // into tile it - 2's stage
+    cp_async_commit();
+    const bf16* Ks = ring + 2 * (it % FSTAGES) * TILE;
+    const bf16* Vprev = ring + (2 * ((it - 1) % FSTAGES) + 1) * TILE;
+    rescale_and_pack(s);
+    wg_fence();
+#pragma unroll
+    for (int d = 0; d < HD / 16; ++d)
+      wgmma_ss_n64(s, desc_k(Qw, 0, d), desc_k(Ks, 0, d), d);
+    wg_commit();
+    wg_wait<0>();                   // S is in
+    fence_regs(s);
+    softmax_max(s, it);
+    wg_fence();
+#pragma unroll                      // O += P V of tile it - 1
+    for (int st = 0; st < BK / 16; ++st) wgmma_rs<HD>(acc, pa[st], Vprev, st);
+    wg_commit();
+    row_exp(s, m, l, corr);         // under P V
+    fence_regs(s);
+    wg_wait<0>();                   // P V is in
+    fence_regs(acc);
+  }
+  {                                 // the last tile's P V
+    const bf16* Vlast = ring + (2 * ((nkt - 1) % FSTAGES) + 1) * TILE;
+    rescale_and_pack(s);
+    wg_fence();
+#pragma unroll
+    for (int st = 0; st < BK / 16; ++st) wgmma_rs<HD>(acc, pa[st], Vlast, st);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+  }
+
+  float den[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {     // the row sums over the quad
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    den[i] = fmaxf(l[i], 1e-30f);
+  }
+  bf16* out = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const float vals[4] = {acc[4 * n] / den[0], acc[4 * n + 1] / den[0],
+                           acc[4 * n + 2] / den[1], acc[4 * n + 3] / den[1]};
+    store_c(out, os.s, qr[0], 8 * n + 2 * t, vals, S);
+  }
+  if (STATS && t == 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (qr[i] < S)
+        lse[((long long)b * H + h) * S + qr[i]] = m[i] / LOG2E + logf(den[i]);
+}
+
+// dQ for bf16: one block per (q tile, dq column part, query head, batch),
+// walking the kv tiles: S = Q K^T and dP = dO V^T (64 x 64, A and B from
+// shared memory), dS, then dQ += dS K (A = dS hi and lo from registers, B =
+// K MN-major).  A part is dq_cols(HD) columns of dq: all of them, or at hd
+// 192 a third, since a 64 x 192 f32 accumulator beside S, dP and the hi and
+// lo operands would pass 255 registers; each of the three blocks of a q
+// tile recomputes S and dP (twice the products of one block).  At hd 192 a
+// block is dq_wgs(HD) = 2 warpgroups on two q tiles, sharing the K/V ring,
+// so that an SM, which has room for one such block, holds 8 warps.
 //
 // Rows with one kept key (the first query; every row under a one-key
 // window) have dS = p (dP - delta) scale = 0 in exact arithmetic: their dq
@@ -929,8 +1097,11 @@ __device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
 // chain over hd; the tensor cores sum in another order.  So for such a row
 // the kernel forms dP with that chain on the CUDA cores (one dot product of
 // hd a row).
+__host__ __device__ constexpr int dq_cols(int hd) { return hd > 128 ? 64 : hd; }
+__host__ __device__ constexpr int dq_wgs(int hd) { return hd > 128 ? 2 : 1; }
+
 template <int HD>
-__global__ void __launch_bounds__(NTC)
+__global__ void __launch_bounds__(NTC * dq_wgs(HD))
     flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v,
@@ -940,31 +1111,43 @@ __global__ void __launch_bounds__(NTC)
                            bf16* __restrict__ dq, Strides qs, Strides ks,
                            Strides vs, Strides dos, Strides dqs, int H, int KV,
                            int S, int window, float scale) {
-  constexpr int TILE = BQ * HD;
+  constexpr int TILE = BQ * HD, NOUT = dq_cols(HD), PARTS = HD / NOUT;
+  constexpr int WGS = dq_wgs(HD), NTH = NTC * WGS;
   extern __shared__ unsigned char smem_bwd[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_1k(smem_bwd));
-  bf16* dOs = Qs + TILE;
-  bf16* ring = dOs + TILE;          // stage st: K at 2 st TILE, V after it
+  bf16* Qs = reinterpret_cast<bf16*>(smem_1k(smem_bwd));  // warpgroup w's at w TILE
+  bf16* dOs = Qs + WGS * TILE;      // the same
+  bf16* ring = dOs + WGS * TILE;    // stage st: K at 2 st TILE, V after it
 
-  const int nq = (S + BQ - 1) / BQ;
-  const int qt = nq - 1 - (int)blockIdx.x;   // most kv tiles first
+  const int nq = (S + WGS * BQ - 1) / (WGS * BQ);
+  const int qt = nq - 1 - (int)blockIdx.x / PARTS;   // most kv tiles first
+  const int c0 = (int)blockIdx.x % PARTS * NOUT;     // the part's first column
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int q0 = qt * WGS * BQ;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + BQ * wg;      // the warpgroup's first row
   const bf16* kb = k + b * ks.b + kvh * ks.h;
   const bf16* vb = v + b * vs.b + kvh * vs.h;
   const int kt_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
-  const int kt_last = (min(q0 + BQ, S) - 1) / BK;
+  const int kt_last = (min(q0 + WGS * BQ, S) - 1) / BK;
   const int nkt = kt_last - kt_first + 1;
 
-  load_tile_async<HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
-  load_tile_async<HD>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, S);
-  load_tile_async<HD>(ring, kb, ks.s, kt_first * BK, S);
-  load_tile_async<HD>(ring + TILE, vb, vs.s, kt_first * BK, S);
+#pragma unroll
+  for (int w = 0; w < WGS; ++w) {
+    load_tile_async<HD, NTH>(Qs + w * TILE, q + b * qs.b + h * qs.h, qs.s,
+                             q0 + BQ * w, S);
+    load_tile_async<HD, NTH>(dOs + w * TILE, dout + b * dos.b + h * dos.h,
+                             dos.s, q0 + BQ * w, S);
+  }
+  load_tile_async<HD, NTH>(ring, kb, ks.s, kt_first * BK, S);
+  load_tile_async<HD, NTH>(ring + TILE, vb, vs.s, kt_first * BK, S);
   cp_async_commit();
 
-  const int qr[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  // Every warpgroup walks the block's kv tiles (wgmma stays off
+  // warpgroup-dependent branches); a tile none of its rows sees has p = 0.
+  const bf16* Qw = Qs + wg * TILE;
+  const bf16* dOw = dOs + wg * TILE;
+  const int qr[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
   const long long row0 = ((long long)b * H + h) * S;
   float lse_r[2], delta_r[2];
 #pragma unroll
@@ -972,16 +1155,16 @@ __global__ void __launch_bounds__(NTC)
     lse_r[i] = qr[i] < S ? lse[row0 + qr[i]] : 0.0f;
     delta_r[i] = qr[i] < S ? delta[row0 + qr[i]] : 0.0f;
   }
-  float acc[HD / 2];
+  float acc[NOUT / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < NOUT / 2; ++i) acc[i] = 0.0f;
 
   for (int it = 0; it < nkt; ++it) {
     const int k0 = (kt_first + it) * BK;
     if (it + 1 < nkt) {             // the next kv tile into the other stage
       bf16* nxt = ring + 2 * ((it + 1) % STAGES) * TILE;
-      load_tile_async<HD>(nxt, kb, ks.s, k0 + BK, S);
-      load_tile_async<HD>(nxt + TILE, vb, vs.s, k0 + BK, S);
+      load_tile_async<HD, NTH>(nxt, kb, ks.s, k0 + BK, S);
+      load_tile_async<HD, NTH>(nxt + TILE, vb, vs.s, k0 + BK, S);
     }
     cp_async_commit();
     cp_async_wait<1>();             // this tile's copies are done
@@ -992,21 +1175,36 @@ __global__ void __launch_bounds__(NTC)
     wg_fence();
 #pragma unroll
     for (int d = 0; d < HD / 16; ++d)
-      wgmma_ss_n64(s, desc_k(Qs, 0, d), desc_k(Ks, 0, d), d);
+      wgmma_ss_n64(s, desc_k(Qw, 0, d), desc_k(Ks, 0, d), d);
     wg_commit();
 #pragma unroll
     for (int d = 0; d < HD / 16; ++d)
-      wgmma_ss_n64(dp, desc_k(dOs, 0, d), desc_k(Vs, 0, d), d);
+      wgmma_ss_n64(dp, desc_k(dOw, 0, d), desc_k(Vs, 0, d), d);
     wg_commit();
     wg_wait<0>();
     fence_regs(s);
     fence_regs(dp);
+    if (k0 == 0 || window == 1) {   // a row with one kept key may be here
+      float one[2];
+      bool has[2];
 #pragma unroll
-    for (int x = 0; x < 32; ++x) {
+      for (int i = 0; i < 2; ++i) {   // its key is its diagonal's column
+        const int col = qr[i] - k0;
+        has[i] = qr[i] < S && (qr[i] == 0 || window == 1) && col >= 0 &&
+                 col < BK && ((col >> 1) & 3) == t;
+        one[i] = has[i] ? dot_ascending<HD>(dOw, qr[i] - r0, Vs, col) : 0.0f;
+      }
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int i = (x >> 1) & 1, kp = k0 + 8 * (x >> 2) + 2 * t + (x & 1);
+        dp[x] = has[i] && kp == qr[i] ? one[i] : dp[x];
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {    // selects, not branches, per element
       const int i = (x >> 1) & 1, kp = k0 + 8 * (x >> 2) + 2 * t + (x & 1);
-      const bool kept = keep(qr[i], kp, window) && qr[i] < S;
-      if (kept && kp == qr[i] && (kp == 0 || window == 1))   // one key
-        dp[x] = dot_ascending<HD>(dOs, qr[i] - q0, Vs, kp - k0);
+      const bool kept = (kp <= qr[i]) & ((window <= 0) | (kp > qr[i] - window)) &
+                        (qr[i] < S);
       const float p = kept ? expf(s[x] * scale - lse_r[i]) : 0.0f;
       s[x] = p * (dp[x] - delta_r[i]) * scale;               // dS
     }
@@ -1015,9 +1213,9 @@ __global__ void __launch_bounds__(NTC)
     for (int st = 0; st < BK / 16; ++st) split_a(s + 8 * st, hi[st], lo[st]);
     wg_fence();
 #pragma unroll
-    for (int st = 0; st < BK / 16; ++st) {
-      wgmma_rs<HD>(acc, hi[st], Ks, st);
-      wgmma_rs<HD>(acc, lo[st], Ks, st);
+    for (int st = 0; st < BK / 16; ++st) {   // K's columns [c0, c0 + NOUT)
+      wgmma_rs<NOUT>(acc, hi[st], Ks + c0 * BQ, st);
+      wgmma_rs<NOUT>(acc, lo[st], Ks + c0 * BQ, st);
     }
     wg_commit();
     wg_wait<0>();
@@ -1027,17 +1225,23 @@ __global__ void __launch_bounds__(NTC)
 
   bf16* out = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-    store_c(out, dqs.s, qr[0], 8 * n + 2 * t, acc + 4 * n, S);
+  for (int n = 0; n < NOUT / 8; ++n)
+    store_c(out, dqs.s, qr[0], c0 + 8 * n + 2 * t, acc + 4 * n, S);
 }
 
 // dK, dV for bf16: one block per (kv tile, kv head, batch), walking the G
 // query heads of the kv head and their q tiles, each in two 32-query
 // halves, transposed: S^T = K Q^T and dP^T = V dO^T (64 keys x 32 queries),
 // then dV += P^T dO and dK += dS^T Q (A = P^T, dS^T hi and lo from
-// registers, B = dO, Q MN-major).
+// registers, B = dO, Q MN-major).  Up to hd 128 one warpgroup does all of
+// it; at hd 192, where two 64 x 192 f32 accumulators would take 192
+// registers a thread by themselves, dkv_wgs(HD) = 2 warpgroups share the
+// tiles: both form S^T and dP^T, warpgroup 0 owns dV, warpgroup 1 dK (S^T
+// and dP^T are formed twice: 8 product-equivalents a step against 6).
+__host__ __device__ constexpr int dkv_wgs(int hd) { return hd > 128 ? 2 : 1; }
+
 template <int HD>
-__global__ void __launch_bounds__(NTC)
+__global__ void __launch_bounds__(NTC * dkv_wgs(HD))
     flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v,
@@ -1048,7 +1252,8 @@ __global__ void __launch_bounds__(NTC)
                             Strides qs, Strides ks, Strides vs, Strides dos,
                             Strides dks, Strides dvs, int H, int KV, int S,
                             int window, float scale) {
-  constexpr int TILE = BQ * HD;
+  constexpr int TILE = BQ * HD, WGS = dkv_wgs(HD), NTH = NTC * WGS;
+  constexpr int NACC = 3 - WGS;     // accumulators a thread: dV, dK or one
   extern __shared__ unsigned char smem_bwd[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_1k(smem_bwd));
   bf16* Vs = Ks + TILE;
@@ -1059,8 +1264,8 @@ __global__ void __launch_bounds__(NTC)
   const int kt = blockIdx.x;        // the first kv tiles see the most q tiles
   const int kvh = blockIdx.y, b = blockIdx.z, G = H / KV;
   const int k0 = kt * BK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int nq = (S + BQ - 1) / BQ;
   const int qt_first = k0 / BQ;
   const int qt_last =
@@ -1074,19 +1279,23 @@ __global__ void __launch_bounds__(NTC)
   auto load_stage = [&](int i, int st) {
     const int gi = i / nqt, q0 = (qt_first + i % nqt) * BQ;
     bf16* dst = ring + 2 * st * TILE;
-    load_tile_async<HD>(dst, qb + gi * qs.h, qs.s, q0, S);
-    load_tile_async<HD>(dst + TILE, dob + gi * dos.h, dos.s, q0, S);
+    load_tile_async<HD, NTH>(dst, qb + gi * qs.h, qs.s, q0, S);
+    load_tile_async<HD, NTH>(dst + TILE, dob + gi * dos.h, dos.s, q0, S);
     load_stats_async(stats + 2 * st * BQ, lse, delta, rows + gi * S, q0, S);
   };
-  load_tile_async<HD>(Ks, k + b * ks.b + kvh * ks.h, ks.s, k0, S);
-  load_tile_async<HD>(Vs, v + b * vs.b + kvh * vs.h, vs.s, k0, S);
+  load_tile_async<HD, NTH>(Ks, k + b * ks.b + kvh * ks.h, ks.s, k0, S);
+  load_tile_async<HD, NTH>(Vs, v + b * vs.b + kvh * vs.h, vs.s, k0, S);
   load_stage(0, 0);
   cp_async_commit();
 
   const int kr[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
-  float dk_acc[HD / 2], dv_acc[HD / 2];
+  float acc[NACC][HD / 2];          // dV in acc[0], dK in acc[NACC - 1]
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+  for (int a = 0; a < NACC; ++a)
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[a][i] = 0.0f;
+  float (&dv_acc)[HD / 2] = acc[0];
+  float (&dk_acc)[HD / 2] = acc[NACC - 1];
 
   for (int it = 0; it < nit; ++it) {
     const int q0 = (qt_first + it % nqt) * BQ;
@@ -1116,42 +1325,68 @@ __global__ void __launch_bounds__(NTC)
       wg_wait<1>();                 // S^T is in
       fence_regs(s);
 #pragma unroll
-      for (int x = 0; x < 16; ++x) {
+      for (int x = 0; x < 16; ++x) {  // selects, not branches, per element
         const int col = 32 * half + 8 * (x >> 2) + 2 * t + (x & 1);
-        s[x] = keep(q0 + col, kr[(x >> 1) & 1], window) && q0 + col < S
-                   ? expf(s[x] * scale - lse_s[col])
-                   : 0.0f;                                    // P^T
+        const int qp = q0 + col, kp = kr[(x >> 1) & 1];
+        const bool kept = (kp <= qp) & ((window <= 0) | (kp > qp - window)) &
+                          (qp < S);
+        s[x] = kept ? expf(s[x] * scale - lse_s[col]) : 0.0f;  // P^T
       }
-      unsigned ph[2][4], pl[2][4];
-      split_a(s, ph[0], pl[0]);
-      split_a(s + 8, ph[1], pl[1]);
-      wg_fence();
+      if constexpr (WGS == 1) {
+        unsigned ph[2][4], pl[2][4];
+        split_a(s, ph[0], pl[0]);
+        split_a(s + 8, ph[1], pl[1]);
+        wg_fence();
 #pragma unroll
-      for (int st = 0; st < 2; ++st) {                        // dV += P^T dO
-        wgmma_rs<HD>(dv_acc, ph[st], dOs, 2 * half + st);
-        wgmma_rs<HD>(dv_acc, pl[st], dOs, 2 * half + st);
-      }
-      wg_commit();
-      wg_wait<1>();                 // dP^T is in
-      fence_regs(dp);
+        for (int st = 0; st < 2; ++st) {                      // dV += P^T dO
+          wgmma_rs<HD>(dv_acc, ph[st], dOs, 2 * half + st);
+          wgmma_rs<HD>(dv_acc, pl[st], dOs, 2 * half + st);
+        }
+        wg_commit();
+        wg_wait<1>();               // dP^T is in
+        fence_regs(dp);
 #pragma unroll
-      for (int x = 0; x < 16; ++x) {
-        const int col = 32 * half + 8 * (x >> 2) + 2 * t + (x & 1);
-        s[x] = s[x] * (dp[x] - delta_s[col]) * scale;       // dS^T
-      }
-      unsigned dh[2][4], dl[2][4];
-      split_a(s, dh[0], dl[0]);
-      split_a(s + 8, dh[1], dl[1]);
-      wg_fence();
+        for (int x = 0; x < 16; ++x) {
+          const int col = 32 * half + 8 * (x >> 2) + 2 * t + (x & 1);
+          s[x] = s[x] * (dp[x] - delta_s[col]) * scale;     // dS^T
+        }
+        unsigned dh[2][4], dl[2][4];
+        split_a(s, dh[0], dl[0]);
+        split_a(s + 8, dh[1], dl[1]);
+        wg_fence();
 #pragma unroll
-      for (int st = 0; st < 2; ++st) {                        // dK += dS^T Q
-        wgmma_rs<HD>(dk_acc, dh[st], Qs, 2 * half + st);
-        wgmma_rs<HD>(dk_acc, dl[st], Qs, 2 * half + st);
+        for (int st = 0; st < 2; ++st) {                      // dK += dS^T Q
+          wgmma_rs<HD>(dk_acc, dh[st], Qs, 2 * half + st);
+          wgmma_rs<HD>(dk_acc, dl[st], Qs, 2 * half + st);
+        }
+        wg_commit();
+      } else {
+        // one product a warpgroup, on the same straight line (wgmma under a
+        // warpgroup-dependent branch is serialized by ptxas): warpgroup 0
+        // dV += P^T dO, warpgroup 1 dK += dS^T Q (both formed dP^T above)
+        wg_wait<0>();               // dP^T is in
+        fence_regs(dp);
+#pragma unroll
+        for (int x = 0; x < 16; ++x) {
+          const int col = 32 * half + 8 * (x >> 2) + 2 * t + (x & 1);
+          const float ds = s[x] * (dp[x] - delta_s[col]) * scale;
+          s[x] = wg ? ds : s[x];
+        }
+        unsigned hi[2][4], lo[2][4];
+        split_a(s, hi[0], lo[0]);
+        split_a(s + 8, hi[1], lo[1]);
+        const bf16* Bs = wg ? Qs : dOs;
+        wg_fence();
+#pragma unroll
+        for (int st = 0; st < 2; ++st) {
+          wgmma_rs<HD>(acc[0], hi[st], Bs, 2 * half + st);
+          wgmma_rs<HD>(acc[0], lo[st], Bs, 2 * half + st);
+        }
+        wg_commit();
       }
-      wg_commit();
       wg_wait<0>();
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
+#pragma unroll
+      for (int a = 0; a < NACC; ++a) fence_regs(acc[a]);
     }
     __syncthreads();
   }
@@ -1160,19 +1395,36 @@ __global__ void __launch_bounds__(NTC)
   bf16* vd = dv + b * dvs.b + kvh * dvs.h;
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
-    store_c(kd, dks.s, kr[0], 8 * n + 2 * t, dk_acc + 4 * n, S);
-    store_c(vd, dvs.s, kr[0], 8 * n + 2 * t, dv_acc + 4 * n, S);
+    if (WGS == 1 || wg == 1)
+      store_c(kd, dks.s, kr[0], 8 * n + 2 * t, dk_acc + 4 * n, S);
+    if (WGS == 1 || wg == 0)
+      store_c(vd, dvs.s, kr[0], 8 * n + 2 * t, dv_acc + 4 * n, S);
   }
 }
 
-constexpr size_t tile_bytes(int hd) { return sizeof(float) * BQ * (hd + 1); }
-constexpr size_t score_bytes() { return sizeof(float) * BQ * LP; }
-// the bf16 backward: two resident and 2 STAGES streamed swizzled bf16
-// tiles, for dK/dV the lse and delta rows of each stage, and 1 KB to align
-// the tiles
-constexpr size_t bwd_tc_bytes(int hd, bool dkv) {
-  return sizeof(bf16) * (2 + 2 * STAGES) * BQ * hd +
-         (dkv ? sizeof(float) * 2 * STAGES * BQ : 0) + 1024;
+// Dynamic shared memory a block, in bytes, of each instance: the counts the
+// launches ask for.  kernels/flash.py `smem_bytes` counts the same; the
+// wrappers check the two agree at an instance's first launch (flash_info).
+//   f32: padded (rows, hd + 1) tiles and (64, 65) score tiles, on the CUDA
+//   cores; bf16: swizzled (64, hd) tiles (resident ones, then 2 STAGES
+//   streamed ones), for dK/dV the lse and delta rows of each stage, and
+//   1 KB to align the tiles.
+constexpr size_t f32_tile(int rows, int hd) {
+  return sizeof(float) * rows * (hd + 1);
+}
+constexpr size_t fwd_bytes(bool tc, int hd) {
+  return tc ? sizeof(bf16) * (fwd_wgs(hd) + 2 * FSTAGES) * BQ * hd + 1024
+            : 2 * f32_tile(BQ, hd) + f32_tile(BQ, BK);
+}
+constexpr size_t dq_bytes(bool tc, int hd) {
+  return tc ? sizeof(bf16) * (2 * dq_wgs(hd) + 2 * STAGES) * BQ * hd + 1024
+            : 3 * f32_tile(BQ, hd) + f32_tile(BQ, BK);
+}
+constexpr size_t dkv_bytes(bool tc, int hd) {
+  return tc ? sizeof(bf16) * (2 + 2 * STAGES) * BQ * hd +
+                  sizeof(float) * 2 * STAGES * BQ + 1024
+            : 4 * f32_tile(BQ, hd) + 2 * f32_tile(BQ, BK) +
+                  sizeof(float) * 2 * BQ;
 }
 
 Strides strides(const long long* st, int i) {
@@ -1191,43 +1443,7 @@ int launch(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s,
   return (int)cudaGetLastError();
 }
 
-constexpr size_t tc_bytes(int hd) {
-  return 2 * (3 * BQ * (hd + 8) + BQ * (BK + 8)) +
-         4 * (BQ * (BK + 4) + BQ * (hd + 4));
-}
-
-// bf16 runs the tensor-core forward, f32 the CUDA-core one.
-template <typename T, int HD>
-int fwd(int stats, const void* q, const void* k, const void* v, void* o,
-        void* lse, const long long* st, int B, int H, int KV, int S,
-        int window, float scale, cudaStream_t s) {
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  if constexpr (std::is_same<T, bf16>::value) {
-    const size_t smem = tc_bytes(HD);
-    if (stats)
-      return launch(flash_fwd_tc_kernel<HD, true>, grid, NT, smem, s,
-                    (const T*)q, (const T*)k, (const T*)v, (T*)o,
-                    (float*)lse, strides(st, 0), strides(st, 1),
-                    strides(st, 2), strides(st, 3), H, KV, S, window, scale);
-    return launch(flash_fwd_tc_kernel<HD, false>, grid, NT, smem, s,
-                  (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
-                  strides(st, 0), strides(st, 1), strides(st, 2),
-                  strides(st, 3), H, KV, S, window, scale);
-  } else {
-    const size_t smem = 2 * tile_bytes(HD) + score_bytes();
-    if (stats)
-      return launch(flash_fwd_kernel<T, HD, true>, grid, NT, smem, s,
-                    (const T*)q, (const T*)k, (const T*)v, (T*)o,
-                    (float*)lse, strides(st, 0), strides(st, 1),
-                    strides(st, 2), strides(st, 3), H, KV, S, window, scale);
-    return launch(flash_fwd_kernel<T, HD, false>, grid, NT, smem, s,
-                  (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
-                  strides(st, 0), strides(st, 1), strides(st, 2),
-                  strides(st, 3), H, KV, S, window, scale);
-  }
-}
-
-// The bf16 backward's 16-byte copies need 16-byte aligned pointers and
+// The bf16 kernels' 16-byte copies need 16-byte aligned pointers and
 // strides of whole 16-byte pieces.
 bool aligned16(std::initializer_list<const void*> ptrs, const long long* st,
                int n_strides) {
@@ -1238,28 +1454,93 @@ bool aligned16(std::initializer_list<const void*> ptrs, const long long* st,
   return true;
 }
 
+// The kernel of each (kind, dtype, hd) instance, its threads a block, its
+// grid and its shared bytes.  kind: 0 forward, 1 forward with lse, 2 dQ,
+// 3 dK/dV.
+template <typename T, int HD>
+struct Instance {
+  static constexpr bool TC = std::is_same<T, bf16>::value;
+  static const void* kernel(int kind) {
+    if constexpr (TC) {
+      if (kind == 0) return (const void*)flash_fwd_tc_kernel<HD, false>;
+      if (kind == 1) return (const void*)flash_fwd_tc_kernel<HD, true>;
+      if (kind == 2) return (const void*)flash_bwd_dq_tc_kernel<HD>;
+      return (const void*)flash_bwd_dkv_tc_kernel<HD>;
+    } else {
+      if (kind == 0) return (const void*)flash_fwd_kernel<T, HD, false>;
+      if (kind == 1) return (const void*)flash_fwd_kernel<T, HD, true>;
+      if (kind == 2) return (const void*)flash_bwd_dq_kernel<HD>;
+      return (const void*)flash_bwd_dkv_kernel<HD>;
+    }
+  }
+  static int threads(int kind) {
+    if (!TC) return NT;
+    return NTC * (kind < 2 ? fwd_wgs(HD) : kind == 2 ? dq_wgs(HD) : dkv_wgs(HD));
+  }
+  static size_t smem(int kind) {
+    return kind < 2 ? fwd_bytes(TC, HD)
+                    : kind == 2 ? dq_bytes(TC, HD) : dkv_bytes(TC, HD);
+  }
+};
+
+// bf16 runs the tensor-core forward, f32 the CUDA-core one.
+template <typename T, int HD>
+int fwd(int stats, const void* q, const void* k, const void* v, void* o,
+        void* lse, const long long* st, int B, int H, int KV, int S,
+        int window, float scale, cudaStream_t s) {
+  using I = Instance<T, HD>;
+  if constexpr (I::TC) {
+    if (!aligned16({q, k, v, o}, st, 12)) return (int)cudaErrorMisalignedAddress;
+    // one block per (q tile, head, batch), q tiles in the slowest place
+    const int rows = BQ * fwd_wgs(HD);
+    const dim3 grid((S + rows - 1) / rows * H * B);
+    if (stats)
+      return launch(flash_fwd_tc_kernel<HD, true>, grid, I::threads(1), I::smem(1), s,
+                    (const T*)q, (const T*)k, (const T*)v, (T*)o,
+                    (float*)lse, strides(st, 0), strides(st, 1),
+                    strides(st, 2), strides(st, 3), H, KV, S, window, scale);
+    return launch(flash_fwd_tc_kernel<HD, false>, grid, I::threads(0), I::smem(0), s,
+                  (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
+                  strides(st, 0), strides(st, 1), strides(st, 2),
+                  strides(st, 3), H, KV, S, window, scale);
+  } else {
+    const dim3 grid((S + BQ - 1) / BQ, H, B);
+    if (stats)
+      return launch(flash_fwd_kernel<T, HD, true>, grid, NT, I::smem(1), s,
+                    (const T*)q, (const T*)k, (const T*)v, (T*)o,
+                    (float*)lse, strides(st, 0), strides(st, 1),
+                    strides(st, 2), strides(st, 3), H, KV, S, window, scale);
+    return launch(flash_fwd_kernel<T, HD, false>, grid, NT, I::smem(0), s,
+                  (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
+                  strides(st, 0), strides(st, 1), strides(st, 2),
+                  strides(st, 3), H, KV, S, window, scale);
+  }
+}
+
 // bf16 runs the tensor-core backward, f32 the CUDA-core one.
 template <typename T, int HD>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, const long long* st,
            int B, int H, int KV, int S, int window, float scale,
            cudaStream_t s) {
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  if constexpr (std::is_same<T, bf16>::value) {
+  using I = Instance<T, HD>;
+  if constexpr (I::TC) {
     if (!aligned16({q, k, v, dout, dq}, st, 15))
       return (int)cudaErrorMisalignedAddress;
-    return launch(flash_bwd_dq_tc_kernel<HD>, grid, NTC, bwd_tc_bytes(HD, false),
+    const int rows = BQ * dq_wgs(HD);
+    const dim3 grid((S + rows - 1) / rows * (HD / dq_cols(HD)), H, B);
+    return launch(flash_bwd_dq_tc_kernel<HD>, grid, I::threads(2), I::smem(2),
                   s, (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
                   (const float*)lse, (const float*)delta, (T*)dq,
                   strides(st, 0), strides(st, 1), strides(st, 2),
                   strides(st, 3), strides(st, 4), H, KV, S, window, scale);
   } else {
-    return launch(flash_bwd_dq_kernel<HD>, grid, NT,
-                  3 * tile_bytes(HD) + score_bytes(), s, (const T*)q,
-                  (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-                  (const float*)delta, (T*)dq, strides(st, 0), strides(st, 1),
-                  strides(st, 2), strides(st, 3), strides(st, 4), H, KV, S,
-                  window, scale);
+    const dim3 grid((S + BQ - 1) / BQ, H, B);
+    return launch(flash_bwd_dq_kernel<HD>, grid, NT, I::smem(2), s,
+                  (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+                  (const float*)lse, (const float*)delta, (T*)dq,
+                  strides(st, 0), strides(st, 1), strides(st, 2),
+                  strides(st, 3), strides(st, 4), H, KV, S, window, scale);
   }
 }
 
@@ -1268,26 +1549,43 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv,
             const long long* st, int B, int H, int KV, int S, int window,
             float scale, cudaStream_t s) {
+  using I = Instance<T, HD>;
   const dim3 grid((S + BK - 1) / BK, KV, B);
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (I::TC) {
     if (!aligned16({q, k, v, dout, dk, dv}, st, 18))
       return (int)cudaErrorMisalignedAddress;
-    return launch(flash_bwd_dkv_tc_kernel<HD>, grid, NTC,
-                  bwd_tc_bytes(HD, true), s, (const T*)q, (const T*)k,
-                  (const T*)v, (const T*)dout, (const float*)lse,
-                  (const float*)delta, (T*)dk, (T*)dv, strides(st, 0),
-                  strides(st, 1), strides(st, 2), strides(st, 3),
-                  strides(st, 4), strides(st, 5), H, KV, S, window, scale);
+    return launch(flash_bwd_dkv_tc_kernel<HD>, grid, I::threads(3),
+                  I::smem(3), s, (const T*)q, (const T*)k, (const T*)v,
+                  (const T*)dout, (const float*)lse, (const float*)delta,
+                  (T*)dk, (T*)dv, strides(st, 0), strides(st, 1),
+                  strides(st, 2), strides(st, 3), strides(st, 4),
+                  strides(st, 5), H, KV, S, window, scale);
   } else {
-    return launch(flash_bwd_dkv_kernel<HD>, grid, NT,
-                  4 * tile_bytes(HD) + 2 * score_bytes() +
-                      2 * sizeof(float) * BQ,
-                  s, (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+    return launch(flash_bwd_dkv_kernel<HD>, grid, NT, I::smem(3), s,
+                  (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
                   (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
                   strides(st, 0), strides(st, 1), strides(st, 2),
                   strides(st, 3), strides(st, 4), strides(st, 5), H, KV, S,
                   window, scale);
   }
+}
+
+// Dynamic shared bytes a block (out[0]) and resident blocks per SM on this
+// card (out[1]) of one instance; ptxas reports its registers and spills.
+template <typename T, int HD>
+int info(int kind, int* out) {
+  using I = Instance<T, HD>;
+  const void* kernel = I::kernel(kind);
+  const size_t smem = I::smem(kind);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, I::threads(kind), smem);
+  out[0] = (int)smem;
+  out[1] = blocks;
+  return (int)err;
 }
 
 // Calls F::run<T, HD>() for the (dtype, hd) pair; cudaErrorInvalidValue for
@@ -1296,8 +1594,10 @@ template <typename F, typename... Args>
 int dispatch(int dtype, int hd, Args... args) {
   if (dtype == 0 && hd == 64) return F::template run<float, 64>(args...);
   if (dtype == 0 && hd == 128) return F::template run<float, 128>(args...);
+  if (dtype == 0 && hd == 192) return F::template run<float, 192>(args...);
   if (dtype == 1 && hd == 64) return F::template run<bf16, 64>(args...);
   if (dtype == 1 && hd == 128) return F::template run<bf16, 128>(args...);
+  if (dtype == 1 && hd == 192) return F::template run<bf16, 192>(args...);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1313,21 +1613,10 @@ struct BwdDkv {
   template <typename T, int HD, typename... A>
   static int run(A... a) { return bwd_dkv<T, HD>(a...); }
 };
-
-// dynamic shared bytes a block and resident blocks per SM of one bf16
-// backward kernel on this card (ptxas reports its registers and spills)
-template <typename K>
-int tc_info(K kernel, size_t smem, int* out) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NTC,
-                                                        smem);
-  out[0] = (int)smem;
-  out[1] = blocks;
-  return (int)err;
-}
+struct Info {
+  template <typename T, int HD, typename... A>
+  static int run(A... a) { return info<T, HD>(a...); }
+};
 
 }  // namespace
 
@@ -1336,9 +1625,10 @@ extern "C" const char* flash_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dO and the gradients share
-// it); hd: 64 or 128; window <= 0: none.  `strides` holds (batch, head,
-// sequence) element strides, three per tensor, in argument order.  Each
-// returns cudaGetLastError() after its launch (0 when it was accepted).
+// it); hd: 64, 128 or 192; window <= 0: none.  `strides` holds (batch,
+// head, sequence) element strides, three per tensor, in argument order.
+// Each returns cudaGetLastError() after its launch (0 when it was
+// accepted).
 extern "C" int flash_fwd_launch(int dtype, int hd, int stats, const void* q,
                                 const void* k, const void* v, void* o,
                                 void* lse, const long long* strides, int B,
@@ -1374,14 +1664,10 @@ extern "C" int flash_bwd_dkv_launch(int dtype, int hd, const void* q,
                           (cudaStream_t)stream);
 }
 
-// The bf16 backward kernel `dkv` (0: dQ, 1: dK/dV) at head dim hd (64, 128):
-// out[0..1] = dynamic shared memory a block in bytes, resident blocks per SM.
-extern "C" int flash_bwd_tc_info(int hd, int dkv, int* out) {
-  if (hd == 64)
-    return dkv ? tc_info(flash_bwd_dkv_tc_kernel<64>, bwd_tc_bytes(64, true), out)
-               : tc_info(flash_bwd_dq_tc_kernel<64>, bwd_tc_bytes(64, false), out);
-  if (hd == 128)
-    return dkv ? tc_info(flash_bwd_dkv_tc_kernel<128>, bwd_tc_bytes(128, true), out)
-               : tc_info(flash_bwd_dq_tc_kernel<128>, bwd_tc_bytes(128, false), out);
-  return (int)cudaErrorInvalidValue;
+// The instance (kind: 0 forward, 1 forward with lse, 2 dQ, 3 dK/dV; dtype
+// and hd as above): out[0] = dynamic shared memory a block in bytes, as its
+// launch asks for it, out[1] = resident blocks per SM on this card.
+extern "C" int flash_info(int kind, int dtype, int hd, int* out) {
+  if (kind < 0 || kind > 3) return (int)cudaErrorInvalidValue;
+  return dispatch<Info>(dtype, hd, kind, out);
 }

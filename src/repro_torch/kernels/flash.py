@@ -3,9 +3,11 @@
 CUDA tensors run the hand-written kernels of ``csrc/flash.cu``, which
 replace the TPU kernels of ``repro/kernels/flash.py`` (``_flash_kernel``,
 ``_flash_fwd_stats_kernel``, ``_flash_bwd_dq_kernel``,
-``_flash_bwd_dkv_kernel``) and skip every fully masked (q tile, kv tile)
-pair; in bf16 the backward's five tile products run on the tensor cores,
-p and dS split into bf16 hi + lo pairs (see the note in ``flash.cu``).
+``_flash_bwd_dkv_kernel``) at head dims 64, 128 and 192 and skip every
+fully masked (q tile, kv tile) pair; in bf16 every tile product runs on
+the tensor cores as ``wgmma`` (the forward's softmax in registers between
+its two products, the backward's p and dS split into bf16 hi + lo pairs;
+see the note in ``flash.cu``).
 CPU tensors run the plain versions: :func:`flash_attention_plain`,
 the chunked online softmax of the reference's ``models/layers.py``
 ``_flash_attention`` in the kernels' layout and numerics, for the two
@@ -32,12 +34,63 @@ NEG_INF = -1e30
 
 # Chunk of the plain version: the reference model's chunk_q = chunk_kv.
 PLAIN_CHUNK = 1024
-# The kernels' q and kv tile.  The plain forward run at this chunk rounds p
-# at the same running maxima as the kernels.
+# The kernels' kv tile, at every head dim and in both dtypes.  The plain
+# forward run at this chunk rounds p at the same running maxima as the
+# kernels (a row's numerics do not depend on the q tile).
 KERNEL_TILE = 64
 
-# Head dims the kernels are instantiated for (Qwen3 128, TinyLlama 64).
-KERNEL_HEAD_DIMS = (64, 128)
+# Head dims the kernels are instantiated for (Qwen3 128, TinyLlama 64,
+# Nemotron-4 340B's 18432 / 96 = 192): every head dim of the configs in
+# ``repro_torch.configs`` that has attention.
+KERNEL_HEAD_DIMS = (64, 128, 192)
+
+# Shared memory a block may use on the H100 (227 KB), and what each kernel
+# instance takes (smem_bytes), as csrc/flash.cu counts it: a bf16 forward
+# block is fwd_warpgroups(hd) warpgroups on as many 64-row q tiles and
+# streams K and V through FWD_STAGES stages; the bf16 backward streams K
+# and V (dQ) or Q and dO (dK/dV) through STAGES stages.
+SMEM_LIMIT = 232448
+FWD_STAGES = 3
+STAGES = 2
+KERNELS = ("flash_fwd", "flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def fwd_warpgroups(hd: int) -> int:
+    """Warpgroups of a bf16 forward block (csrc/flash.cu ``fwd_wgs``)."""
+    return 2 if hd > 128 else 1
+
+
+def dq_warpgroups(hd: int) -> int:
+    """Warpgroups of a bf16 dQ block (csrc/flash.cu ``dq_wgs``)."""
+    return 2 if hd > 128 else 1
+
+
+def smem_bytes(kname: str, dtype: torch.dtype, hd: int) -> int:
+    """Dynamic shared memory a block of the ``kname`` kernel (one of
+    :data:`KERNELS`) takes for ``dtype`` at head dim ``hd``, in bytes: the
+    host's count of csrc/flash.cu's ``fwd_bytes``, ``dq_bytes`` and
+    ``dkv_bytes``, which :func:`kernel_info` checks against the kernel's
+    own at each instance's first launch."""
+    t = KERNEL_TILE
+    if kname not in KERNELS:
+        raise ValueError(f"unknown flash kernel {kname!r}")
+    if dtype == torch.bfloat16:
+        if kname.startswith("flash_fwd"):
+            return 2 * (fwd_warpgroups(hd) + 2 * FWD_STAGES) * t * hd + 1024
+        if kname == "flash_bwd_dq":       # Q and dO of each warpgroup
+            return 2 * (2 * dq_warpgroups(hd) + 2 * STAGES) * t * hd + 1024
+        return 2 * (2 + 2 * STAGES) * t * hd + 4 * 2 * STAGES * t + 1024
+    if dtype != torch.float32:
+        raise TypeError(f"the flash kernels take float32 or bfloat16, got "
+                        f"{dtype}")
+
+    def tile(rows, cols):                 # f32, one padding column
+        return 4 * rows * (cols + 1)
+    if kname.startswith("flash_fwd"):
+        return 2 * tile(t, hd) + tile(t, t)
+    if kname == "flash_bwd_dq":
+        return 3 * tile(t, hd) + tile(t, t)
+    return 4 * tile(t, hd) + 2 * tile(t, t) + 4 * 2 * t
 
 
 def has_kernel(hd: int) -> bool:
@@ -63,8 +116,7 @@ KERNEL_TOL = {torch.float32: (1e-5, 1e-4),
 
 # Kernel launches since the last reset_launches(), by kernel.  One call of a
 # wrapper launches each of its kernels once.
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_stats": 0,
-                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -231,7 +283,7 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
 def _rows16(t: torch.Tensor) -> torch.Tensor:
     """:func:`_rows`, and rows that start on 16 bytes (an aligned pointer,
     (batch, head, sequence) strides of whole 16-byte pieces), as the bf16
-    backward's 16-byte copies need; a copy only when they do not."""
+    kernels' 16-byte copies need; a copy only when they do not."""
     t = _rows(t)
     if t.data_ptr() % 16 or any(s * t.element_size() % 16
                                 for s in t.stride()[:3]):
@@ -259,7 +311,9 @@ def _launch_fwd(q, k, v, window: Optional[int],
     from repro_torch.kernels import build
     kname = "flash_fwd_stats" if stats else "flash_fwd"
     B, H, KV, S, hd = _check_inputs(q, k, v, kname)
-    q, k, v = _rows(q), _rows(k), _rows(v)
+    rows = _rows16 if q.dtype == torch.bfloat16 else _rows
+    q, k, v = rows(q), rows(k), rows(v)
+    _confirm(kname, q.dtype, hd)
     o = torch.empty_like(q)           # q's layout: a view of the same order
     lse = (torch.empty((B, KV, H // KV, S), dtype=torch.float32,
                        device=q.device) if stats else None)
@@ -283,6 +337,7 @@ def _bwd_args(q, k, v, do, lse, delta, what: str):
                          f"{tuple(delta.shape)}")
     q, k, v, do = (_rows16(t) for t in (q, k, v, do.to(q.dtype)))
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    _confirm(what, q.dtype, hd)
     return (q, k, v, do, lse, delta), (B, H, KV, S, hd)
 
 
@@ -331,17 +386,33 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, window: Optional[int] = None):
     return dk, dv
 
 
-def bwd_tc_info(hd: int) -> Dict[str, Dict[str, int]]:
-    """The bf16 backward kernels at head dim ``hd`` on the current card:
-    dynamic shared memory a block (bytes) and resident blocks per SM."""
+def kernel_info(kname: str, dtype: torch.dtype, hd: int) -> Dict[str, int]:
+    """The ``kname`` kernel instance for ``dtype`` at head dim ``hd`` on the
+    current card: the dynamic shared memory a block that its launch asks
+    for (bytes, the kernel's own count) and resident blocks per SM.  Raises
+    when that count is not the host's (:func:`smem_bytes`)."""
     from repro_torch.kernels import build
-    out = {}
-    for kname, dkv in (("flash_bwd_dq", 0), ("flash_bwd_dkv", 1)):
-        vals = (ctypes.c_int * 2)()
-        build.check("flash", build.library("flash").flash_bwd_tc_info(
-            hd, dkv, vals), f"{kname} info")
-        out[kname] = {"smem_bytes": vals[0], "blocks_per_sm": vals[1]}
-    return out
+    vals = (ctypes.c_int * 2)()
+    build.check("flash", build.library("flash").flash_info(
+        KERNELS.index(kname), _DTYPE_CODE[dtype], hd, vals), f"{kname} info")
+    want = smem_bytes(kname, dtype, hd)
+    if vals[0] != want:
+        raise RuntimeError(
+            f"{kname} ({dtype}, hd {hd}) asks for {vals[0]} bytes of shared "
+            f"memory, the host counted {want}: csrc/flash.cu and "
+            f"flash.smem_bytes disagree")
+    return {"smem_bytes": vals[0], "blocks_per_sm": vals[1]}
+
+
+# (kernel, dtype, hd) instances whose shared memory count the kernel has
+# confirmed (kernel_info), each once a process.
+_CHECKED: set = set()
+
+
+def _confirm(kname: str, dtype: torch.dtype, hd: int) -> None:
+    if (kname, dtype, hd) not in _CHECKED:
+        kernel_info(kname, dtype, hd)
+        _CHECKED.add((kname, dtype, hd))
 
 
 def flash_delta(o, do) -> torch.Tensor:

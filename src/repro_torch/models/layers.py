@@ -114,11 +114,12 @@ def _causal_mask(S: int, T: int, window: Optional[int], device=None):
 
 def _flash(q, k, v, window: Optional[int], backend: str):
     """The long branch: (B, S, H, hd) in and out, through the flash module
-    on transposed views (no copies: the kernels take strides).  A head dim
-    the kernels are not built for (``flash.has_kernel``) is decided from the
-    shape, before any launch: on CUDA tensors it raises NotImplementedError
-    (ROADMAP.md queue 2 item 8); CPU tensors take the plain version there,
-    as the wrappers do for every head dim on the CPU."""
+    on transposed views (no copies: the kernels take strides).  The kernels
+    are built for every head dim of the repo's configs
+    (``flash.KERNEL_HEAD_DIMS``); another head dim is decided from the
+    shape, before any launch: on CUDA tensors it raises
+    NotImplementedError, CPU tensors take the plain version there, as the
+    wrappers do for every head dim on the CPU."""
     hd = q.shape[-1]
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     needs_grad = torch.is_grad_enabled() and any(
@@ -130,8 +131,8 @@ def _flash(q, k, v, window: Optional[int], backend: str):
             raise NotImplementedError(
                 f"the flash kernels are built for head dims "
                 f"{flash.KERNEL_HEAD_DIMS}, not {hd}: sequences longer than "
-                f"{SDPA_MAX_SEQ} at this head dim wait for its kernels "
-                f"(ROADMAP.md queue 2 item 8); backend='ref' runs the plain "
+                f"{SDPA_MAX_SEQ} at this head dim need its instance in "
+                f"kernels/csrc/flash.cu; backend='ref' runs the plain "
                 f"attention")
         run = flash.flash_attention_plain
     elif needs_grad:

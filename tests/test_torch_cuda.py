@@ -391,6 +391,9 @@ FLASH = {
     # 32 kv tiles for the last q tile, 2 x 32 (head, q tile) stages for the
     # first kv tile: the bf16 backward's two-stage copy ring wraps many times
     "long_ring": (1, 16, 8, 2048, 128, None),
+    # Nemotron-4 340B's head dim and G = 12; ragged, with a window
+    "hd192": (1, 24, 2, 512, 192, None),
+    "hd192_ragged_window": (1, 12, 1, 200, 192, 64),
 }
 
 
@@ -437,6 +440,18 @@ def test_flash_kernels_match_plain(name, dtype):
                               "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
 
 
+@pytest.mark.parametrize("kname", flash.KERNELS)
+def test_flash_shared_memory_count_is_the_kernels(kname):
+    """Every instance asks for the shared memory the host counts
+    (flash.smem_bytes; kernel_info raises otherwise) and fits on an SM."""
+    requires_cuda()
+    for dt in (torch.float32, torch.bfloat16):
+        for hd in flash.KERNEL_HEAD_DIMS:
+            info = flash.kernel_info(kname, dt, hd)
+            assert info["smem_bytes"] == flash.smem_bytes(kname, dt, hd)
+            assert info["blocks_per_sm"] >= 1, (dt, hd, info)
+
+
 def test_flash_refuses_what_it_has_no_kernel_for():
     requires_cuda()
     q = torch.zeros((1, 2, 64, 32), device="cuda")
@@ -472,24 +487,52 @@ def test_long_prefill_and_gradient_run_the_kernels():
         assert _rel(g, w) <= 1e-4
 
 
-def test_long_branch_without_kernels_refuses_on_the_card():
-    """A dense config whose head dim has no kernel (192: d_model 768 over 4
-    heads, no head_dim, as Nemotron-4 340B's 18432 / 96): on the card the
-    long branch (S = 3072) raises NotImplementedError naming the ROADMAP
-    item, before any flash launch, for the forward and the gradient;
-    backend="ref" runs it, and the dense branch (S = 2048) runs on
-    "auto" and gives what backend="ref" gives."""
+def test_long_branch_at_hd192_runs_the_kernels():
+    """A dense config at Nemotron-4 340B's head dim 192 (d_model 768 over 4
+    heads, no head_dim, as its 18432 / 96): the long branch (S = 3072)
+    launches the forward kernel once per layer in prefill and the three
+    gradient kernels once per layer in a gradient, and both agree with
+    backend="ref"."""
     requires_cuda()
     cfg = ModelConfig(name="hd192", family="dense", n_layers=2, d_model=768,
                       n_heads=4, n_kv_heads=2, d_ff=256, vocab_size=512,
                       compute_dtype="float32")
-    assert cfg.resolved_head_dim == 192 and not flash.has_kernel(192)
+    assert cfg.resolved_head_dim == 192 and flash.has_kernel(192)
     params = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     toks = torch.randint(0, 512, (1, 3072), device="cuda")
     K.reset_launches()
-    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
+    lg = make_prefill_step(cfg)(params, {"tokens": toks})
+    assert K.launches()["flash_fwd"] == 2
+    assert _rel(lg, make_prefill_step(cfg, backend="ref")(params, {"tokens": toks})) <= 1e-4
+    leaves = [t.requires_grad_() for _, t in model._leaves(params)]
+    K.reset_launches()
+    got = torch.autograd.grad(model.loss_fn(cfg, params, {"tokens": toks}), leaves)
+    n = K.launches()
+    assert n["flash_fwd_stats"] == n["flash_bwd_dq"] == n["flash_bwd_dkv"] == 2, n
+    want = torch.autograd.grad(
+        model.loss_fn(cfg, params, {"tokens": toks}, backend="ref"), leaves)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-4
+
+
+def test_long_branch_without_kernels_refuses_on_the_card():
+    """A dense config whose head dim has no kernel (96: d_model 768 over 8
+    heads, no head_dim; no config of the port has it): on the card the long
+    branch (S = 3072) raises NotImplementedError naming the built head
+    dims, before any flash launch, for the forward and the gradient;
+    backend="ref" runs it, and the dense branch (S = 2048) runs on "auto"
+    and gives what backend="ref" gives."""
+    requires_cuda()
+    cfg = ModelConfig(name="hd96", family="dense", n_layers=2, d_model=768,
+                      n_heads=8, n_kv_heads=2, d_ff=256, vocab_size=512,
+                      compute_dtype="float32")
+    assert cfg.resolved_head_dim == 96 and not flash.has_kernel(96)
+    params = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, 512, (1, 3072), device="cuda")
+    K.reset_launches()
+    with pytest.raises(NotImplementedError, match="head dims"):
         make_prefill_step(cfg)(params, {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
+    with pytest.raises(NotImplementedError, match="head dims"):
         model.loss_fn(cfg, params, {"tokens": toks})
     assert all(K.launches()[k] == 0 for k in flash.LAUNCHES), K.launches()
     lg = make_prefill_step(cfg, backend="ref")(params, {"tokens": toks})

@@ -11,7 +11,7 @@ import torch
 from repro.kernels import flash as jflash
 from repro.models.layers import _flash_attention as jnp_chunked
 
-from repro_torch import kernels
+from repro_torch import configs, kernels
 from repro_torch.kernels import flash
 
 F32 = dict(rtol=2e-5, atol=2e-5)        # tests/test_flash.py's forward bound
@@ -42,9 +42,16 @@ def _j(*xs, dtype=jnp.float32):
     return [jnp.asarray(x, dtype) for x in xs]
 
 
-# tests/test_flash.py:18-22: GQA 2:1, MHA with rectangular blocks, MQA
+# tests/test_flash.py:18-22: GQA 2:1, MHA with rectangular blocks, MQA;
+# and Nemotron-4 340B's head dim 192 (G = 12 there, 3 here)
 SHAPES = [(1, 4, 2, 128, 32, 32, 32), (2, 2, 2, 256, 16, 64, 128),
-          (1, 8, 1, 128, 64, 64, 32)]
+          (1, 8, 1, 128, 64, 64, 32), (1, 6, 2, 128, 192, 64, 64)]
+
+# (window, head dim) of the gradient tests: the window cases at hd 32, as
+# tests/test_flash.py runs them, and again at hd 192
+GRAD_CASES = [pytest.param(None, 32, id="None"), pytest.param(48, 32, id="48"),
+              pytest.param(None, 192, id="None-hd192"),
+              pytest.param(48, 192, id="48-hd192")]
 
 
 @pytest.mark.parametrize("chunk", [flash.PLAIN_CHUNK, 32])
@@ -101,12 +108,12 @@ def test_lse_matches_pallas_stats(window):
 
 
 @pytest.mark.parametrize("chunk", [flash.PLAIN_CHUNK, 32])
-@pytest.mark.parametrize("window", [None, 48])
-def test_gradients_match_pallas_custom_vjp(window, chunk):
+@pytest.mark.parametrize("window,hd", GRAD_CASES)
+def test_gradients_match_pallas_custom_vjp(window, hd, chunk):
     """dq, dk, dv: autograd through the plain version against jax.grad of
     the reference's flash_attention_diff (its block-skipping backward
     kernels in interpret mode)."""
-    q, k, v = _qkv(1, 4, 2, 128, 32, seed=4)
+    q, k, v = _qkv(1, 4, 2, 128, hd, seed=4)
     do = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
     want = jax.grad(lambda *a: jnp.sum(jflash.flash_attention_diff(
         *a, window, 32, 32) * do), (0, 1, 2))(*_j(q, k, v))
@@ -125,12 +132,12 @@ def test_gradients_match_pallas_custom_vjp(window, chunk):
 
 
 @pytest.mark.parametrize("chunk", [flash.PLAIN_CHUNK, 32])
-@pytest.mark.parametrize("window", [None, 48])
-def test_backward_plain_matches_pallas_backward(window, chunk):
+@pytest.mark.parametrize("window,hd", GRAD_CASES)
+def test_backward_plain_matches_pallas_backward(window, hd, chunk):
     """The plain version of the two backward kernels, on their inputs (the
     forward's lse, delta = rowsum(dO o)), against the reference's backward
     kernels in interpret mode on the same inputs; the CPU wrappers run it."""
-    q, k, v = _qkv(1, 4, 2, 128, 32, seed=6)
+    q, k, v = _qkv(1, 4, 2, 128, hd, seed=6)
     do = np.random.default_rng(7).normal(size=q.shape).astype(np.float32)
     jq, jk, jv = _j(q, k, v)
     o_j, lse_j = jflash._fwd_with_stats(jq, jk, jv, window, 32, 32)
@@ -193,9 +200,32 @@ def test_strided_views_and_no_launch_on_cpu():
 
 def test_has_kernel_names_the_built_head_dims():
     """``has_kernel`` is the one decision: the wrappers and, on the card,
-    the model's long branch refuse the head dims it rejects."""
+    the model's long branch refuse the head dims it rejects.  The kernels
+    are built for 64, 128 and 192, which covers every config of the port
+    that has attention (Nemotron-4 340B's 18432 / 96 is the 192)."""
+    assert flash.KERNEL_HEAD_DIMS == (64, 128, 192)
     assert all(flash.has_kernel(hd) for hd in flash.KERNEL_HEAD_DIMS)
-    assert not any(flash.has_kernel(hd) for hd in (32, 80, 96, 192, 256))
+    assert not any(flash.has_kernel(hd) for hd in (32, 80, 96, 256))
+    for arch in configs.ARCHS:
+        cfg = configs.get(arch)
+        if cfg.family != "ssm":
+            assert flash.has_kernel(cfg.resolved_head_dim), arch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kname", flash.KERNELS)
+def test_every_instance_fits_a_block_of_shared_memory(kname, dtype):
+    """Each kernel instance's shared memory, as the host counts it (the
+    card checks the kernel's own count against it at the first launch), at
+    every built head dim: under the 227 KB a block may use (the f32 dK/dV
+    at hd 192, four (64, 193) f32 tiles and two (64, 65) score tiles, by
+    1,024 bytes)."""
+    got = [flash.smem_bytes(kname, dtype, hd) for hd in flash.KERNEL_HEAD_DIMS]
+    assert all(0 < b <= flash.SMEM_LIMIT for b in got), got
+    with pytest.raises(ValueError):
+        flash.smem_bytes("flash", dtype, 64)
+    with pytest.raises(TypeError):
+        flash.smem_bytes(kname, torch.float16, 64)
 
 
 def test_bwd_inputs_start_rows_on_16_bytes():

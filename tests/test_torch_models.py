@@ -182,14 +182,15 @@ def test_long_branch_forward_and_gradient_match_reference():
 
 
 def test_long_branch_at_a_head_dim_without_kernels_matches_reference():
-    """Head dim 192 (Nemotron-4 340B's 18432 / 96), which the flash
-    kernels are not built for: on CPU tensors the port's long branch (S =
-    3072, 4 query heads over 2 kv heads) takes the plain version, forward
-    and gradient (on the card it refuses), and matches the reference's chunked jnp attention
-    (``layers._flash_attention``), which takes any head dim.  The gradients
-    are compared relative to each one's largest entry."""
+    """Head dim 192 (Nemotron-4 340B's 18432 / 96): on CPU tensors the
+    port's long branch (S = 3072, 4 query heads over 2 kv heads) takes the
+    plain version, forward and gradient (on the card it launches the
+    kernels' hd-192 instances, tests/test_torch_cuda.py), and matches the
+    reference's chunked jnp attention (``layers._flash_attention``), which
+    takes any head dim.  The gradients are compared relative to each one's
+    largest entry."""
     B, S, H, KV, hd = 1, 3072, 4, 2, 192
-    assert not flash.has_kernel(hd)
+    assert flash.has_kernel(hd)
     rng = np.random.default_rng(5)
     q, k, v, do = (rng.normal(size=(B, S, n, hd)).astype(np.float32)
                    for n in (H, KV, KV, H))
