@@ -95,14 +95,17 @@ path through the public API at the paper's sizes:
 
 After the build it prints ptxas's registers and spills of every flash
 kernel instance (four kernels, f32 and bf16, hd 64, 128 and 192) and of
-the eight cone-family FP instances (nvcc runs with ``-Xptxas=-v``) and,
-from the card, their shared memory a block (the kernel's own count, held
-against the host's) and resident blocks per SM (the FP's with its tile at
-the cone and helical cells).  Each cone-family FP row carries the thread-per-output FP's time
-of run 15I (``FP_15I_MS``) beside its own.  After the kernel phase it
-builds the FP with its phase profile compiled in (``-DSF_FP_PHASES``) and
-prints, per cell, each phase's share of the cycles and the passes,
-survivors and (survivor, slice) pairs.
+the eight cone-family FP and eight BP instances (nvcc runs with
+``-Xptxas=-v``) and, from the card, their shared memory a block (the
+FP's and flash's own count, held against the host's) and resident blocks
+per SM (the FP's with its tile at the cone and helical cells).  Each
+cone-family FP row carries the thread-per-output FP's time of run 15I
+(``FP_15I_MS``) beside its own, each BP row the time of the BP before its
+redesign (``BP_PARENT_MS``).  After the kernel phase it builds the FP and
+BP with their phase profiles compiled in (``-DSF_FP_PHASES
+-DSF_BP_PHASES``) and prints, per cell, each phase's share of the cycles
+and the FP's passes, survivors and (survivor, slice) pairs and the BP's
+dropped thread-views, columns and terms.
 
     python3 chip_smoke.py --cells cone128,cone128_dv1.5
 
@@ -177,6 +180,34 @@ FP_15I_MS = {
 FP_15I_PATH_MS = {"cone_fp": 4311.29296875, "helical_fp": 554.047119140625,
                   "fp_modular_sf_spt1": 363.3875732421875,
                   "fp_modular_sf_spt8": 516.4280395507812}
+
+# The cone-family BP before its redesign (one thread per gi and 8 or 4 z
+# slices, a warp along z), as this script measured it on an NVIDIA H100
+# 80GB HBM3 at 700.00 W (PERF.md: the kernel-phase cells in run 18A, the
+# whole helical cell, cone_edges and the paths in run 17N, whose BP was
+# the same): ms by (cell, dtype), and on the paths, printed beside this
+# run's.
+BP_PARENT_MS = {
+    ("cone128", "float32"): 13.259007930755615,
+    ("cone128", "bfloat16"): 7.483328104019165,
+    ("cone128_dv1.5", "float32"): 12.16974401473999,
+    ("cone128_dv1.5", "bfloat16"): 8.049647808074951,
+    ("cone", "float32"): 32.24126434326172,
+    ("cone", "bfloat16"): 21.97065544128418,
+    ("cone_edges", "float32"): 127.2787857055664,
+    ("helical", "float32"): 290.52020263671875,
+    ("helical_cut", "float32"): 33.73012733459473,
+    ("helical_cut", "bfloat16"): 34.91734313964844,
+    ("modular_wobbly", "float32"): 11.42083215713501,
+    ("modular_wobbly", "bfloat16"): 6.9897119998931885,
+    ("modular_wobbly_dv1.5", "float32"): 10.89799976348877,
+    ("modular_wobbly_dv1.5", "bfloat16"): 8.004816055297852,
+    ("cone_as_modular", "float32"): 32.275630950927734,
+    ("cone_as_modular", "bfloat16"): 21.905375480651855,
+}
+BP_PARENT_PATH_MS = {"cone_bp": 4063.33642578125, "helical_bp": 290.77862548828125,
+                     "bp_modular_sf_spt1": 120.34630584716797,
+                     "bp_modular_sf_spt8": 252.33856201171875}
 
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
 FLASH_REPLACES = {"flash_fwd": "src/repro/kernels/flash.py:55",
@@ -500,11 +531,14 @@ def kernel_phase(torch, cells, results):
                        f"not built: {nnz} nonzeros > {LIB_NNZ_MAX} (int32 CSR)"}
                 if kname in ("fp_cone_sf", "fp_modular_sf"):
                     row["ms_15I"] = FP_15I_MS.get((cell, name))
+                if kname in ("bp_cone_sf", "bp_modular_sf"):
+                    row["ms_parent"] = BP_PARENT_MS.get((cell, name))
                 results["kernels"].append(row)
                 log(f"kernel {kname:10s} {cell:10s} {name:8s} rel_err {err:.3g} "
                     f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms} "
                     f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})"
-                    + (f" 15I_ms {row['ms_15I']}" if row.get("ms_15I") else ""))
+                    + (f" 15I_ms {row['ms_15I']}" if row.get("ms_15I") else "")
+                    + (f" parent_ms {row['ms_parent']}" if row.get("ms_parent") else ""))
         del x_f32, x, q
         torch.cuda.empty_cache()
         results["phase_s"][f"kernels {cell}"] = time.perf_counter() - t_cell
@@ -822,12 +856,14 @@ def cone_path(torch, results):
     t_ops = 2.0 * nnz / PEAK_OPS["float32"] * 1e3
     results["cone"] = {"dot": rel, "fp_first_s": t_fp, "bp_first_s": t_bp,
                        "fp_ms": fp_ms, "fp_ms_15I": FP_15I_PATH_MS["cone_fp"],
-                       "bp_ms": bp_ms, "fdk_s": t_fdk,
+                       "bp_ms": bp_ms, "bp_ms_parent": BP_PARENT_PATH_MS["cone_bp"],
+                       "fdk_s": t_fdk,
                        "fdk_centre_rel": centre / 0.02 - 1.0, "nnz": nnz,
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     log(f"cone 512^3/180 views: FP {fp_ms:.1f} ms (15I: "
-        f"{FP_15I_PATH_MS['cone_fp']:.1f}), BP {bp_ms:.1f} ms, nnz {nnz}, "
+        f"{FP_15I_PATH_MS['cone_fp']:.1f}), BP {bp_ms:.1f} ms (parent: "
+        f"{BP_PARENT_PATH_MS['cone_bp']:.1f}), nnz {nnz}, "
         f"bound {max(t_bytes, t_ops):.4f} ms; FDK {t_fdk:.2f} s, cylinder centre "
         f"{centre:.6f} (rel {centre / 0.02 - 1.0:.4f})")
     check(abs(centre / 0.02 - 1.0) < 0.05, "FDK cylinder centre off by >= 5 %")
@@ -864,6 +900,7 @@ def helical_path(torch, results):
     out["fp_ms"] = cuda_ms(torch, lambda: proj(x), reps=3, warmup=0)
     out["fp_ms_15I"] = FP_15I_PATH_MS["helical_fp"]
     out["bp_ms"] = cuda_ms(torch, lambda: proj.T(sino), reps=3, warmup=0)
+    out["bp_ms_parent"] = BP_PARENT_PATH_MS["helical_bp"]
 
     xg = (0.5 * x).requires_grad_()
     loss = 0.5 * torch.sum((proj(xg) - sino) ** 2)
@@ -922,7 +959,7 @@ def helical_path(torch, results):
     del x_dc, completed, x_sirt
     out["path_s"] = time.perf_counter() - t_start
     log(f"helical FP {out['fp_ms']:.1f} ms (15I: {out['fp_ms_15I']:.1f}), BP "
-        f"{out['bp_ms']:.1f} ms (batch 8); "
+        f"{out['bp_ms']:.1f} ms (parent: {out['bp_ms_parent']:.1f}) (batch 8); "
         f"SIRT-30 {out['sirt_psnr']:.2f} dB ({out['sirt30_s']:.2f} s), CGLS-20 "
         f"{out['cgls_psnr']:.2f} dB ({out['cgls20_s']:.2f} s, residual ratio "
         f"{out['cgls_residual_ratio']:.3g}), FISTA-TV-30 {out['fista_tv_psnr']:.2f} dB "
@@ -1066,9 +1103,10 @@ def instance_times(torch, results) -> None:
         rel = rel_err(got[8], got[1])
         out[f"{kname}_bit_equal"] = bool(torch.equal(got[8], got[1]))
         check(rel < 1e-6, f"{kname} batch 1: 8-sample instance vs 1-sample {rel:.3g}")
-        was = ("" if kname != "fp_modular_sf" else
-               f" (15I: {FP_15I_PATH_MS['fp_modular_sf_spt1']:.1f} and "
-               f"{FP_15I_PATH_MS['fp_modular_sf_spt8']:.1f})")
+        was = (f" (15I: {FP_15I_PATH_MS['fp_modular_sf_spt1']:.1f} and "
+               f"{FP_15I_PATH_MS['fp_modular_sf_spt8']:.1f})" if kname == "fp_modular_sf"
+               else f" (parent: {BP_PARENT_PATH_MS['bp_modular_sf_spt1']:.1f} and "
+               f"{BP_PARENT_PATH_MS['bp_modular_sf_spt8']:.1f})")
         log(f"{kname} batch 1 on the helical cell: 1 sample per thread "
             f"{out[f'{kname}_spt1_ms']:.1f} ms, 8 per thread "
             f"{out[f'{kname}_spt8_ms']:.1f} ms{was} (bit-equal "
@@ -1110,6 +1148,33 @@ def fp_build_report(results) -> None:
             f"stores, {r['spill_loads']} bytes spill loads, {r['stack']} bytes stack; "
             f"tile {r['tile_rows']} x {r['tile_cols']}, {r['smem_bytes']} bytes dynamic "
             f"shared a block, {r['blocks_per_sm']} blocks per SM")
+
+
+def bp_build_report(results) -> None:
+    """ptxas's registers and spills of the eight cone-family BP instances
+    (from the build's log) and, on this card, each one's block, z slices a
+    thread and resident blocks per SM (its shared memory is static)."""
+    import re
+    import torch
+    from repro_torch.kernels import build, fp_cone
+    rows = {}
+    for lib in ("fp_cone", "fp_modular"):
+        fam = lib.split("_")[1]
+        for mangled, rep in build.ptxas_report(lib).items():
+            m = re.search(rf"(bp_{fam}_sf_kernel)I(f|13__nv_bfloat16)Li(\d)E", mangled)
+            if not m:
+                continue
+            dtype = torch.float32 if m.group(2) == "f" else torch.bfloat16
+            spt = int(m.group(3))
+            key = f"{m.group(1)}<{str(dtype)[6:]}, {spt}>"
+            rows[key] = dict(rep, **fp_cone.bp_info(lib, dtype, spt))
+    check(len(rows) == 8, f"ptxas report of the cone-family BP kernels: {sorted(rows)}")
+    results["bp_sf_build"] = rows
+    for k, r in sorted(rows.items()):
+        log(f"ptxas {k}: {r['registers']} registers, {r['spill_stores']} bytes spill "
+            f"stores, {r['spill_loads']} bytes spill loads, {r['stack']} bytes stack, "
+            f"{r['smem']} bytes static shared; {r['threads']} threads, "
+            f"{r['z_slices_a_thread']} z slices a thread, {r['blocks_per_sm']} blocks per SM")
 
 
 # Detector row pitches (mm) at which the cone-family FP's division is held
@@ -1192,6 +1257,58 @@ def fp_phases(torch, cells, results) -> None:
             f"{row['rounds_a_pass']:.2f} rounds")
         del x
     results["fp_phases"] = out
+
+
+BP_PHASES = ("axial", "trapezoid", "columns")
+
+
+def bp_phases(torch, cells, results) -> None:
+    """Where the cone-family BP's cycles go, from its build with the phase
+    profile compiled in (csrc/cone_sf.cuh SF_BP_PHASES): per cell of
+    FP_PHASE_CELLS, the instrumented kernel's time, each phase's share of
+    every thread's cycles in its view loop, the share of thread-views
+    dropped before their trapezoid, and per thread-view that reached it the
+    columns with wu != 0 and the (column, slice, row) terms."""
+    import ctypes
+    from repro_torch.kernels import build, fp_cone
+    fams = families()
+    out = {}
+    for cell in FP_PHASE_CELLS:
+        if cell not in cells:
+            continue
+        c = cells[cell]
+        lib = f"fp_{c.family}"
+        kname = f"bp_{c.family}_sf"
+        plan = fams[c.family]["plan"](c.geom)
+        y = fams[c.family]["fp"](c.make_x(), plan)
+        read = getattr(build.library(lib, "phases"), f"{lib}_phases_read")
+        sums = (ctypes.c_ulonglong * 8)()
+
+        def run():
+            return fp_cone.launch(lib, kname, y, plan, {kname: 0}, variant="phases")
+
+        run()
+        torch.cuda.synchronize()
+        build.check(lib, read(sums), "phases read")          # zero the sums
+        run()
+        torch.cuda.synchronize()
+        build.check(lib, read(sums), "phases read")
+        v = list(sums)
+        cycles = max(sum(v[:3]), 1)
+        reached = max(v[4], 1)
+        row = {"ms": cuda_ms(torch, run, reps=5, warmup=1),
+               "shares": {p: v[i] / cycles for i, p in enumerate(BP_PHASES)},
+               "thread_views": v[4] + v[5],
+               "dropped_share": v[5] / max(v[4] + v[5], 1),
+               "columns_a_view": v[6] / reached, "terms_a_view": v[7] / reached}
+        out[cell] = row
+        log(f"bp phases {cell}: {row['ms']:.3f} ms (instrumented); cycle shares "
+            + ", ".join(f"{p} {x:.3f}" for p, x in row["shares"].items())
+            + f"; {row['thread_views']} thread-views, {row['dropped_share']:.3f} dropped "
+            f"before the trapezoid, a view {row['columns_a_view']:.2f} columns, "
+            f"{row['terms_a_view']:.2f} terms")
+        del y
+    results["bp_phases"] = out
 
 
 def flash_build_report(torch, results) -> None:
@@ -1773,6 +1890,9 @@ def projector_phases(torch, results, only=None) -> dict:
     fp_phases(torch, cells, results)
     results["phase_s"]["fp phases"] = time.perf_counter() - t
     t = time.perf_counter()
+    bp_phases(torch, cells, results)
+    results["phase_s"]["bp phases"] = time.perf_counter() - t
+    t = time.perf_counter()
     instance_times(torch, results)
     results["phase_s"]["instances"] = time.perf_counter() - t
 
@@ -1852,6 +1972,7 @@ def main() -> int:
     log(f"build {results['build_s']:.1f} s")
     flash_build_report(torch, results)
     fp_build_report(results)
+    bp_build_report(results)
     if only is None:
         fp_division_check(torch, results)
 

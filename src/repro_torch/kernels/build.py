@@ -13,9 +13,10 @@ stale library is never loaded, with nvcc's output beside it
 (``<name>-<hash>.log``: ptxas's registers, spills and shared memory of
 every kernel, read by :func:`ptxas_report`).  A variant of a library is
 the same source built with more flags into ``<name>-<variant>-<hash>.so``:
-``"phases"`` compiles in the cone-family FP's phase profile
-(``-DSF_FP_PHASES``, csrc/cone_sf.cuh), which the kernels the port runs
-never carry.  Without ``nvcc`` this raises: there is no fallback.
+``"phases"`` compiles in the cone-family FP's and BP's phase profiles
+(``-DSF_FP_PHASES``, ``-DSF_BP_PHASES``, csrc/cone_sf.cuh), which the
+kernels the port runs never carry.  Without ``nvcc`` this raises: there
+is no fallback.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 # extra nvcc flags by variant ("" is the library the port runs)
-VARIANTS = {"": [], "phases": ["-DSF_FP_PHASES"]}
+VARIANTS = {"": [], "phases": ["-DSF_FP_PHASES", "-DSF_BP_PHASES"]}
 
 _LIBS: Dict[Tuple[str, str], ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -85,7 +86,7 @@ _SIGNATURES = {
             _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int,
             _c.c_longlong, _c.c_longlong, _c.c_int, _c.c_int, _c.c_float,
             _c.c_float, _c.c_float, _c.c_float, _c.c_float, _c.c_float,
-            _c.c_float, _c.c_float, _c.c_int, _c.c_void_p],
+            _c.c_float, _c.c_float, _c.c_int, _c.c_int, _c.c_void_p],
     },
 }
 # The flash kernels: (dtype, hd[, stats]), the tensors, a host array of
@@ -107,6 +108,9 @@ _SIGNATURES["flash"] = {
 _SIGNATURES["fp_cone"]["fp_cone_sf_info"] = [
     _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
     _c.POINTER(_c.c_int), _c.POINTER(_c.c_int)]
+# The BP's blocks per SM: (dtype, spt, out blocks).
+_SIGNATURES["fp_cone"]["bp_cone_sf_info"] = [_c.c_int, _c.c_int,
+                                             _c.POINTER(_c.c_int)]
 # The FP's division against __fdiv_rn: (dv, lo, hi, device counter, stream).
 _SIGNATURES["fp_cone"]["fp_cone_div_check"] = [
     _c.c_float, _c.c_uint, _c.c_uint, _c.c_void_p, _c.c_void_p]
@@ -116,6 +120,7 @@ _SIGNATURES["fp_modular"] = {
     "fp_modular_sf_launch": _SIGNATURES["fp_cone"]["fp_cone_sf_launch"],
     "bp_modular_sf_launch": _SIGNATURES["fp_cone"]["bp_cone_sf_launch"],
     "fp_modular_sf_info": _SIGNATURES["fp_cone"]["fp_cone_sf_info"],
+    "bp_modular_sf_info": _SIGNATURES["fp_cone"]["bp_cone_sf_info"],
 }
 
 

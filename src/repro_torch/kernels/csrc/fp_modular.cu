@@ -12,7 +12,9 @@
 // 6 rows and 168 columns) and loops over li itself, forming each transaxial
 // weight and slice extent once in shared memory; a voxel whose slices miss
 // the tile's rows, as most do under a moving source, is dropped before its
-// trapezoid.  The BP's thread owns its voxels.  No atomics on the outputs.
+// trapezoid.  The BP's thread owns its voxels, in warps of 32 neighbouring
+// gathered voxels, and drops a view whose slices miss the rows before its
+// trapezoid.  No atomics on the outputs.
 //
 // The exact cone pair (fp_cone.cu) with per-view frames: the bodies are
 // cone_sf.cuh's on the modular axial map (ModularAxial: each view's
@@ -33,7 +35,7 @@ __global__ void __launch_bounds__(SF_FP_THREADS, SfFpBlocks<BPT>::value)
 }
 
 template <typename T, int BPT>
-__global__ void __launch_bounds__(SF_THREADS, 4)
+__global__ void __launch_bounds__(SF_THREADS, SfBpBlocks<BPT>::value)
     bp_modular_sf_kernel(const SfArgs p, const T* __restrict__ q,
                          float* __restrict__ out) {
   sf_bp<ModularAxial, T, BPT>(p, q, out);
@@ -41,15 +43,17 @@ __global__ void __launch_bounds__(SF_THREADS, 4)
 
 struct ModularKernels {
   template <typename T, int BPT>
-  static void run(bool fp, const SfArgs& p, const void* in, void* out,
-                  cudaStream_t s) {
-    sf_run<BPT>(fp, fp_modular_sf_kernel<T, BPT>,
-                bp_modular_sf_kernel<T, BPT>, p, (const T*)in, (float*)out, s);
+  static cudaError_t run(bool fp, const SfArgs& p, const void* in, void* out,
+                         cudaStream_t s) {
+    return sf_run<BPT>(fp, fp_modular_sf_kernel<T, BPT>,
+                       bp_modular_sf_kernel<T, BPT>, p, (const T*)in,
+                       (float*)out, s);
   }
 };
 
-#ifdef SF_FP_PHASES
-// The FP's phase sums (cone_sf.cuh SF_FP_PHASES) into host[8], zeroed after.
+#if defined(SF_FP_PHASES) || defined(SF_BP_PHASES)
+// The phase sums of the FP or BP launched last (cone_sf.cuh SF_FP_PHASES,
+// SF_BP_PHASES) into host[8], zeroed after.
 extern "C" int fp_modular_phases_read(void* host) {
   return sf_phases_read((unsigned long long*)host);
 }
@@ -76,7 +80,7 @@ extern "C" int fp_modular_sf_launch(int dtype, int spt, const void* table,
   if (n_views == 0 || batch == 0) return 0;
   const SfArgs p = {(const float*)table, (const int*)rows, n_views, na, batch,
                     ng, nl, nz, gs, ls, nu, nv, e0, du, ev0, dv, z0, dz, sdd,
-                    dxv, hw, 0, tv, ncap, smax, emax};
+                    dxv, hw, 0, tv, ncap, smax, emax, 0};
   return sf_launch<ModularKernels>(true, dtype, spt, p, f, out,
                                    (cudaStream_t)stream);
 }
@@ -109,11 +113,21 @@ extern "C" int bp_modular_sf_launch(int dtype, int spt, const void* table,
                                     int nu, int nv, float e0, float du,
                                     float ev0, float dv, float z0, float dz,
                                     float sdd, float dxv, int accumulate,
-                                    void* stream) {
+                                    int bp_rows, void* stream) {
   if (batch == 0) return 0;
   const SfArgs p = {(const float*)table, (const int*)rows, n_views, na, batch,
                     ng, nl, nz, gs, ls, nu, nv, e0, du, ev0, dv, z0, dz, sdd,
-                    dxv, 0.0f, accumulate};
+                    dxv, 0.0f, accumulate, 0, 0, 0, 0, bp_rows};
   return sf_launch<ModularKernels>(false, dtype, spt, p, q, out,
                                    (cudaStream_t)stream);
+}
+
+// Resident blocks per SM (*blocks) of the BP instance (dtype 0 = float32,
+// 1 = bfloat16; spt 1 or 8) on this card.
+extern "C" int bp_modular_sf_info(int dtype, int spt, int* blocks) {
+  if (dtype == 0)
+    return spt == 8 ? sf_bp_occupancy(bp_modular_sf_kernel<float, 8>, blocks)
+                    : sf_bp_occupancy(bp_modular_sf_kernel<float, 1>, blocks);
+  return spt == 8 ? sf_bp_occupancy(bp_modular_sf_kernel<__nv_bfloat16, 8>, blocks)
+                  : sf_bp_occupancy(bp_modular_sf_kernel<__nv_bfloat16, 1>, blocks);
 }

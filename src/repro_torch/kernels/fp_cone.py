@@ -29,7 +29,10 @@ bit-identical to the reference package's.
 
 The FP kernel gives a block an output tile and walks the tile's voxels in
 passes through shared memory; :func:`fp_layout` sizes the tile and the
-buffers from the plan.  Curved-detector cone is not ported (ROADMAP.md
+buffers from the plan.  The BP kernel gives a thread 4 z slices of one
+voxel, in warps of 32 neighbouring gathered voxels, and keeps each
+slice's axial weights for a view; :func:`bp_layout` bounds the rows a
+slice meets.  Curved-detector cone is not ported (ROADMAP.md
 queue 1): its plan raises.  Each kernel wrapper counts its launches in
 :data:`LAUNCHES`.
 """
@@ -224,6 +227,7 @@ class ConePlan:
         self.dxv = _f32(v.dx)
         self._on: Dict[str, _DeviceTables] = {}
         self._layouts: Dict[int, "FpLayout"] = {}
+        self._bp_layout: Optional["BpLayout"] = None
 
     def axial(self, table: torch.Tensor, ell: torch.Tensor, rt2: torch.Tensor,
               zt: torch.Tensor):
@@ -483,6 +487,66 @@ def fp_layout(plan: ConePlan, spt: int) -> FpLayout:
     return out
 
 
+# The BP's block (csrc/cone_sf.cuh SF_THREADS): warps of 32 gathered voxels,
+# one li line each; the axial weights a slice keeps a view (SF_BP_ROWS); z
+# slices a thread (SF_BP_ZPT); blocks an SM by samples a thread (SfBpBlocks).
+BP_THREADS = 128
+BP_ROWS = 4
+BP_ZPT = 4
+BP_BLOCKS = {1: 5, 8: 4}
+
+
+@dataclasses.dataclass(frozen=True)
+class BpLayout:
+    """The BP kernel's bound for one plan (:func:`bp_layout`): ``rows``, the
+    detector rows one slice's extent can meet with a positive overlap."""
+    rows: int
+
+    @property
+    def cached(self) -> bool:
+        """Whether the kernel keeps each slice's axial weights, formed once
+        a view (``rows <= BP_ROWS``), or forms each in its column loop."""
+        return self.rows <= BP_ROWS
+
+
+def bp_layout(plan: ConePlan) -> BpLayout:
+    """Bound the rows a slice meets, for the BP kernel on ``plan`` (cone or
+    modular): a slice of height dz lands on the detector at |mag| <=
+    mag_max, an interval at most dz mag_max long, which meets at most
+    floor(dz mag_max / dv) + 2 rows of pitch dv.  Neither the block nor a
+    buffer depends on it, so no geometry is refused for it: past BP_ROWS
+    the kernel forms each axial weight in its column loop instead of
+    keeping it (and a slice past the bound writes NaN).  Raises for a row
+    pitch outside FP_DV_RANGE, where the kernels' exact division is not
+    proven."""
+    if plan._bp_layout is not None:
+        return plan._bp_layout
+    if not FP_DV_RANGE[0] <= plan.dv <= FP_DV_RANGE[1]:
+        raise ValueError(
+            f"the cone-family BP kernel divides by the row pitch exactly "
+            f"for pitches in {FP_DV_RANGE} mm, got {plan.dv}")
+    plan._bp_layout = BpLayout(min(plan.geom.n_rows, math.floor(
+        plan.dz * plan.mag_bounds[1] / plan.dv + 1e-3) + 2))
+    return plan._bp_layout
+
+
+def bp_info(lib_name: str, dtype: torch.dtype, spt: int) -> Dict[str, int]:
+    """The BP kernel instance of library ``lib_name`` (the cone or the
+    modular pair) for ``dtype`` tiles and ``spt`` samples a thread, on this
+    card: its block (threads), z slices a thread and resident blocks per SM
+    (its shared memory is static)."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fp_par import _DTYPE_CODE
+    fam = lib_name.split("_")[1]
+    blocks = ctypes.c_int(0)
+    info = getattr(build.library(lib_name), f"bp_{fam}_sf_info")
+    build.check(lib_name, info(_DTYPE_CODE[dtype], spt, ctypes.byref(blocks)),
+                f"bp_{fam}_sf info")
+    return {"threads": BP_THREADS, "z_slices_a_thread": BP_ZPT,
+            "blocks_per_sm": blocks.value}
+
+
 def fp_info(lib_name: str, plan: ConePlan, dtype: torch.dtype,
             spt: int) -> Dict[str, int]:
     """The FP kernel instance of library ``lib_name`` (the cone or the
@@ -542,10 +606,11 @@ def launch(lib_name: str, kname: str, x: torch.Tensor, plan: ConePlan,
     cone or the modular pair) once per non-empty view group on the CUDA
     tensor ``x``, adding one to ``counts[kname]`` per launch.  The FP's last
     arguments are the footprint half-width bound and its :func:`fp_layout`;
-    the BP's says whether to add into the output (the second group) or
-    overwrite it.  ``spt`` (samples per thread, 1 or 8) defaults to
-    :func:`samples_per_thread`; ``variant`` names a build of the library
-    (``build.VARIANTS``: the phase profile)."""
+    the BP's say whether to add into the output (the second group) or
+    overwrite it, and give its :func:`bp_layout` row bound.  ``spt``
+    (samples per thread, 1 or 8) defaults to :func:`samples_per_thread`;
+    ``variant`` names a build of the library (``build.VARIANTS``: the phase
+    profiles)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.fp_par import _DTYPE_CODE, _check_tile
     geom = plan.geom
@@ -564,6 +629,8 @@ def launch(lib_name: str, kname: str, x: torch.Tensor, plan: ConePlan,
         if (lib_name, x.dtype, spt, lay) not in _CHECKED:
             fp_info(lib_name, plan, x.dtype, spt)
             _CHECKED.add((lib_name, x.dtype, spt, lay))
+    else:
+        bp_rows = bp_layout(plan).rows
     accumulate = 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -578,7 +645,7 @@ def launch(lib_name: str, kname: str, x: torch.Tensor, plan: ConePlan,
                 x.data_ptr(), out.data_ptr(), ng, nl, geom.vol.nz, gs, ls,
                 geom.n_cols, geom.n_rows, plan.e0, plan.du, plan.ev0, plan.dv,
                 plan.z0, plan.dz, plan.sdd, plan.dxv,
-                *(tail if fp else (accumulate,)), stream)
+                *(tail if fp else (accumulate, bp_rows)), stream)
             build.check(lib_name, rc, f"{kname} launch")
             counts[kname] += 1
             accumulate = 1

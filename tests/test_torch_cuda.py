@@ -382,6 +382,126 @@ def test_fp_phase_build_gives_the_same_sums(name):
     assert torch.equal(got, want)
 
 
+def _bp_cases():
+    """The BP's traps: the FP's tile cases, and a cone of 0.25 mm rows, of
+    which one slice meets up to 11 (more than the ``BP_ROWS`` axial weights
+    a slice keeps in registers), so that it runs the body that forms each
+    axial weight in its column loop."""
+    cases = _fp_tile_cases()
+    cases["fine_rows"] = ("cone", cone_beam(
+        5, 40, 30, VolumeGeometry(12, 12, 10), sod=60.0, sdd=120.0,
+        pixel_width=1.0, pixel_height=0.25))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 3, 9])
+@pytest.mark.parametrize("name", ["tiles_edges", "pole", "wobbly", "helical",
+                                  "fine_rows"])
+def test_bp_tiles_match_plain_and_both_instances(name, batch, dtype):
+    """The cone-family BP at the view-group edges, on ragged warps of
+    gathered voxels, at the pole of the gather map, under signed
+    magnification, a moving source and fine rows, at batch 1, 3 and 9
+    (ragged against the 8 samples a thread): both instances against the
+    plain version (2e-4 in f32, BF16_KERNEL_REL_TOL in bf16) and bit-equal
+    to each other; in f32 the dot test against the FP (< 1e-4)."""
+    requires_cuda()
+    family, g = _bp_cases()[name]
+    plan, lib, fname = _fp_family(family, g)
+    kname = f"bp_{family}_sf"
+    assert fp_cone.bp_layout(plan).cached == (name != "fine_rows")
+    gen = torch.Generator(device="cuda").manual_seed(batch)
+    dt = getattr(torch, dtype)
+    y = torch.randn((batch,) + g.sino_shape, generator=gen, device="cuda").to(dt)
+    tally = {kname: 0, fname: 0}
+    got = {spt: fp_cone.launch(lib, kname, y, plan, tally, spt=spt) for spt in (1, 8)}
+    torch.cuda.synchronize()
+    want = fp_cone.bp_batch_plain(y, plan)
+    tol = 2e-4 if dtype == "float32" else precision.BF16_KERNEL_REL_TOL
+    for spt, out in got.items():
+        assert bool(torch.isfinite(out).all()), spt
+        assert _rel(out, want) <= tol, (spt, _rel(out, want))
+    assert torch.equal(got[1], got[8])
+    if dtype == "float32":
+        x = torch.randn((batch,) + g.vol.shape, generator=gen, device="cuda")
+        ax = fp_cone.launch(lib, fname, x, plan, tally)
+        lhs = float((ax.double() * y.double()).sum())
+        rhs = float((x.double() * got[8].double()).sum())
+        assert abs(lhs - rhs) / abs(lhs) < 1e-4
+    assert tally[kname] >= 2
+
+
+@pytest.mark.parametrize("name", ["tiles_edges", "pole", "helical"])
+def test_bp_paths_give_the_same_sums(name, monkeypatch):
+    """A row bound above ``BP_ROWS`` runs the body that forms each axial
+    weight in its column loop instead of once a view: the same terms in the
+    same order, so the default body's output bit for bit."""
+    requires_cuda()
+    family, g = _bp_cases()[name]
+    plan, lib, _ = _fp_family(family, g)
+    kname = f"bp_{family}_sf"
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    y = torch.randn((3,) + g.sino_shape, generator=gen, device="cuda")
+    tally = {kname: 0}
+    want = fp_cone.launch(lib, kname, y, plan, tally)
+    layout = fp_cone.bp_layout
+    monkeypatch.setattr(fp_cone, "bp_layout", lambda plan: dataclasses.replace(
+        layout(plan), rows=fp_cone.BP_ROWS + 1))
+    got = fp_cone.launch(lib, kname, y, plan, tally)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_bp_exceeded_row_bound_writes_nan(monkeypatch):
+    """A row bound that the host guaranteed but a slice exceeds (here a
+    false bound of ``BP_ROWS`` on 0.25 mm rows) writes NaN to the voxels
+    concerned, never a truncated sum."""
+    requires_cuda()
+    _, g = _bp_cases()["fine_rows"]
+    plan = ConePlan(g)
+    y = torch.ones((1,) + g.sino_shape, device="cuda")
+    layout = fp_cone.bp_layout
+    monkeypatch.setattr(fp_cone, "bp_layout", lambda plan: dataclasses.replace(
+        layout(plan), rows=fp_cone.BP_ROWS))
+    got = fp_cone.launch("fp_cone", "bp_cone_sf", y, plan, {"bp_cone_sf": 0})
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got).any())
+
+
+@pytest.mark.parametrize("name", ["tiles_edges", "helical"])
+def test_bp_phase_build_gives_the_same_sums(name):
+    """The BP built with its phase profile (``build.VARIANTS["phases"]``)
+    gives the bits of the BP the port runs, and counts its thread-views."""
+    requires_cuda()
+    import ctypes
+    from repro_torch.kernels import build
+    family, g = _bp_cases()[name]
+    plan, lib, _ = _fp_family(family, g)
+    kname = f"bp_{family}_sf"
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    y = torch.randn((3,) + g.sino_shape, generator=gen, device="cuda")
+    tally = {kname: 0}
+    want = fp_cone.launch(lib, kname, y, plan, tally)
+    read = getattr(build.library(lib, "phases"), f"{lib}_phases_read")
+    sums = (ctypes.c_ulonglong * 8)()
+    assert read(sums) == 0                                 # zero the sums
+    got = fp_cone.launch(lib, kname, y, plan, tally, variant="phases")
+    torch.cuda.synchronize()
+    assert read(sums) == 0 and sums[4] >= 1
+    assert torch.equal(got, want)
+
+
+def test_bp_instances_fit_the_card():
+    """Each of the eight BP instances keeps the blocks of 128 threads an SM
+    that its launch bounds ask for (``BP_BLOCKS``)."""
+    requires_cuda()
+    for lib in ("fp_cone", "fp_modular"):
+        for spt in (1, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                info = fp_cone.bp_info(lib, dtype, spt)
+                assert info["blocks_per_sm"] >= fp_cone.BP_BLOCKS[spt], (lib, spt, info)
+
+
 FLASH = {
     # name: (B, H, KV, S, hd, window)
     "gqa2_hd64": (1, 4, 2, 256, 64, None),

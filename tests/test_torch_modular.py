@@ -335,6 +335,53 @@ def test_fp_layout_refuses_pitches_outside_the_exact_division(dv):
     assert fp_cone.fp_layout(fp_cone.ConePlan(_cone_tiles(tgeo)), 1).smax >= 1
 
 
+def _bp_rows(plan):
+    """The most detector rows one slice of one voxel meets with a nonzero
+    axial weight in a view, from the plain version's weights
+    (``fp_cone.chunk_taps``; the axial weight is the same at every column
+    tap, so each tap's rows are counted once per column tap)."""
+    nz = plan.geom.vol.nz
+    dt = plan.on(torch.device("cpu"))
+    rows = 0
+    for grp in (0, 1):
+        ng, nl = plan.group(grp)[:2]
+        table = dt.tables[grp]
+        if table.shape[0] == 0:
+            continue
+        nrow = 0
+        for _, _, wz in fp_cone.chunk_taps(plan, table, ng, nl, 0, nz,
+                                           torch.empty(0)):
+            nrow = nrow + (wz != 0).to(torch.int64)
+        rows = max(rows, int(nrow.max()) // plan.taps_u)
+    return rows
+
+
+@pytest.mark.parametrize("make", [_cone_tiles, _wobbly, _helical, _tall],
+                         ids=lambda m: m.__name__[1:])
+def test_bp_layout_bounds_hold_the_nonzero_pattern(make):
+    """The host's bound for the BP kernel (``fp_cone.bp_layout``) against
+    the plain version's nonzero pattern: the rows one slice meets within
+    ``rows``, which picks the body that keeps each slice's axial weights
+    (``cached``, as on every cell of ``chip_smoke.py``)."""
+    g = make(tgeo)
+    plan = (fp_cone.ConePlan if g.geom_type == "cone" else ModularPlan)(g)
+    lay = fp_cone.bp_layout(plan)
+    rows = _bp_rows(plan)
+    assert 1 <= rows <= lay.rows <= fp_cone.BP_ROWS, (rows, lay)
+    assert lay.cached
+
+
+@pytest.mark.parametrize("dv", [1e-7, 2.0e6])
+def test_bp_layout_refuses_pitches_outside_the_exact_division(dv):
+    """The BP kernel divides by the row pitch as the FP does (``sf_div_rn``,
+    proven for pitches in ``FP_DV_RANGE``): its layout refuses others."""
+    g = tgeo.cone_beam(4, 6, 10, tgeo.VolumeGeometry(8, 8, 4), sod=60.0,
+                       sdd=120.0, pixel_width=1.0, pixel_height=dv)
+    with pytest.raises(ValueError, match="row pitch"):
+        fp_cone.bp_layout(fp_cone.ConePlan(g))
+    assert fp_cone.bp_layout(fp_cone.ConePlan(_cone_tiles(tgeo))).cached
+
+
 @pytest.mark.parametrize("backend", ["auto", "ref", "cuda"])
 @pytest.mark.parametrize("make", [_tilted, _source_inside],
                          ids=["tilted", "source_inside"])
