@@ -94,14 +94,16 @@ path through the public API at the paper's sizes:
   step at 28 layers).
 
 After the build it prints ptxas's registers and spills of every flash
-kernel instance (four kernels, f32 and bf16, hd 64, 128 and 192) and of
-the eight cone-family FP and eight BP instances (nvcc runs with
-``-Xptxas=-v``) and, from the card, their shared memory a block (the
-FP's and flash's own count, held against the host's) and resident blocks
-per SM (the FP's with its tile at the cone and helical cells).  Each
+kernel instance (four kernels, f32 and bf16, hd 64, 128 and 192), of
+the eight cone-family FP and eight BP instances and of the 8 parallel
+instances (nvcc runs with ``-Xptxas=-v``) and, from the card, their shared
+memory a block (the FP's and flash's own count, held against the host's)
+and resident blocks per SM (the FP's with its tile at the cone and
+helical cells, the parallel pair's at the main and 512^3 cells).  Each
 cone-family FP row carries the thread-per-output FP's time of run 15I
-(``FP_15I_MS``) beside its own, each BP row the time of the BP before its
-redesign (``BP_PARENT_MS``).  After the kernel phase it builds the FP and
+(``FP_15I_MS``) beside its own, each cone-family BP row the time of the BP
+before its redesign (``BP_PARENT_MS``), each parallel row the pair's time
+before its redesign (``PAR_PARENT_MS``).  After the kernel phase it builds the FP and
 BP with their phase profiles compiled in (``-DSF_FP_PHASES
 -DSF_BP_PHASES``) and prints, per cell, each phase's share of the cycles
 and the FP's passes, survivors and (survivor, slice) pairs and the BP's
@@ -208,6 +210,26 @@ BP_PARENT_MS = {
 BP_PARENT_PATH_MS = {"cone_bp": 4063.33642578125, "helical_bp": 290.77862548828125,
                      "bp_modular_sf_spt1": 120.34630584716797,
                      "bp_modular_sf_spt8": 252.33856201171875}
+
+# The parallel pair before its redesign (a thread per output and 8 lanes,
+# each weight evaluated by every thread that needed it), as this script
+# measured it on an NVIDIA H100 80GB HBM3 at 700.00 W (run 19A in PERF.md:
+# ``--cells main,3d128,3d`` from a checkout of the parent): ms by (kernel,
+# cell, dtype), printed beside this run's.
+PAR_PARENT_MS = {
+    ("fp_par_sf", "main", "float32"): 27.51255989074707,
+    ("bp_par_sf", "main", "float32"): 7.029151916503906,
+    ("fp_par_sf", "main", "bfloat16"): 27.307392120361328,
+    ("bp_par_sf", "main", "bfloat16"): 6.239920139312744,
+    ("fp_par_sf", "3d128", "float32"): 1.4528799653053284,
+    ("bp_par_sf", "3d128", "float32"): 0.4615039974451065,
+    ("fp_par_sf", "3d128", "bfloat16"): 1.561456024646759,
+    ("bp_par_sf", "3d128", "bfloat16"): 0.4935680031776428,
+    ("fp_par_sf", "3d", "float32"): 140.11097717285156,
+    ("bp_par_sf", "3d", "float32"): 95.00109100341797,
+    ("fp_par_sf", "3d", "bfloat16"): 141.2855682373047,
+    ("bp_par_sf", "3d", "bfloat16"): 95.8796157836914,
+}
 
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
 FLASH_REPLACES = {"flash_fwd": "src/repro/kernels/flash.py:55",
@@ -453,8 +475,11 @@ def kernel_phase(torch, cells, results):
         F = fams[fam]
         plan = F["plan"](geom)
         lane = fam in ("par", "fan")
-        # the cone and modular launches derive their block from the shapes
-        cfg = tune.heuristic_config(geom, batch) if lane else None
+        # the parallel pair's or the fan pair's heuristic, as their paths use
+        # them; the cone and modular launches derive their block from the
+        # shapes
+        cfg = (tune.parallel_config(geom, batch) if fam == "par" else
+               tune.heuristic_config(geom, batch) if lane else None)
         args = (plan, cfg) if lane else (plan,)
         mult = batch * geom.n_rows if lane else batch   # outputs per weight
 
@@ -533,6 +558,8 @@ def kernel_phase(torch, cells, results):
                     row["ms_15I"] = FP_15I_MS.get((cell, name))
                 if kname in ("bp_cone_sf", "bp_modular_sf"):
                     row["ms_parent"] = BP_PARENT_MS.get((cell, name))
+                if fam == "par":
+                    row["ms_parent"] = PAR_PARENT_MS.get((kname, cell, name))
                 results["kernels"].append(row)
                 log(f"kernel {kname:10s} {cell:10s} {name:8s} rel_err {err:.3g} "
                     f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms} "
@@ -1148,6 +1175,59 @@ def fp_build_report(results) -> None:
             f"stores, {r['spill_loads']} bytes spill loads, {r['stack']} bytes stack; "
             f"tile {r['tile_rows']} x {r['tile_cols']}, {r['smem_bytes']} bytes dynamic "
             f"shared a block, {r['blocks_per_sm']} blocks per SM")
+
+
+def par_build_report(results) -> None:
+    """ptxas's registers and spills of the 8 parallel kernel instances (FP
+    and BP, f32 and bf16, 8 or 16 lanes a thread) and, on this card, at the
+    main and 512^3 cells' layouts (the parallel heuristic of each dtype),
+    for the cell that runs each instance: threads a block, dynamic shared
+    memory (the kernel's count, which the FP checks against the host's) and
+    resident blocks per SM."""
+    import re
+    import torch
+    from repro_torch import VolumeGeometry, parallel_beam
+    from repro_torch.kernels import build, fp_par, tune
+    cells = {"main": (parallel_beam(720, 1, 768, VolumeGeometry(512, 512, 1),
+                                    angular_range=180.0), 8),
+             "3d": (parallel_beam(180, 512, 768, VolumeGeometry(512, 512, 512),
+                                  angular_range=180.0), 1)}
+    rows = {}
+    for mangled, rep in build.ptxas_report("fp_par").items():
+        m = re.search(r"([fb]p_par_sf_kernel)I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+        if not m:
+            continue
+        fp = m.group(1).startswith("fp")
+        dtype = torch.float32 if m.group(2) == "f" else torch.bfloat16
+        lpt = int(m.group(3))
+        key = f"{m.group(1)}<{str(dtype)[6:]}, lpt={lpt}>"
+        row = dict(rep)
+        for cell, (geom, batch) in cells.items():
+            plan = fp_par.ParallelPlan(geom)
+            cfg = tune.parallel_config(geom, batch)
+            lay = plan.fp_layout(0, dtype, cfg) if fp else plan.bp_layout(cfg)
+            if lay.lpt != lpt:
+                row[cell] = None          # the cell runs the other instance
+                continue
+            if fp:
+                threads, info = lay.tu * lay.tl * lay.nvb, fp_par.fp_info(lay, dtype)
+                shape = (f"{lay.tu} columns x {lay.tl * lay.lpt} lanes x "
+                         f"{lay.nvb} views, {lay.lch} lines")
+            else:
+                threads, info = lay.bx * lay.by * lay.tl, fp_par.bp_info(lay, dtype)
+                shape = f"{lay.bx} x {lay.by} voxels x {lay.tl * lay.lpt} lanes"
+            row[cell] = {"tile": shape, "threads": threads, **info}
+        check(any(row[cell] for cell in cells), f"{key}: no cell runs it")
+        rows[key] = row
+    check(len(rows) == 8, f"ptxas report of the parallel kernels: {sorted(rows)}")
+    results["par_sf_build"] = rows
+    for k, r in sorted(rows.items()):
+        log(f"ptxas {k}: {r['registers']} registers, {r['spill_stores']} bytes spill "
+            f"stores, {r['spill_loads']} bytes spill loads, {r['stack']} bytes stack; "
+            + "; ".join(f"{cell}: {r[cell]['tile']}, {r[cell]['threads']} threads, "
+                        f"{r[cell]['smem_bytes']} bytes dynamic shared, "
+                        f"{r[cell]['blocks_per_sm']} blocks per SM"
+                        for cell in cells if r[cell]))
 
 
 def bp_build_report(results) -> None:
@@ -1973,6 +2053,7 @@ def main() -> int:
     flash_build_report(torch, results)
     fp_build_report(results)
     bp_build_report(results)
+    par_build_report(results)
     if only is None:
         fp_division_check(torch, results)
 

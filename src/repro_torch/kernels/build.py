@@ -48,17 +48,24 @@ _c = ctypes
 # argtypes of every C entry point, by library.  Pointers and the stream are
 # c_void_p so that 64-bit addresses are never cut to 32 bits.
 _SIGNATURES = {
+    # the parallel pair: the lane-packed head, then the layouts of
+    # fp_par.ParallelPlan.fp_layout (view batches and their count, tu, tl,
+    # lpt, nvb, lch, wcap, kw) and bp_layout (accumulate, bx, by, tl, lpt,
+    # ku); the info entry points: (dtype, the FP's layout or lpt, threads
+    # and ku; out shared bytes, out blocks per SM)
     "fp_par": {
         "fp_par_sf_launch": [
             _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p,
             _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_longlong,
-            _c.c_longlong, _c.c_int, _c.c_float, _c.c_float, _c.c_int,
-            _c.c_int, _c.c_void_p],
+            _c.c_longlong, _c.c_int, _c.c_float, _c.c_float, _c.c_void_p]
+        + [_c.c_int] * 8 + [_c.c_void_p],
         "bp_par_sf_launch": [
             _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p,
             _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_longlong,
-            _c.c_longlong, _c.c_int, _c.c_float, _c.c_float, _c.c_int,
-            _c.c_int, _c.c_int, _c.c_void_p],
+            _c.c_longlong, _c.c_int, _c.c_float, _c.c_float] + [_c.c_int] * 6
+        + [_c.c_void_p],
+        "fp_par_sf_info": [_c.c_int] * 8 + [_c.POINTER(_c.c_int)] * 2,
+        "bp_par_sf_info": [_c.c_int] * 4 + [_c.POINTER(_c.c_int)] * 2,
     },
     "fp_fan": {
         "fp_fan_sf_launch": [

@@ -25,10 +25,29 @@ kernels read both groups from the one buffer through strides.
 The lane packing, the plain versions and the kernel wrappers serve every
 lane-packed pair through its :class:`LanePlan` (the fan pair's is
 ``fp_fan.FanPlan``); a wrapper counts its launches in the ``LAUNCHES`` of
-the plan's module, here :data:`LAUNCHES`.
+the plan's module, here :data:`LAUNCHES`, and takes the launch arguments
+after the column pitch from the plan (:meth:`LanePlan.fp_tail`,
+:meth:`LanePlan.bp_tail`).
+
+**The parallel kernels' layouts** (:meth:`ParallelPlan.fp_layout`,
+:meth:`ParallelPlan.bp_layout`) are derived here from the view tables and
+the :class:`~repro_torch.kernels.tune.KernelConfig`: the FP's tile of
+``bu`` columns and ``8 lg`` lanes (8 or 16 a thread), the loop lines of a chunk, the staged
+window's capacity and the weights a (line, column) pair can have; the
+BP's block of ``bg`` voxels and the columns a (voxel, view) can meet.
+The bounds are proven from the tables (:meth:`ParallelPlan.fp_kw`,
+:meth:`~ParallelPlan.fp_wcap`, :meth:`~ParallelPlan.bp_ku`), and
+:func:`_tile_window` is the host's copy of the kernel's staged window, so
+the CPU tests hold both against the plain version's nonzero weights.  The
+FP's shared memory is counted here to choose the layout and checked against
+the kernel's own count at each layout's first launch (:func:`fp_info`); the
+BP's is the kernel's alone (:func:`bp_info`).  The parallel kernels read
+16 bytes at a time, so their wrappers pad the lane axis to a multiple of
+16 bytes in fresh memory where it is not (``LanePlan.LANE_BYTES``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -45,6 +64,27 @@ _CHUNK_ELEMS = 1 << 25
 # Kernel launches since the last reset_launches(), by kernel.  One call of a
 # wrapper launches once per non-empty view group.
 LAUNCHES: Dict[str, int] = {"fp_par_sf": 0, "bp_par_sf": 0}
+
+# The parallel kernels (csrc/fp_par.cu): voxels of margin on each side of
+# the FP's staged window (PAR_MARGIN); a thread carries 16 lanes when a
+# block's lane chunk has at least WIDE_GROUPS groups of 8 (an even number),
+# else 8.
+PAR_MARGIN = 2
+WIDE_GROUPS = 4
+# Shared memory a block may use on the card, and the FP's budget: the FP
+# takes up to FP_VIEWS neighbouring views a block (while its threads stay
+# within FP_THREADS) and a chunk of FP_CHUNKS loop lines, the layout with
+# the most views x lines within the budget, a chunk of one line only when
+# no other fits, the least shared memory among equals (one view and one
+# line, within SMEM_MAX, at least).  Chosen from sweeps on the H100 (PERF.md).
+SMEM_MAX = 232448
+FP_SMEM_BUDGET = 96 * 1024
+FP_CHUNKS = (8, 4, 2, 1)
+FP_VIEWS = 4
+FP_THREADS = 256
+# Weights a (line, column) or (voxel, view) pair packs its count in 8 bits.
+_MAX_TAPS = 254
+_ELEM = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def reset_launches() -> None:
@@ -91,12 +131,14 @@ def _view_params(geom: CTGeometry) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 class _DeviceTables:
-    """The plan's tables on one device."""
+    """The plan's tables on one device (and the parallel FP's view batches,
+    by (group, views a batch), as they are first launched)."""
 
     def __init__(self, plan: "LanePlan", device: torch.device):
         self.tables = tuple(torch.from_numpy(t).to(device) for t in plan.tables)
         self.rows = tuple(torch.from_numpy(r).to(device) for r in plan.rows)
         self.fz = torch.from_numpy(plan.fz).to(device)
+        self.batches: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 class LanePlan:
@@ -106,11 +148,14 @@ class LanePlan:
     copies on each device they were used on.
 
     A subclass names its kernel library and kernels, the launch counts they
-    add to, the extra launch arguments of its kernels, and :meth:`weights`,
-    the plain version's footprint weights."""
+    add to, the extra launch arguments of its kernels, the alignment its
+    kernels need of a tile (``LANE_BYTES``: its address and its lanes'
+    bytes a multiple of it; 0: none), and :meth:`weights`, the plain
+    version's footprint weights."""
 
     LIB = ""
     KERNELS: Tuple[str, str] = ("", "")
+    LANE_BYTES = 0
     launches: Dict[str, int] = {}
 
     def __init__(self, geom: CTGeometry, px: np.ndarray, py: np.ndarray,
@@ -150,15 +195,96 @@ class LanePlan:
         """Launch arguments of the BP kernel after the column pitch."""
         return ()
 
+    def fp_tail(self, grp: int, x: torch.Tensor, cfg: tune.KernelConfig) -> tuple:
+        """Every launch argument of the FP kernel of view group ``grp`` on
+        tile ``x`` between the column pitch and the stream."""
+        return (*self.fp_args(), cfg.bu, cfg.lg)
+
+    def bp_tail(self, grp: int, x: torch.Tensor, cfg: tune.KernelConfig,
+                accumulate: int) -> tuple:
+        """The same for the BP kernel (``accumulate``: add into the output)."""
+        return (*self.bp_args(), accumulate, cfg.bg, cfg.lg)
+
     def weights(self, table: torch.Tensor, ng: int, nl: int):
         raise NotImplementedError
 
 
+@dataclasses.dataclass(frozen=True)
+class FpLayout:
+    """The FP kernel's launch: ``tu`` columns and ``tl`` threads a column
+    of ``lpt`` lanes in each of ``nvb`` views a block (:meth:`ParallelPlan.
+    fp_batches`), ``lch`` loop lines a chunk, ``wcap`` staged gi rows,
+    ``kw`` weights a (view, line, column) at most; ``smem``: the host's
+    count of its dynamic shared memory (bytes; csrc/fp_par.cu
+    ``par_fp_smem`` is the kernel's)."""
+    tu: int
+    tl: int
+    lpt: int
+    nvb: int
+    lch: int
+    wcap: int
+    kw: int
+    smem: int
+
+
+@dataclasses.dataclass(frozen=True)
+class BpLayout:
+    """The BP kernel's launch: ``bx`` x ``by`` voxels (gi x li) and ``tl``
+    threads a voxel of ``lpt`` lanes a block, ``ku`` columns a (voxel,
+    view) pair at most."""
+    bx: int
+    by: int
+    tl: int
+    lpt: int
+    ku: int
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _floor_pow2(n: int) -> int:
+    return 1 << (max(1, n).bit_length() - 1)
+
+
+def _lanes_per_thread(groups: int) -> int:
+    """Lanes a thread carries for a lane chunk of ``groups`` groups of 8."""
+    return 16 if groups >= WIDE_GROUPS and groups % 2 == 0 else 8
+
+
+def _tile_window(rows: np.ndarray, e0: float, du: float, u_first: int,
+                 u_last: int, l0: int, l1: int, ng: int) -> Tuple[int, int]:
+    """The FP kernel's staged window [G0, G1] (empty: G0 > G1) for the tile
+    of columns u_first..u_last and loop lines l0..l1 of the block's views,
+    whose table rows are ``rows`` (one row a view): csrc/fp_par.cu
+    ``par_tile_window``, in the same float32 operations."""
+    f = np.float32
+    e0, du = f(e0), f(du)
+    el = f(e0 + f(f(u_first) * du))
+    eh = f(f(e0 + f(f(u_last) * du)) + du)
+    xs = []
+    for row in np.atleast_2d(rows):
+        P, Q, R, hs = (f(v) for v in row[:4])
+        rP = f(1) / P
+        xs += [f(f(t - f(f(Q * f(l)) + R)) * rP)
+               for l in (l0, l1) for t in (f(el - hs), f(eh + hs))]
+    if not xs:
+        return 0, -1
+
+    def clamp_floor(x, lo, hi):
+        return int(np.floor(min(max(x, f(lo)), f(hi))))
+    g0 = max(clamp_floor(min(xs), -1, ng) - PAR_MARGIN, 0)
+    g1 = min(clamp_floor(max(xs), -1, ng) + 1 + PAR_MARGIN, ng - 1)
+    return g0, g1
+
+
 class ParallelPlan(LanePlan):
-    """The parallel SF pair's plan (tables of :func:`_view_params`)."""
+    """The parallel SF pair's plan (tables of :func:`_view_params`) and the
+    layouts of its kernels."""
 
     LIB = "fp_par"
     KERNELS = ("fp_par_sf", "bp_par_sf")
+    LANE_BYTES = 16
     launches = LAUNCHES
 
     def __init__(self, geom: CTGeometry):
@@ -166,9 +292,197 @@ class ParallelPlan(LanePlan):
             raise ValueError(f"the parallel SF pair needs a parallel "
                              f"geometry, got {geom.geom_type!r}")
         super().__init__(geom, *_view_params(geom))
+        self._bounds: Dict[tuple, int] = {}
 
     def weights(self, table: torch.Tensor, ng: int, nl: int):
         return _group_weights(self, table, ng, nl)
+
+    # -- bounds, from the tables (float64 over the float32 values) -------- #
+    def fp_kw(self, grp: int) -> int:
+        """Weights a (loop line, column) pair can have in view group
+        ``grp``: the voxel centres meeting a pixel lie in an interval of
+        du + 2 hs, |P| apart, so at most floor((du + 2 hs) / |P|) + 1 of
+        them; one more for rounding."""
+        t = self.tables[grp].astype(np.float64)
+        if t.shape[0] == 0:
+            return 1
+        return int(np.floor(np.max((self.du + 2.0 * t[:, 3]) / np.abs(t[:, 0])))) + 2
+
+    def fp_batches(self, grp: int, nvb: int) -> np.ndarray:
+        """The FP's batches of view group ``grp``: up to ``nvb`` views a
+        batch, consecutive in the table and with P of one sign (the views
+        of a batch look at neighbouring voxels: a batch never spans the
+        jump of the y-gathered group from 45 to 135 degrees, where P
+        flips); (batches, nvb) int32 table indices, -1 in empty slots."""
+        P = self.tables[grp][:, 0]
+        out, cur = [], []
+        for a in range(P.size):
+            if cur and (len(cur) == nvb or (P[a] > 0) != (P[cur[0]] > 0)):
+                out.append(cur)
+                cur = []
+            cur.append(a)
+        if cur:
+            out.append(cur)
+        b = np.full((len(out), nvb), -1, np.int32)
+        for i, v in enumerate(out):
+            b[i, :len(v)] = v
+        return b
+
+    def fp_wcap(self, grp: int, tu: int, lch: int, nvb: int) -> int:
+        """Rows of the FP's staged window for a tile of ``tu`` columns, a
+        chunk of ``lch`` loop lines and a batch of :meth:`fp_batches`: the
+        widest span of the window's estimate (:func:`_tile_window`) over the
+        batches, tiles and chunks, plus two for its floors, one for rounding
+        and the margins.  The span is linear in each view's line, so its
+        widest chunk is the first or the last (checked at full length)."""
+        key = ("wcap", grp, tu, lch, nvb)
+        if key in self._bounds:
+            return self._bounds[key]
+        t = self.tables[grp].astype(np.float64)
+        if t.shape[0] == 0:
+            return 1
+        b = self.fp_batches(grp, nvb)
+        rows = t[np.maximum(b, 0)]                       # (batches, nvb, 6)
+        P, Q, R, hs = (rows[..., k, None] for k in range(4))
+        ok = (b >= 0)[..., None]
+        nl = self.group(grp, 1)[1]
+        u0 = np.arange(0, self.geom.n_cols, tu, dtype=np.float64)
+        el = self.e0 + u0 * self.du
+        eh = self.e0 + (u0 + tu - 1) * self.du + self.du
+        last = (nl - 1) // lch * lch
+        span = 0.0
+        for l0 in (0, last):
+            xs = [(edge - (Q * l + R)) / P for l in (l0, l0 + lch - 1)
+                  for edge in (el - hs, eh + hs)]
+            hi = np.max([np.where(ok, x, -np.inf) for x in xs], axis=(0, 2))
+            lo = np.min([np.where(ok, x, np.inf) for x in xs], axis=(0, 2))
+            span = max(span, float(np.max(hi - lo)))
+        self._bounds[key] = int(np.floor(span)) + 4 + 2 * PAR_MARGIN
+        return self._bounds[key]
+
+    def bp_ku(self) -> int:
+        """Columns a (voxel, view) pair can meet: pixels du wide meeting a
+        footprint 2 hs wide, at most floor(2 hs / du) + 2; one more for
+        rounding."""
+        hs = np.concatenate([t[:, 3] for t in self.tables]).astype(np.float64)
+        if hs.size == 0:
+            return 1
+        return int(np.floor(np.max(2.0 * hs / self.du))) + 3
+
+    # -- layouts ------------------------------------------------------------ #
+    def fp_layout(self, grp: int, dtype: torch.dtype,
+                  cfg: tune.KernelConfig) -> FpLayout:
+        """The FP kernel's layout for view group ``grp``: ``cfg.bu`` columns
+        and a chunk of ``cfg.lg`` groups of 8 lanes a block, up to
+        FP_VIEWS views while the block stays within FP_THREADS threads and
+        a chunk of FP_CHUNKS loop lines, chosen as the module's comment
+        says."""
+        elem = _ELEM[dtype]
+        tu, lpt = cfg.bu, _lanes_per_thread(cfg.lg)
+        tl, lc, vn = cfg.lg * 8 // lpt, 8 * cfg.lg, 16 // elem
+        kw = self.fp_kw(grp)
+        if kw > _MAX_TAPS:
+            raise ValueError(f"fp_par_sf: {kw} weights a column and line "
+                             f"exceed the kernel's {_MAX_TAPS}")
+        most = max(1, min(FP_VIEWS, FP_THREADS // (tl * tu),
+                          1024 // (tl * tu)))
+        cands = []
+        for nvb in range(1, most + 1):
+            for lch in FP_CHUNKS:
+                wcap = self.fp_wcap(grp, tu, lch, nvb)
+                smem = (_align16(wcap * (lch * lc + vn) * elem)
+                        + nvb * lch * tu * (kw + 1) * 4 + 32 * nvb + 4)
+                cands.append((smem <= FP_SMEM_BUDGET and lch > 1,
+                              smem <= FP_SMEM_BUDGET, nvb * lch, -smem, nvb,
+                              lch, wcap, smem))
+        best = max(cands)
+        if not best[1]:       # nothing within the budget: the least memory
+            best = max(cands, key=lambda c: (-c[-1], c[2]))
+        if best[-1] > SMEM_MAX:
+            raise ValueError(
+                f"fp_par_sf: a tile of {tu} columns and {lc} lanes needs "
+                f"{best[-1]} bytes of shared memory, more than the "
+                f"{SMEM_MAX} a block may use; pin a KernelConfig with a "
+                f"smaller bu or lg")
+        nvb, lch, wcap, smem = best[4:]
+        return FpLayout(tu, tl, lpt, nvb, lch, wcap, kw, smem)
+
+    def bp_layout(self, cfg: tune.KernelConfig) -> BpLayout:
+        """The BP kernel's layout: a chunk of ``cfg.lg`` groups of 8 lanes
+        (rounded down to a power of two, at most 64: a voxel's threads share
+        a warp) and ``cfg.bg`` voxels a block (rounded down to whole warps,
+        at least one), as the squarest power-of-two split bx x by."""
+        groups = min(_floor_pow2(cfg.lg), 64)
+        lpt = _lanes_per_thread(groups)
+        tl = groups * 8 // lpt
+        per = 32 // tl                      # voxels a warp
+        nvox = max(per, cfg.bg // per * per)
+        while tl * nvox > 1024:
+            nvox -= per
+        by = 1
+        while by * by * 4 <= nvox and nvox % (by * 2) == 0:
+            by *= 2
+        ku = self.bp_ku()
+        if ku > _MAX_TAPS:
+            raise ValueError(f"bp_par_sf: {ku} columns a voxel and view "
+                             f"exceed the kernel's {_MAX_TAPS}")
+        return BpLayout(nvox // by, by, tl, lpt, ku)
+
+    def fp_tail(self, grp: int, x: torch.Tensor, cfg: tune.KernelConfig) -> tuple:
+        lay = self.fp_layout(grp, x.dtype, cfg)
+        if (x.dtype, lay) not in _CHECKED:
+            fp_info(lay, x.dtype)
+            _CHECKED.add((x.dtype, lay))
+        dt = self.on(x.device)
+        if (grp, lay.nvb) not in dt.batches:
+            dt.batches[(grp, lay.nvb)] = torch.from_numpy(
+                self.fp_batches(grp, lay.nvb)).to(x.device)
+        b = dt.batches[(grp, lay.nvb)]
+        return (b.data_ptr(), b.shape[0], lay.tu, lay.tl, lay.lpt, lay.nvb,
+                lay.lch, lay.wcap, lay.kw)
+
+    def bp_tail(self, grp: int, x: torch.Tensor, cfg: tune.KernelConfig,
+                accumulate: int) -> tuple:
+        lay = self.bp_layout(cfg)
+        return (accumulate, lay.bx, lay.by, lay.tl, lay.lpt, lay.ku)
+
+
+# (dtype, FpLayout) whose shared memory count the kernel has confirmed
+# (fp_info), each once a process.
+_CHECKED: set = set()
+
+
+def fp_info(lay: FpLayout, dtype: torch.dtype) -> Dict[str, int]:
+    """The FP kernel instance for ``dtype`` tiles at layout ``lay``, on
+    this card: its dynamic shared memory a block (bytes, as the kernel
+    counts it) and resident blocks per SM.  Raises when the kernel's count
+    is not the host's (``lay.smem``)."""
+    import ctypes
+    from repro_torch.kernels import build
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    build.check("fp_par", build.library("fp_par").fp_par_sf_info(
+        _DTYPE_CODE[dtype], lay.tu, lay.tl, lay.lpt, lay.nvb, lay.lch,
+        lay.wcap, lay.kw, ctypes.byref(smem), ctypes.byref(blocks)),
+        "fp_par_sf info")
+    if smem.value != lay.smem:
+        raise RuntimeError(
+            f"fp_par_sf carves {smem.value} bytes of shared memory from the "
+            f"layout {lay}, the host counted {lay.smem}: csrc/fp_par.cu "
+            f"par_fp_smem and ParallelPlan.fp_layout disagree")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+
+
+def bp_info(lay: BpLayout, dtype: torch.dtype) -> Dict[str, int]:
+    """The BP kernel instance for ``dtype`` tiles at layout ``lay``, on
+    this card: its dynamic shared memory a block (bytes, the kernel's
+    count) and resident blocks per SM."""
+    import ctypes
+    from repro_torch.kernels import build
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    build.check("fp_par", build.library("fp_par").bp_par_sf_info(
+        _DTYPE_CODE[dtype], lay.lpt, lay.bx * lay.by * lay.tl, lay.ku,
+        ctypes.byref(smem), ctypes.byref(blocks)), "bp_par_sf info")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 
 # --------------------------------------------------------------------------- #
@@ -251,6 +565,20 @@ def bp_lanes_plain(q: torch.Tensor, plan: LanePlan) -> torch.Tensor:
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _aligned(x: torch.Tensor, plan: LanePlan) -> torch.Tensor:
+    """``x`` as the plan's kernels can read it: where its address or its
+    lanes' bytes are not multiples of ``plan.LANE_BYTES``, a copy in fresh
+    memory with its lane axis padded by zeros to such a multiple."""
+    n = plan.LANE_BYTES
+    lanes = x.shape[-1]
+    pad = -lanes % (n // x.element_size()) if n else 0
+    if n == 0 or (pad == 0 and x.data_ptr() % n == 0):
+        return x
+    out = x.new_zeros(x.shape[:-1] + (lanes + pad,))
+    out[..., :lanes] = x
+    return out
+
+
 def _check_tile(x: torch.Tensor, shape: Tuple[int, ...], what: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
@@ -273,9 +601,9 @@ def fp_lanes(g: torch.Tensor, plan: LanePlan,
         return fp_lanes_plain(g, plan)
     from repro_torch.kernels import build
     geom, kname = plan.geom, plan.KERNELS[0]
-    lanes = g.shape[-1]
-    _check_tile(g, (geom.vol.nx, geom.vol.ny, lanes), kname)
-    out = torch.empty((geom.n_angles, geom.n_cols, lanes),
+    _check_tile(g, (geom.vol.nx, geom.vol.ny, g.shape[-1]), kname)
+    lanes, g = g.shape[-1], _aligned(g, plan)
+    out = torch.empty((geom.n_angles, geom.n_cols, g.shape[-1]),
                       dtype=torch.float32, device=g.device)
     dt = plan.on(g.device)
     launch = getattr(build.library(plan.LIB), f"{kname}_launch")
@@ -285,15 +613,15 @@ def fp_lanes(g: torch.Tensor, plan: LanePlan,
             n = dt.tables[grp].shape[0]
             if n == 0:
                 continue
-            ng, nl, gs, ls = plan.group(grp, lanes)
+            ng, nl, gs, ls = plan.group(grp, g.shape[-1])
             rc = launch(
                 _DTYPE_CODE[g.dtype], dt.tables[grp].data_ptr(),
                 dt.rows[grp].data_ptr(), n, g.data_ptr(), out.data_ptr(),
-                ng, nl, lanes, gs, ls, geom.n_cols, plan.e0, plan.du,
-                *plan.fp_args(), cfg.bu, cfg.lg, stream)
+                ng, nl, g.shape[-1], gs, ls, geom.n_cols, plan.e0, plan.du,
+                *plan.fp_tail(grp, g, cfg), stream)
             build.check(plan.LIB, rc, f"{kname} launch")
             plan.launches[kname] += 1
-    return out
+    return out if out.shape[-1] == lanes else out[..., :lanes].contiguous()
 
 
 def bp_lanes(q: torch.Tensor, plan: LanePlan,
@@ -305,10 +633,10 @@ def bp_lanes(q: torch.Tensor, plan: LanePlan,
         return bp_lanes_plain(q, plan)
     from repro_torch.kernels import build
     geom, kname = plan.geom, plan.KERNELS[1]
-    lanes = q.shape[-1]
-    _check_tile(q, (geom.n_angles, geom.n_cols, lanes), kname)
-    out = torch.empty((geom.vol.nx, geom.vol.ny, lanes), dtype=torch.float32,
-                      device=q.device)
+    _check_tile(q, (geom.n_angles, geom.n_cols, q.shape[-1]), kname)
+    lanes, q = q.shape[-1], _aligned(q, plan)
+    out = torch.empty((geom.vol.nx, geom.vol.ny, q.shape[-1]),
+                      dtype=torch.float32, device=q.device)
     dt = plan.on(q.device)
     launch = getattr(build.library(plan.LIB), f"{kname}_launch")
     accumulate = 0
@@ -318,16 +646,16 @@ def bp_lanes(q: torch.Tensor, plan: LanePlan,
             n = dt.tables[grp].shape[0]
             if n == 0:
                 continue
-            ng, nl, gs, ls = plan.group(grp, lanes)
+            ng, nl, gs, ls = plan.group(grp, q.shape[-1])
             rc = launch(
                 _DTYPE_CODE[q.dtype], dt.tables[grp].data_ptr(),
                 dt.rows[grp].data_ptr(), n, q.data_ptr(), out.data_ptr(),
-                ng, nl, lanes, gs, ls, geom.n_cols, plan.e0, plan.du,
-                *plan.bp_args(), accumulate, cfg.bg, cfg.lg, stream)
+                ng, nl, q.shape[-1], gs, ls, geom.n_cols, plan.e0, plan.du,
+                *plan.bp_tail(grp, q, cfg, accumulate), stream)
             build.check(plan.LIB, rc, f"{kname} launch")
             plan.launches[kname] += 1
             accumulate = 1
-    return out
+    return out if out.shape[-1] == lanes else out[..., :lanes].contiguous()
 
 
 # --------------------------------------------------------------------------- #
@@ -381,7 +709,8 @@ def fp_parallel_sf(f: torch.Tensor, plan: ParallelPlan,
     batched f: (batch, nx, ny, nz) -> (batch, n_angles, n_rows, n_cols).
     ``compute_dtype`` selects the tile dtype (None = follow ``f.dtype``);
     accumulation is f32 and the result comes back in ``f.dtype``."""
-    cfg = tune.resolve_config(plan.geom, _batch(f, "volume"), config)
+    cfg = tune.resolve_config(plan.geom, _batch(f, "volume"), config,
+                              tune.parallel_config)
     return fp_packed(f, plan, precision.resolve(compute_dtype, f.dtype),
                      lambda g: fp_lanes(g, plan, cfg))
 
@@ -392,7 +721,8 @@ def bp_parallel_sf(sino: torch.Tensor, plan: ParallelPlan,
     """sino: (n_angles, n_rows, n_cols) -> volume (nx, ny, nz), or batched
     (batch, ...) -> (batch, nx, ny, nz).  Exact transpose of
     :func:`fp_parallel_sf`."""
-    cfg = tune.resolve_config(plan.geom, _batch(sino, "sinogram"), config)
+    cfg = tune.resolve_config(plan.geom, _batch(sino, "sinogram"), config,
+                              tune.parallel_config)
     return bp_packed(sino, plan, precision.resolve(compute_dtype, sino.dtype),
                      lambda q: bp_lanes(q, plan, cfg))
 

@@ -11,26 +11,44 @@ weight serves that many multiply-adds.  A block is a 2D arrangement of threads:
     bu   FP: detector columns per block (threadIdx.y)
     bg   BP: gathered-axis voxels per block (threadIdx.y)
 
-The exact cone and modular kernels have no lane axis and take no
+That is how the fan kernels (``csrc/fp_fan.cu``) read it.  The parallel
+kernels (``csrc/fp_par.cu``) read the same fields as their tile shape, and
+derive the rest from the shapes (``fp_par.ParallelPlan.fp_layout`` and
+``bp_layout``):
+
+    lg   groups of 8 lanes a block (the lane chunk: 8 lg lanes, whose
+         threads share each weight; a thread carries 16 lanes from 4
+         groups on, else 8).  The BP rounds it down to a power of two, at
+         most 64 (a voxel's threads share a warp)
+    bu   FP: detector columns a block (the tile whose weights are
+         evaluated once and whose volume slab is staged); the layout adds
+         up to ``fp_par.FP_VIEWS`` neighbouring views a block
+    bg   BP: voxels a block, rounded down to whole warps and split into
+         the squarest power-of-two tile of gi x li
+
+Their heuristic is :func:`parallel_config`.  The exact cone and modular
+kernels have no lane axis and take no
 configuration: their launches (``csrc/cone_sf.cuh`` ``sf_grid``) derive the
 block from the detector rows or z slices, and the samples per thread from
 the batch (``fp_cone.samples_per_thread``).
 
-The lane axis is masked at its ragged edge inside the kernels; nothing is
-padded.  ``resolve_config`` returns an explicit pin when one is given, else
-the heuristic below.
+The fan kernels mask the lane axis at its ragged edge; the parallel
+kernels read 16 bytes at a time, and their wrappers pad the lane axis to a
+multiple of 16 bytes where it is not one (``fp_par._aligned``).
+``resolve_config`` returns an explicit pin when one is given, else the
+pair's heuristic.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 from repro_torch.core.geometry import CTGeometry
 
 __all__ = ["KernelConfig", "LANES_PER_THREAD", "heuristic_config",
-           "resolve_config"]
+           "parallel_config", "resolve_config"]
 
-LANES_PER_THREAD = 8        # must equal LPT in csrc/fp_par.cu, fp_fan.cu
+LANES_PER_THREAD = 8        # must equal LPT in csrc/fp_fan.cu
 _THREADS = 128              # threads per block chosen by the heuristic
 _MAX_THREADS = 1024
 
@@ -71,7 +89,29 @@ def heuristic_config(geom: CTGeometry, batch: int = 1) -> KernelConfig:
     return KernelConfig(bu=_THREADS // lg, bg=_THREADS // lg, lg=lg)
 
 
-def resolve_config(geom: CTGeometry, batch: int,
-                   config: Optional[KernelConfig]) -> KernelConfig:
-    """An explicit ``config`` wins, else :func:`heuristic_config`."""
-    return config if config is not None else heuristic_config(geom, batch)
+def resolve_config(
+        geom: CTGeometry, batch: int, config: Optional[KernelConfig],
+        heuristic: Callable[[CTGeometry, int], KernelConfig] = heuristic_config,
+) -> KernelConfig:
+    """An explicit ``config`` wins, else ``heuristic`` (the fan pair's
+    :func:`heuristic_config`, or the parallel pair's :func:`parallel_config`)."""
+    return config if config is not None else heuristic(geom, batch)
+
+
+# The parallel kernels' heuristic, chosen from sweeps on the H100 (PERF.md): a
+# lane chunk of up to 16 groups (128 lanes: each weight serves them all);
+# FP tiles of 32 columns at 8 lanes, else 16 (with up to FP_VIEWS views a
+# block, fp_par.ParallelPlan.fp_layout); BP blocks of 128 threads.
+_PAR_MAX_GROUPS = 16
+
+
+def parallel_config(geom: CTGeometry, batch: int = 1) -> KernelConfig:
+    """The parallel kernels' heuristic: as many lane groups as the lanes
+    need, up to 16 (a thread carries 8 lanes, or 16 from 4 groups on:
+    ``fp_par._lanes_per_thread``); the FP's tile and the BP's block as
+    above."""
+    lanes = batch * geom.n_rows
+    groups = -(-lanes // LANES_PER_THREAD)
+    lg = min(_pow2_ceil(groups), _PAR_MAX_GROUPS)
+    tl = lg if lg < 4 else lg // 2          # threads an output
+    return KernelConfig(bu=32 if tl == 1 else 16, bg=128 // tl, lg=lg)

@@ -4,6 +4,7 @@ These need a CUDA device and nvcc; they skip elsewhere.  On the GPU machine:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -31,21 +32,27 @@ SHAPES = [
     (16, 16, 4, 6, 4, 24, 1),      # nx, ny, nz, na, nv, nu, batch
     (24, 24, 2, 5, 2, 40, 3),      # ragged lanes (6) and columns
     (64, 64, 1, 90, 1, 96, 8),     # the 2D training shape, cut down
+    (16, 16, 1, 8, 44, 24, 3),     # 132 lanes: a chunk of 128 and a ragged one
+    (20, 28, 1, 12, 2, 300, 3),    # nx != ny; 300 columns: ragged column tiles
+    (64, 64, 1, 30, 1, 600, 2),    # 600 columns: many tiles, batches of views
 ]
+# views at the axes and on both sides of 45 and 135 degrees, where the
+# view groups meet and the windows are tightest
+EDGE_ANGLES = np.deg2rad([0.0, 44.0, 45.0, 46.0, 90.0, 134.0, 135.0, 136.0,
+                          179.5])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_kernels_match_plain(shape, dtype):
-    requires_cuda()
-    nx, ny, nz, na, nv, nu, batch = shape
-    g = parallel_beam(na, nv, nu, VolumeGeometry(nx, ny, nz))
+def _par_match_plain(g, batch, dtype, cfg=None):
+    """Both parallel kernels against their plain versions on random tiles;
+    ``cfg`` None: the parallel heuristic."""
     plan = ParallelPlan(g)
-    cfg = tune.heuristic_config(g, batch)
-    gen = torch.Generator(device="cuda").manual_seed(0)
     dt = getattr(torch, dtype)
-    vol = torch.randn((nx, ny, batch * nv), generator=gen, device="cuda").to(dt)
-    sino = torch.randn((na, nu, batch * nv), generator=gen, device="cuda").to(dt)
+    cfg = cfg or tune.parallel_config(g, batch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lanes = batch * g.n_rows
+    vol = torch.randn((g.vol.nx, g.vol.ny, lanes), generator=gen, device="cuda").to(dt)
+    sino = torch.randn((g.n_angles, g.n_cols, lanes), generator=gen,
+                       device="cuda").to(dt)
     tol = 2e-4 if dtype == "float32" else precision.BF16_KERNEL_REL_TOL
     fp_par.reset_launches()
     for run, plain, x in ((fp_par.fp_lanes, fp_par.fp_lanes_plain, vol),
@@ -53,24 +60,142 @@ def test_kernels_match_plain(shape, dtype):
         got = run(x, plan, cfg)
         torch.cuda.synchronize()
         want = plain(x, plan)
+        assert bool(torch.isfinite(got).all())
         rel = float((got - want).abs().max() / want.abs().max())
         assert rel <= tol, rel
     assert fp_par.LAUNCHES["fp_par_sf"] >= 1 and fp_par.LAUNCHES["bp_par_sf"] >= 1
 
 
-def test_kernel_pair_dot_test_and_gradient():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernels_match_plain(shape, dtype):
     requires_cuda()
-    g = parallel_beam(10, 6, 36, VolumeGeometry(24, 24, 6))
+    nx, ny, nz, na, nv, nu, batch = shape
+    _par_match_plain(parallel_beam(na, nv, nu, VolumeGeometry(nx, ny, nz)), batch,
+                     dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pixel_width", [1.0, 0.3])
+def test_kernels_match_plain_at_the_view_group_edges(pixel_width, dtype):
+    requires_cuda()
+    g = parallel_beam(len(EDGE_ANGLES), 4, int(40 / pixel_width),
+                      VolumeGeometry(24, 24, 4), angles=EDGE_ANGLES,
+                      pixel_width=pixel_width)
+    _par_match_plain(g, 3, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cfg", [tune.KernelConfig(bu=24, bg=40, lg=2),
+                                 tune.KernelConfig(bu=7, bg=13, lg=3),
+                                 tune.KernelConfig(bu=32, bg=32, lg=16),
+                                 # FP blocks of 4 and 16 threads: fewer than
+                                 # the block's 8 view-table slots a view
+                                 tune.KernelConfig(bu=1, bg=32, lg=1),
+                                 tune.KernelConfig(bu=4, bg=32, lg=1)],
+                         ids=lambda c: f"bu{c.bu}-bg{c.bg}-lg{c.lg}")
+def test_kernels_match_plain_with_a_pinned_config(cfg, dtype):
+    requires_cuda()
+    _par_match_plain(parallel_beam(11, 44, 50, VolumeGeometry(24, 20, 44)), 3,
+                     dtype, cfg)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_take_tiles_at_any_address(dtype):
+    """A tile at an address that is not a multiple of 16 bytes (a view one
+    element into its storage) is copied to aligned memory by the wrapper
+    and gives the aligned tile's result; the C launch refuses such a tile
+    itself."""
+    requires_cuda()
+    from repro_torch.kernels import build
+    g = parallel_beam(10, 2, 30, VolumeGeometry(20, 20, 2))
+    plan, cfg = ParallelPlan(g), tune.parallel_config(g, 4)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for run, shape in ((fp_par.fp_lanes, (20, 20, 8)),
+                       (fp_par.bp_lanes, (10, 30, 8))):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        base = torch.zeros(x.numel() + 1, dtype=dt, device="cuda")
+        y = base[1:].view(shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16 != 0
+        assert torch.equal(run(y, plan, cfg), run(x, plan, cfg))
+    lib = build.library("fp_par")
+    dtab = plan.on(x.device)
+    out = torch.empty((20, 20, 8), device="cuda")
+    rc = lib.bp_par_sf_launch(
+        fp_par._DTYPE_CODE[dt], dtab.tables[0].data_ptr(), dtab.rows[0].data_ptr(),
+        dtab.tables[0].shape[0], y.data_ptr(), out.data_ptr(),
+        *plan.group(0, 8)[:2], 8, *plan.group(0, 8)[2:], g.n_cols, plan.e0,
+        plan.du, *plan.bp_tail(0, x, cfg, 0),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
+def test_exceeded_bounds_write_nan(monkeypatch):
+    """A window past the host's bound (here: bounds cut to 1) writes NaN:
+    a dropped nonzero cannot pass the kernel-vs-plain check."""
+    requires_cuda()
+    g = parallel_beam(6, 2, 24, VolumeGeometry(16, 16, 2))
+    plan = ParallelPlan(g)
+    cfg = tune.parallel_config(g, 2)
+    vol = torch.ones((16, 16, 4), device="cuda")
+    sino = torch.ones((6, 24, 4), device="cuda")
+    assert bool(torch.isfinite(fp_par.fp_lanes(vol, plan, cfg)).all())
+    monkeypatch.setattr(ParallelPlan, "fp_kw", lambda self, grp: 1)
+    monkeypatch.setattr(ParallelPlan, "bp_ku", lambda self: 1)
+    assert bool(torch.isnan(fp_par.fp_lanes(vol, plan, cfg)).any())
+    assert bool(torch.isnan(fp_par.bp_lanes(sino, plan, cfg)).any())
+    monkeypatch.undo()
+    monkeypatch.setattr(ParallelPlan, "fp_wcap", lambda self, grp, tu, lch, nvb: 2)
+    assert bool(torch.isnan(fp_par.fp_lanes(vol, plan, cfg)).any())
+
+
+def test_parallel_instances_fit_the_card():
+    """Every parallel kernel instance fits the card at the main and 512^3
+    cells' layouts and at pinned ones: blocks per SM from the card, at
+    least one, and the FP's shared memory as the kernel counts it equal to
+    the host's count (``fp_info`` raises otherwise)."""
+    requires_cuda()
+    cfgs = [None, tune.KernelConfig(bu=1, bg=32, lg=1),
+            tune.KernelConfig(bu=7, bg=13, lg=3),
+            tune.KernelConfig(bu=32, bg=32, lg=16)]
+    for lanes, n_rows in ((8, 1), (512, 512)):
+        g = parallel_beam(4, n_rows, 768, VolumeGeometry(512, 512, n_rows))
+        plan = ParallelPlan(g)
+        for dt in (torch.float32, torch.bfloat16):
+            for cfg in cfgs:
+                cfg = cfg or tune.parallel_config(g, lanes // n_rows)
+                fl = plan.fp_layout(0, dt, cfg)
+                info = fp_par.fp_info(fl, dt)
+                assert info["smem_bytes"] == fl.smem
+                assert info["blocks_per_sm"] >= 1, (fl, dt)
+                bl = plan.bp_layout(cfg)
+                assert fp_par.bp_info(bl, dt)["blocks_per_sm"] >= 1, (bl, dt)
+
+
+@pytest.mark.parametrize("shape", [(10, 6, 36, (24, 24, 6), None),
+                                   (10, 44, 36, (24, 20, 44), 3)],
+                         ids=["rows6", "rows44-batch3"])
+def test_kernel_pair_dot_test_and_gradient(shape):
+    """The dot test and the autograd gradient through the kernels; the
+    second case has 132 lanes, more than one lane chunk."""
+    requires_cuda()
+    na, nv, nu, vs, batch = shape
+    g = parallel_beam(na, nv, nu, VolumeGeometry(*vs))
     proj = Projector(ProjectorSpec(g, backend="cuda"))
     rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.normal(size=g.vol.shape).astype(np.float32)).cuda()
-    y = torch.from_numpy(rng.normal(size=g.sino_shape).astype(np.float32)).cuda()
+    lead = () if batch is None else (batch,)
+    x = torch.from_numpy(rng.normal(size=lead + g.vol.shape).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.normal(size=lead + g.sino_shape).astype(np.float32)).cuda()
+    fp_par.reset_launches()
     lhs = float((proj(x).double() * y.double()).sum())
     rhs = float((x.double() * proj.T(y).double()).sum())
     assert abs(lhs - rhs) / abs(lhs) < 1e-4
     xg = x.clone().requires_grad_()
     (grad,) = torch.autograd.grad(0.5 * torch.sum((proj(xg) - y) ** 2), xg)
     torch.testing.assert_close(grad, proj.T(proj(x) - y), rtol=1e-4, atol=1e-5)
+    assert fp_par.LAUNCHES["fp_par_sf"] >= 1 and fp_par.LAUNCHES["bp_par_sf"] >= 1
 
 
 DIVERGENT = [

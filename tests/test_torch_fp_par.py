@@ -1,6 +1,8 @@
 """The port's parallel SF pair (the CPU path of the kernel wrappers, and the
 ``ref`` backend) against the reference package: its plain oracle
 ``ref.forward``/``ref.adjoint`` and its Pallas kernels in interpret mode."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,3 +150,188 @@ def test_wrappers_count_no_launch_on_cpu_and_reject_bad_shapes():
     with pytest.raises(ValueError):
         ParallelPlan(tgeo.cone_beam(4, 4, 8, tgeo.VolumeGeometry(8, 8, 4),
                                     sod=40.0, sdd=80.0))
+
+
+# --------------------------------------------------------------------------- #
+# The CUDA kernels' layouts (derived on the host) against the plain weights
+# --------------------------------------------------------------------------- #
+_EDGE_ANGLES = np.deg2rad([0.0, 30.0, 44.0, 45.0, 46.0, 90.0, 134.0, 135.0,
+                           136.0, 179.5])
+LAYOUT_GEOMS = {
+    # nx, ny, na, nu, volume kwargs, detector kwargs
+    "ragged": (24, 24, 5, 40, {}, {}),
+    "nx_ne_ny": (20, 28, 12, 44, {}, {}),
+    "edges": (20, 20, None, 32, {}, {}),
+    "offset_aniso": (20, 20, 8, 30,
+                     dict(dx=1.5, dy=1.5, offset_x=1.3, offset_y=-0.8),
+                     dict(pixel_width=1.1, center_col=0.4)),
+    "fine_pixels": (16, 16, 7, 64, {}, dict(pixel_width=0.3)),
+    "coarse_pixels": (16, 16, 9, 12, {}, dict(pixel_width=2.5)),
+}
+LAYOUT_CONFIGS = {"heuristic": None,
+                  "pinned": fp_par.tune.KernelConfig(bu=8, bg=24, lg=2)}
+
+
+def _layout_plan(name):
+    nx, ny, na, nu, vk, dk = LAYOUT_GEOMS[name]
+    vol = tgeo.VolumeGeometry(nx, ny, 1, **vk)
+    if na is None:
+        g = tgeo.parallel_beam(len(_EDGE_ANGLES), 1, nu, vol,
+                               angles=_EDGE_ANGLES, **dk)
+    else:
+        g = tgeo.parallel_beam(na, 1, nu, vol, **dk)
+    return ParallelPlan(g)
+
+
+def _patterns(plan, grp):
+    """Per view of group ``grp``: ``nz[gi, li, u]``, the plain version's
+    nonzero weights, and ``win[gi, li, u]``, the kernels' exact windows (the
+    (voxel, column) pairs with t0 < el + du and t3 > el, in the kernels'
+    float32 roundings)."""
+    f = np.float32
+    ng, nl = plan.group(grp, 1)[:2]
+    nu = plan.geom.n_cols
+    table = torch.from_numpy(plan.tables[grp])
+    gi = np.arange(ng, dtype=f)[:, None, None]
+    li = np.arange(nl, dtype=f)[None, :, None]
+    el = (f(plan.e0) + np.arange(nu, dtype=f) * f(plan.du))[None, None, :]
+    eh = el + f(plan.du)
+    for a in range(table.shape[0]):
+        nz = np.zeros((ng, nl, nu), bool)
+        for u, w in plan.weights(table[a:a + 1], ng, nl):
+            u, w = u.reshape(ng, nl).numpy(), w.reshape(ng, nl).numpy()
+            g_i, l_i = np.nonzero(w != 0)
+            nz[g_i, l_i, u[g_i, l_i]] = True
+        P, Q, R, hs = (f(v) for v in plan.tables[grp][a, :4])
+        uc = (P * gi + Q * li) + R
+        win = ((uc - hs) < eh) & ((uc + hs) > el)
+        yield a, nz, win
+
+
+@pytest.mark.parametrize("config", list(LAYOUT_CONFIGS))
+@pytest.mark.parametrize("name", list(LAYOUT_GEOMS))
+def test_fp_layout_bounds_hold_the_nonzero_pattern(name, config):
+    """The FP kernel's layout (``ParallelPlan.fp_layout``) against the plain
+    version's nonzero weights: every nonzero lies in the kernel's exact
+    window; a (line, column) window holds at most ``kw`` voxels; and for
+    every batch of views (``fp_batches``: neighbours, P of one sign), tile
+    of ``tu`` columns and chunk of ``lch`` lines the windows lie in the
+    staged window of ``_tile_window`` (the kernel's), which holds at most
+    ``wcap`` rows."""
+    plan = _layout_plan(name)
+    cfg = LAYOUT_CONFIGS[config] or fp_par.tune.parallel_config(plan.geom, 3)
+    nu = plan.geom.n_cols
+    for grp in (0, 1):
+        ng, nl = plan.group(grp, 1)[:2]
+        lays = {plan.fp_layout(grp, dtype, cfg)
+                for dtype in (torch.float32, torch.bfloat16)}
+        lays |= {dataclasses.replace(lay, nvb=nvb, lch=lch,
+                                     wcap=plan.fp_wcap(grp, lay.tu, lch, nvb))
+                 for lay in list(lays) for nvb in (1, 3) for lch in (1, 4)}
+        pats = {a: win for a, _, win in _patterns(plan, grp)}
+        for a, nz, win in _patterns(plan, grp):
+            assert not (nz & ~win).any(), "a nonzero outside the window"
+            assert win.sum(axis=0).max() <= min(lay.kw for lay in lays)
+        for lay in lays:
+            assert lay.tu * 8 * cfg.lg == lay.tu * lay.tl * lay.lpt
+            assert lay.smem <= fp_par.FP_SMEM_BUDGET or lay.lch == 1
+            for batch in plan.fp_batches(grp, lay.nvb):
+                views = batch[batch >= 0]
+                assert len({bool(plan.tables[grp][v, 0] > 0) for v in views}) == 1
+                for u0 in range(0, nu, lay.tu):
+                    u1 = min(u0 + lay.tu, nu) - 1
+                    for l0 in range(0, nl, lay.lch):
+                        l1 = min(l0 + lay.lch, nl) - 1
+                        used = np.zeros(ng, bool)
+                        for v in views:
+                            used |= pats[v][:, l0:l1 + 1, u0:u1 + 1].any(axis=(1, 2))
+                        G0, G1 = fp_par._tile_window(plan.tables[grp][views],
+                                                     plan.e0, plan.du, u0, u1,
+                                                     l0, l1, ng)
+                        assert G1 - G0 + 1 <= lay.wcap, (G0, G1, lay)
+                        g_i = np.nonzero(used)[0]
+                        if g_i.size:
+                            assert G0 <= g_i.min() and g_i.max() <= G1, (views, u0, l0)
+
+
+@pytest.mark.parametrize("name", list(LAYOUT_GEOMS))
+def test_bp_layout_bounds_hold_the_nonzero_pattern(name):
+    """The BP kernel's bound (``ParallelPlan.bp_layout``) against the plain
+    version's nonzero weights: every nonzero lies in the kernel's exact
+    column window, which holds at most ``ku`` columns."""
+    plan = _layout_plan(name)
+    lay = plan.bp_layout(fp_par.tune.parallel_config(plan.geom, 3))
+    most = 0
+    for grp in (0, 1):
+        for _, nz, win in _patterns(plan, grp):
+            assert not (nz & ~win).any(), "a nonzero outside the window"
+            most = max(most, int(win.sum(axis=2).max()))
+    assert 1 <= most <= lay.ku, (most, lay)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lane_padding_keeps_the_lanes(dtype):
+    """The parallel wrappers' ``_aligned``: a tile whose lanes' bytes are a
+    multiple of 16 at an aligned address is passed as it is; a ragged lane
+    axis, or a tile at an address that is not a multiple of 16, becomes a
+    fresh aligned copy whose lane axis is padded by zeros to a multiple of
+    16 bytes; the fan pair (no ``LANE_BYTES``) is never padded."""
+    plan = ParallelPlan(tgeo.parallel_beam(4, 1, 8, tgeo.VolumeGeometry(4, 4, 1)))
+    vn = 16 // torch.tensor([], dtype=dtype).element_size()
+    x = torch.randn(4, 4, 2 * vn).to(dtype)
+    assert fp_par._aligned(x, plan) is x
+    for lanes, offset in ((3, 0), (vn + 1, 0), (vn, 1), (2 * vn, 1)):
+        base = torch.randn(4 * 4 * lanes + offset).to(dtype)
+        y = base[offset:].view(4, 4, lanes)
+        got = fp_par._aligned(y, plan)
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+        assert got.shape[-1] == -(-lanes // vn) * vn
+        assert torch.equal(got[..., :lanes], y)
+        assert not got[..., lanes:].any()
+    fan = FanPlan(tgeo.fan_beam(4, 1, 8, tgeo.VolumeGeometry(4, 4, 1), sod=40.0,
+                                sdd=80.0))
+    y = torch.randn(4, 4, 3).to(dtype)
+    assert fp_par._aligned(y, fan) is y
+
+
+def test_layouts_follow_the_config():
+    """The parallel heuristic's lane chunk stops at 16 groups of 8 lanes,
+    its FP tile is 32 columns at 8 lanes and 16 beyond, its BP block 128
+    threads; the BP block is whole warps of a power-of-two lane split; a
+    pinned config is taken as given, one too large for shared memory
+    refused; the fan pair's launch arguments are its own."""
+    tune = fp_par.tune
+    vol = tgeo.VolumeGeometry(64, 64, 64)
+    g = tgeo.parallel_beam(12, 64, 96, vol)
+    assert tune.parallel_config(g, 1) == tune.KernelConfig(bu=16, bg=32, lg=8)
+    assert tune.parallel_config(g, 8) == tune.KernelConfig(bu=16, bg=16, lg=16)
+    g2 = tgeo.parallel_beam(12, 1, 96, tgeo.VolumeGeometry(64, 64, 1))
+    assert tune.parallel_config(g2, 8) == tune.KernelConfig(bu=32, bg=128, lg=1)
+    assert tune.parallel_config(g2, 3) == tune.KernelConfig(bu=32, bg=128, lg=1)
+    assert tune.parallel_config(g2, 12) == tune.KernelConfig(bu=16, bg=64, lg=2)
+    plan = ParallelPlan(g)
+    for cfg, want in ((tune.KernelConfig(bu=8, bg=24, lg=3), (4, 4, 2)),
+                      (tune.KernelConfig(bu=8, bg=13, lg=2), (4, 4, 2)),
+                      (tune.KernelConfig(bu=8, bg=256, lg=1), (16, 16, 1)),
+                      (tune.KernelConfig(bu=8, bg=16, lg=64), (4, 4, 32))):
+        lay = plan.bp_layout(cfg)
+        assert (lay.bx, lay.by, lay.tl) == want, (cfg, lay)
+        assert (lay.bx * lay.by * lay.tl) % 32 == 0
+    lay = plan.fp_layout(0, torch.float32, tune.KernelConfig(bu=24, lg=3))
+    assert (lay.tu, lay.tl, lay.lpt) == (24, 3, 8)
+    lay = plan.fp_layout(0, torch.float32, tune.KernelConfig(bu=24, lg=8))
+    assert (lay.tu, lay.tl, lay.lpt) == (24, 4, 16)
+    # fewer threads than the block's 8 view slots a view (the kernel fills
+    # them in a strided loop)
+    lay = plan.fp_layout(0, torch.float32, tune.KernelConfig(bu=1, lg=1))
+    assert (lay.tu, lay.tl, lay.lpt, lay.nvb) == (1, 1, 8, fp_par.FP_VIEWS)
+    wide = ParallelPlan(tgeo.parallel_beam(4, 1, 64, tgeo.VolumeGeometry(64, 64, 1),
+                                           pixel_width=8.0))
+    with pytest.raises(ValueError, match="shared memory"):
+        wide.fp_layout(0, torch.float32, tune.KernelConfig(bu=512, lg=2))
+    fan = FanPlan(tgeo.fan_beam(4, 2, 12, tgeo.VolumeGeometry(8, 8, 2), sod=40.0,
+                                sdd=80.0, pixel_width=2.0))
+    cfg = tune.KernelConfig(bu=16, bg=32, lg=2)
+    x = torch.zeros(8, 8, 4)
+    assert fan.fp_tail(0, x, cfg) == (*fan.fp_args(), 16, 2)
+    assert fan.bp_tail(0, x, cfg, 1) == (*fan.bp_args(), 1, 32, 2)
