@@ -26,6 +26,9 @@ path through the public API at the paper's sizes:
   over 360 degrees, a 1x1126 detector, sod 1024, sdd 1536, at batch 8, on a
   flat and on a curved detector.  Dot tests (f32, bf16), the gradient, FBP
   of a uniform disk, a Parker short scan against naive weighting, SIRT-50.
+  Its kernels are also held on fan_rows (kernel phase): the flat fan cell
+  as a multi-slice scan, 16 detector rows over 512x512x16 at batch 4, 64
+  lanes whose threads share each weight.
 * cone cell — ``configs/leap_ct.py:16-18``
   ``table1_geometries()["cone_512_180"]``: a 512^3 volume, 180 views, a
   512x768 detector of 2 mm pixels, sod 1024, sdd 2048.  One FP, one BP, the
@@ -95,15 +98,17 @@ path through the public API at the paper's sizes:
 
 After the build it prints ptxas's registers and spills of every flash
 kernel instance (four kernels, f32 and bf16, hd 64, 128 and 192), of
-the eight cone-family FP and eight BP instances and of the 8 parallel
-instances (nvcc runs with ``-Xptxas=-v``) and, from the card, their shared
-memory a block (the FP's and flash's own count, held against the host's)
-and resident blocks per SM (the FP's with its tile at the cone and
-helical cells, the parallel pair's at the main and 512^3 cells).  Each
-cone-family FP row carries the thread-per-output FP's time of run 15I
-(``FP_15I_MS``) beside its own, each cone-family BP row the time of the BP
-before its redesign (``BP_PARENT_MS``), each parallel row the pair's time
-before its redesign (``PAR_PARENT_MS``).  After the kernel phase it builds the FP and
+the eight cone-family FP and eight BP instances, of the 8 parallel and
+the 16 fan instances (nvcc runs with ``-Xptxas=-v``) and, from the card,
+their shared memory a block (the FP's and flash's own count, held against
+the host's) and resident blocks per SM (the FP's with its tile at the cone
+and helical cells, the parallel pair's at the main and 512^3 cells, the
+fan pair's at the fan cells), and holds the fan kernels' division
+(``fan_div_rn``) against ``__fdiv_rn``.  Each cone-family FP row carries
+the thread-per-output FP's time of run 15I (``FP_15I_MS``) beside its
+own, each cone-family BP row the time of the BP before its redesign
+(``BP_PARENT_MS``), each parallel and fan row the pair's time before its
+redesign (``PAR_PARENT_MS``, ``FAN_PARENT_MS``).  After the kernel phase it builds the FP and
 BP with their phase profiles compiled in (``-DSF_FP_PHASES
 -DSF_BP_PHASES``) and prints, per cell, each phase's share of the cycles
 and the FP's passes, survivors and (survivor, slice) pairs and the BP's
@@ -229,6 +234,27 @@ PAR_PARENT_MS = {
     ("bp_par_sf", "3d", "float32"): 95.00109100341797,
     ("fp_par_sf", "3d", "bfloat16"): 141.2855682373047,
     ("bp_par_sf", "3d", "bfloat16"): 95.8796157836914,
+}
+
+# The fan pair before its redesign (a thread per output and 8 lanes, each
+# trapezoid re-formed in every column that might see it, margin taps), as
+# this script measured it on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md:
+# fan and fan_curved in run 20A, ``--cells fan,fan_curved`` from a checkout
+# of the parent; fan_rows in run 20F, the parent with this script):
+# ms by (kernel, cell, dtype), printed beside this run's.
+FAN_PARENT_MS = {
+    ("fp_fan_sf", "fan", "float32"): 48.59382247924805,
+    ("bp_fan_sf", "fan", "float32"): 11.324496269226074,
+    ("fp_fan_sf", "fan", "bfloat16"): 49.76591873168945,
+    ("bp_fan_sf", "fan", "bfloat16"): 9.763487815856934,
+    ("fp_fan_sf", "fan_curved", "float32"): 57.69776153564453,
+    ("bp_fan_sf", "fan_curved", "float32"): 11.528096199035645,
+    ("fp_fan_sf", "fan_curved", "bfloat16"): 59.20700645446777,
+    ("bp_fan_sf", "fan_curved", "bfloat16"): 10.65444803237915,
+    ("fp_fan_sf", "fan_rows", "float32"): 195.79244995117188,
+    ("bp_fan_sf", "fan_rows", "float32"): 68.3743667602539,
+    ("fp_fan_sf", "fan_rows", "bfloat16"): 200.88652801513672,
+    ("bp_fan_sf", "fan_rows", "bfloat16"): 69.66128158569336,
 }
 
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
@@ -560,6 +586,8 @@ def kernel_phase(torch, cells, results):
                     row["ms_parent"] = BP_PARENT_MS.get((cell, name))
                 if fam == "par":
                     row["ms_parent"] = PAR_PARENT_MS.get((kname, cell, name))
+                if fam == "fan":
+                    row["ms_parent"] = FAN_PARENT_MS.get((kname, cell, name))
                 results["kernels"].append(row)
                 log(f"kernel {kname:10s} {cell:10s} {name:8s} rel_err {err:.3g} "
                     f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms} "
@@ -683,6 +711,14 @@ def fan_geometry(det: str, n_angles: int = 768, angular_range: float = 360.0):
     from repro_torch import VolumeGeometry, fan_beam
     return fan_beam(n_angles, 1, 1126, VolumeGeometry(512, 512, 1), sod=1024.0,
                     sdd=1536.0, angular_range=angular_range, detector_type=det)
+
+
+def fan_rows_geometry():
+    """The fan cell as a multi-slice scan: 16 detector rows of 1 mm over a
+    512x512x16 volume (each row an independent fan of its slice)."""
+    from repro_torch import VolumeGeometry, fan_beam
+    return fan_beam(768, 16, 1126, VolumeGeometry(512, 512, 16), sod=1024.0,
+                    sdd=1536.0)
 
 
 def cone_geometry():
@@ -1228,6 +1264,81 @@ def par_build_report(results) -> None:
                         f"{r[cell]['smem_bytes']} bytes dynamic shared, "
                         f"{r[cell]['blocks_per_sm']} blocks per SM"
                         for cell in cells if r[cell]))
+
+
+def fan_build_report(results) -> None:
+    """ptxas's registers and spills of the 16 fan kernel instances (FP and
+    BP, f32 and bf16, flat and curved, 8 or 16 lanes a thread) and, on this
+    card, at the layout of each fan cell that runs the instance (the fan
+    heuristic): its tile, threads a block, dynamic shared memory (the
+    kernel's count, which the FP checks against the host's) and resident
+    blocks per SM."""
+    import re
+    import torch
+    from repro_torch.kernels import build, fp_fan, tune
+    if not hasattr(fp_fan, "fp_info"):     # a tree from before the redesign
+        log("fan build report: this tree's fan pair has no layouts; skipped")
+        return
+    cells = {"fan": (fan_geometry("flat"), 8), "fan_curved": (fan_geometry("curved"), 8),
+             "fan_rows": (fan_rows_geometry(), 4)}
+    rows = {}
+    for mangled, rep in build.ptxas_report("fp_fan").items():
+        m = re.search(r"([fb]p_fan_sf_kernel)I(f|13__nv_bfloat16)Lb([01])ELi(\d+)E",
+                      mangled)
+        if not m:
+            continue
+        fp, curved = m.group(1).startswith("fp"), m.group(3) == "1"
+        dtype = torch.float32 if m.group(2) == "f" else torch.bfloat16
+        lpt = int(m.group(4))
+        key = f"{m.group(1)}<{str(dtype)[6:]}, {'curved' if curved else 'flat'}, lpt={lpt}>"
+        row = dict(rep)
+        for cell, (geom, batch) in cells.items():
+            plan = fp_fan.FanPlan(geom)
+            cfg = tune.heuristic_config(geom, batch)
+            lay = plan.fp_layout(0, dtype, cfg) if fp else plan.bp_layout(cfg)
+            if lay.lpt != lpt or plan.curved != curved:
+                continue                  # the cell runs another instance
+            if fp:
+                threads, info = lay.tu * lay.tl, fp_fan.fp_info(lay, dtype, curved)
+                shape = (f"{lay.tu} columns x {lay.tl * lay.lpt} lanes, {lay.vcap} "
+                         f"voxels a piece")
+            else:
+                threads = lay.bx * lay.by * lay.tl
+                info = fp_fan.bp_info(lay, dtype, curved, geom.n_cols)
+                shape = f"{lay.bx} x {lay.by} voxels x {lay.tl * lay.lpt} lanes"
+            row[cell] = {"tile": shape, "threads": threads, **info}
+        rows[key] = row
+    check(len(rows) == 16, f"ptxas report of the fan kernels: {sorted(rows)}")
+    results["fan_sf_build"] = rows
+    for k, r in sorted(rows.items()):
+        log(f"ptxas {k}: {r['registers']} registers, {r['spill_stores']} bytes spill "
+            f"stores, {r['spill_loads']} bytes spill loads, {r['stack']} bytes stack"
+            + "".join(f"; {cell}: {r[cell]['tile']}, {r[cell]['threads']} threads, "
+                      f"{r[cell]['smem_bytes']} bytes dynamic shared, "
+                      f"{r[cell]['blocks_per_sm']} blocks per SM"
+                      for cell in cells if cell in r))
+
+
+# Pairs on which the fan kernels' division is held against __fdiv_rn.
+FAN_DIV_PAIRS = 1 << 28
+
+
+def fan_division_check(torch, results) -> None:
+    """The fan kernels divide by 2 (t1 - t0), 2 (t3 - t2) and the pixel
+    width without a division instruction (csrc/fp_fan.cu ``fan_div_rn``):
+    FAN_DIV_PAIRS pseudo-random (overlap, divisor) pairs over the divisors
+    the weights take must give __fdiv_rn's bits."""
+    from repro_torch.kernels import fp_fan
+    if not hasattr(fp_fan, "division_mismatches"):   # from before the redesign
+        log("fan division check: this tree's fan pair divides by __fdiv_rn; skipped")
+        return
+    t = time.perf_counter()
+    bad = fp_fan.division_mismatches(1, FAN_DIV_PAIRS)
+    results["fan_division"] = {"pairs": FAN_DIV_PAIRS, "mismatches": bad,
+                               "s": time.perf_counter() - t}
+    log(f"fan division against __fdiv_rn on {FAN_DIV_PAIRS} pairs: {bad} differ "
+        f"({time.perf_counter() - t:.2f} s)")
+    check(bad == 0, f"fan division differs from __fdiv_rn on {bad} pairs")
 
 
 def bp_build_report(results) -> None:
@@ -1929,6 +2040,9 @@ def projector_phases(torch, results, only=None) -> dict:
         "fan": Cell("fan", fan_geometry("flat"), 8, phantom_lanes, plain_reps=1),
         "fan_curved": Cell("fan", fan_geometry("curved"), 8, phantom_lanes,
                            plain_reps=1),
+        "fan_rows": Cell("fan", fan_rows_geometry(), 4, rand(512, 512, 64), 0,
+                         "16 detector rows over 512x512x16 at batch 4: 64 lanes, "
+                         "whose threads share each weight"),
         "cone": Cell("cone", cone_two, 1, rand(1, 512, 512, 512), 0,
                      "2 of the 180 views: the plain version cannot run all 180 at "
                      "512^3 in this run's time"),
@@ -2054,6 +2168,8 @@ def main() -> int:
     fp_build_report(results)
     bp_build_report(results)
     par_build_report(results)
+    fan_build_report(results)
+    fan_division_check(torch, results)
     if only is None:
         fp_division_check(torch, results)
 

@@ -67,18 +67,27 @@ _SIGNATURES = {
         "fp_par_sf_info": [_c.c_int] * 8 + [_c.POINTER(_c.c_int)] * 2,
         "bp_par_sf_info": [_c.c_int] * 4 + [_c.POINTER(_c.c_int)] * 2,
     },
+    # the fan pair: the lane-packed head, then (sdd, dxv, hw, curved) and
+    # the layout of fp_fan.FanPlan.fp_layout (tu, tl, lpt, vcap, segs, ku),
+    # or (sdd, dxv, curved) and bp_layout (accumulate, bx, by, tl, lpt,
+    # ku); the info entry points: (dtype, curved, the FP's layout with nl,
+    # or lpt, threads, nu and ku; out shared bytes, out blocks per SM); the
+    # division check: (seed, pairs, device counter, stream)
     "fp_fan": {
         "fp_fan_sf_launch": [
             _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p,
             _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_longlong,
             _c.c_longlong, _c.c_int, _c.c_float, _c.c_float, _c.c_float,
-            _c.c_float, _c.c_float, _c.c_int, _c.c_int, _c.c_int,
-            _c.c_void_p],
+            _c.c_float, _c.c_float] + [_c.c_int] * 7 + [_c.c_void_p],
         "bp_fan_sf_launch": [
             _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_void_p,
             _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_longlong,
             _c.c_longlong, _c.c_int, _c.c_float, _c.c_float, _c.c_float,
-            _c.c_float, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_void_p],
+            _c.c_float] + [_c.c_int] * 7 + [_c.c_void_p],
+        "fp_fan_sf_info": [_c.c_int] * 9 + [_c.POINTER(_c.c_int)] * 2,
+        "bp_fan_sf_info": [_c.c_int] * 6 + [_c.POINTER(_c.c_int)] * 2,
+        "fp_fan_div_check": [_c.c_uint, _c.c_ulonglong, _c.c_void_p,
+                             _c.c_void_p],
     },
     "fp_cone": {
         "fp_cone_sf_launch": [

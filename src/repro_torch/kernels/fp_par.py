@@ -148,10 +148,10 @@ class LanePlan:
     copies on each device they were used on.
 
     A subclass names its kernel library and kernels, the launch counts they
-    add to, the extra launch arguments of its kernels, the alignment its
-    kernels need of a tile (``LANE_BYTES``: its address and its lanes'
-    bytes a multiple of it; 0: none), and :meth:`weights`, the plain
-    version's footprint weights."""
+    add to, the launch arguments of its kernels (:meth:`fp_tail`,
+    :meth:`bp_tail`), the alignment its kernels need of a tile
+    (``LANE_BYTES``: its address and its lanes' bytes a multiple of it; 0:
+    none), and :meth:`weights`, the plain version's footprint weights."""
 
     LIB = ""
     KERNELS: Tuple[str, str] = ("", "")
@@ -187,23 +187,15 @@ class LanePlan:
             return nx, ny, ny * lanes, lanes
         return ny, nx, lanes, ny * lanes
 
-    def fp_args(self) -> tuple:
-        """Launch arguments of the FP kernel after the column pitch."""
-        return ()
-
-    def bp_args(self) -> tuple:
-        """Launch arguments of the BP kernel after the column pitch."""
-        return ()
-
     def fp_tail(self, grp: int, x: torch.Tensor, cfg: tune.KernelConfig) -> tuple:
         """Every launch argument of the FP kernel of view group ``grp`` on
         tile ``x`` between the column pitch and the stream."""
-        return (*self.fp_args(), cfg.bu, cfg.lg)
+        raise NotImplementedError
 
     def bp_tail(self, grp: int, x: torch.Tensor, cfg: tune.KernelConfig,
                 accumulate: int) -> tuple:
         """The same for the BP kernel (``accumulate``: add into the output)."""
-        return (*self.bp_args(), accumulate, cfg.bg, cfg.lg)
+        raise NotImplementedError
 
     def weights(self, table: torch.Tensor, ng: int, nl: int):
         raise NotImplementedError
@@ -250,6 +242,25 @@ def _floor_pow2(n: int) -> int:
 def _lanes_per_thread(groups: int) -> int:
     """Lanes a thread carries for a lane chunk of ``groups`` groups of 8."""
     return 16 if groups >= WIDE_GROUPS and groups % 2 == 0 else 8
+
+
+def bp_block(cfg: tune.KernelConfig) -> Tuple[int, int, int, int]:
+    """The block of a lane-packed BP kernel (parallel, fan), ``(bx, by, tl,
+    lpt)``: a chunk of ``cfg.lg`` groups of 8 lanes (rounded down to a power
+    of two, at most 64: a voxel's threads share a warp) and ``cfg.bg``
+    voxels a block (rounded down to whole warps, at least one), as the
+    squarest power-of-two split bx x by."""
+    groups = min(_floor_pow2(cfg.lg), 64)
+    lpt = _lanes_per_thread(groups)
+    tl = groups * 8 // lpt
+    per = 32 // tl                      # voxels a warp
+    nvox = max(per, cfg.bg // per * per)
+    while tl * nvox > 1024:
+        nvox -= per
+    by = 1
+    while by * by * 4 <= nvox and nvox % (by * 2) == 0:
+        by *= 2
+    return nvox // by, by, tl, lpt
 
 
 def _tile_window(rows: np.ndarray, e0: float, du: float, u_first: int,
@@ -408,25 +419,12 @@ class ParallelPlan(LanePlan):
         return FpLayout(tu, tl, lpt, nvb, lch, wcap, kw, smem)
 
     def bp_layout(self, cfg: tune.KernelConfig) -> BpLayout:
-        """The BP kernel's layout: a chunk of ``cfg.lg`` groups of 8 lanes
-        (rounded down to a power of two, at most 64: a voxel's threads share
-        a warp) and ``cfg.bg`` voxels a block (rounded down to whole warps,
-        at least one), as the squarest power-of-two split bx x by."""
-        groups = min(_floor_pow2(cfg.lg), 64)
-        lpt = _lanes_per_thread(groups)
-        tl = groups * 8 // lpt
-        per = 32 // tl                      # voxels a warp
-        nvox = max(per, cfg.bg // per * per)
-        while tl * nvox > 1024:
-            nvox -= per
-        by = 1
-        while by * by * 4 <= nvox and nvox % (by * 2) == 0:
-            by *= 2
+        """The BP kernel's layout: :func:`bp_block` and :meth:`bp_ku`."""
         ku = self.bp_ku()
         if ku > _MAX_TAPS:
             raise ValueError(f"bp_par_sf: {ku} columns a voxel and view "
                              f"exceed the kernel's {_MAX_TAPS}")
-        return BpLayout(nvox // by, by, tl, lpt, ku)
+        return BpLayout(*bp_block(cfg), ku)
 
     def fp_tail(self, grp: int, x: torch.Tensor, cfg: tune.KernelConfig) -> tuple:
         lay = self.fp_layout(grp, x.dtype, cfg)

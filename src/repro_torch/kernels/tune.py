@@ -1,40 +1,33 @@
 """Launch configuration of the CUDA projector kernels.
 
-The lane-packed kernels (parallel and fan beam) carry ``LANES_PER_THREAD``
-consecutive lanes per thread (a lane is one ``batch x detector-row``
-column of the lane-packed layout, contiguous in memory), so one footprint
-weight serves that many multiply-adds.  A block is a 2D arrangement of threads:
-
-    lg   lane groups per block (threadIdx.x, fastest — neighbouring threads
-         read neighbouring lane groups, so loads coalesce when there are
-         many lanes)
-    bu   FP: detector columns per block (threadIdx.y)
-    bg   BP: gathered-axis voxels per block (threadIdx.y)
-
-That is how the fan kernels (``csrc/fp_fan.cu``) read it.  The parallel
-kernels (``csrc/fp_par.cu``) read the same fields as their tile shape, and
-derive the rest from the shapes (``fp_par.ParallelPlan.fp_layout`` and
-``bp_layout``):
+The lane-packed kernels (parallel and fan beam) carry 8 or 16 consecutive
+lanes per thread (a lane is one ``batch x detector-row`` column of the
+lane-packed layout, contiguous in memory; ``LANES_PER_THREAD`` is a lane
+group, 16 from 4 groups a block on), and the threads of a block's lane
+chunk share each footprint weight.  Both pairs read the fields as their
+tile shape and derive the rest from the shapes:
 
     lg   groups of 8 lanes a block (the lane chunk: 8 lg lanes, whose
          threads share each weight; a thread carries 16 lanes from 4
          groups on, else 8).  The BP rounds it down to a power of two, at
          most 64 (a voxel's threads share a warp)
     bu   FP: detector columns a block (the tile whose weights are
-         evaluated once and whose volume slab is staged); the layout adds
-         up to ``fp_par.FP_VIEWS`` neighbouring views a block
+         evaluated once and whose volume is staged).  The parallel layout
+         adds up to ``fp_par.FP_VIEWS`` neighbouring views a block
+         (``fp_par.ParallelPlan.fp_layout``); the fan layout walks the
+         tile's loop lines in pieces of voxels that fill its shared memory
+         budget (``fp_fan.FanPlan.fp_layout``)
     bg   BP: voxels a block, rounded down to whole warps and split into
-         the squarest power-of-two tile of gi x li
+         the squarest power-of-two tile of gi x li (``fp_par.bp_block``)
 
-Their heuristic is :func:`parallel_config`.  The exact cone and modular
-kernels have no lane axis and take no
-configuration: their launches (``csrc/cone_sf.cuh`` ``sf_grid``) derive the
-block from the detector rows or z slices, and the samples per thread from
-the batch (``fp_cone.samples_per_thread``).
+The fan pair's heuristic is :func:`heuristic_config`, the parallel pair's
+:func:`parallel_config`.  The exact cone and modular kernels have no lane
+axis and take no configuration: their launches (``csrc/cone_sf.cuh``
+``sf_grid``) derive the block from the detector rows or z slices, and the
+samples per thread from the batch (``fp_cone.samples_per_thread``).
 
-The fan kernels mask the lane axis at its ragged edge; the parallel
-kernels read 16 bytes at a time, and their wrappers pad the lane axis to a
-multiple of 16 bytes where it is not one (``fp_par._aligned``).
+The kernels read 16 bytes at a time, and their wrappers pad the lane axis
+to a multiple of 16 bytes where it is not one (``fp_par._aligned``).
 ``resolve_config`` returns an explicit pin when one is given, else the
 pair's heuristic.
 """
@@ -48,9 +41,11 @@ from repro_torch.core.geometry import CTGeometry
 __all__ = ["KernelConfig", "LANES_PER_THREAD", "heuristic_config",
            "parallel_config", "resolve_config"]
 
-LANES_PER_THREAD = 8        # must equal LPT in csrc/fp_fan.cu
-_THREADS = 128              # threads per block chosen by the heuristic
+LANES_PER_THREAD = 8        # lanes a group (the kernels' lane vectors)
+_THREADS = 128              # threads per block chosen by the heuristics
 _MAX_THREADS = 1024
+_MAX_GROUPS = 16            # lane groups a block, parallel heuristic
+_FAN_MAX_GROUPS = 8         # lane groups a block, fan heuristic
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,12 +76,17 @@ def _pow2_ceil(n: int) -> int:
 
 
 def heuristic_config(geom: CTGeometry, batch: int = 1) -> KernelConfig:
-    """128-thread blocks: as many lane groups as the lanes need (up to 4),
-    the rest of the block along detector columns / gathered voxels."""
+    """The fan kernels' heuristic: as many lane groups as the lanes need,
+    up to 8 (a thread carries 8 lanes, or 16 from 4 groups on; the FP
+    stages a voxel's whole lane chunk, so wider chunks leave fewer voxels
+    a piece), and blocks of 128 threads: FP tiles of 128 columns at one
+    thread a column, fewer as the lane chunk widens; BP blocks likewise
+    (PERF.md, the fan pair's sweeps)."""
     lanes = batch * geom.n_rows
     groups = -(-lanes // LANES_PER_THREAD)
-    lg = min(_pow2_ceil(groups), 4)
-    return KernelConfig(bu=_THREADS // lg, bg=_THREADS // lg, lg=lg)
+    lg = min(_pow2_ceil(groups), _FAN_MAX_GROUPS)
+    tl = lg if lg < 4 else lg // 2          # threads an output
+    return KernelConfig(bu=_THREADS // tl, bg=_THREADS // tl, lg=lg)
 
 
 def resolve_config(
@@ -102,7 +102,6 @@ def resolve_config(
 # lane chunk of up to 16 groups (128 lanes: each weight serves them all);
 # FP tiles of 32 columns at 8 lanes, else 16 (with up to FP_VIEWS views a
 # block, fp_par.ParallelPlan.fp_layout); BP blocks of 128 threads.
-_PAR_MAX_GROUPS = 16
 
 
 def parallel_config(geom: CTGeometry, batch: int = 1) -> KernelConfig:
@@ -112,6 +111,6 @@ def parallel_config(geom: CTGeometry, batch: int = 1) -> KernelConfig:
     above."""
     lanes = batch * geom.n_rows
     groups = -(-lanes // LANES_PER_THREAD)
-    lg = min(_pow2_ceil(groups), _PAR_MAX_GROUPS)
+    lg = min(_pow2_ceil(groups), _MAX_GROUPS)
     tl = lg if lg < 4 else lg // 2          # threads an output
     return KernelConfig(bu=32 if tl == 1 else 16, bg=128 // tl, lg=lg)

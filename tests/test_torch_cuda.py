@@ -198,11 +198,26 @@ def test_kernel_pair_dot_test_and_gradient(shape):
     assert fp_par.LAUNCHES["fp_par_sf"] >= 1 and fp_par.LAUNCHES["bp_par_sf"] >= 1
 
 
+# views at the axes and on both sides of 45, 135, 225 and 315 degrees: the
+# view groups' edges, where the fan FP's tile windows are tightest
+FAN_EDGE_ANGLES = np.deg2rad([0.0, 44.0, 45.0, 46.0, 90.0, 134.0, 135.0, 136.0,
+                              179.5, 224.0, 226.0, 314.0, 316.0])
+
 DIVERGENT = [
     # kind, n_angles, n_rows, n_cols, (nx, ny, nz), kwargs, batch
     ("fan", 12, 2, 40, (24, 24, 2), dict(sod=80.0, sdd=160.0, pixel_width=2.0), 3),
     ("fan", 12, 1, 96, (48, 48, 1), dict(sod=200.0, sdd=220.0, pixel_width=1.0,
                                          detector_type="curved"), 8),
+    # 132 lanes: a chunk of 128 and a ragged one; 36 columns
+    ("fan", 9, 44, 36, (24, 24, 44), dict(sod=80.0, sdd=160.0, pixel_width=2.0), 3),
+    # nx != ny; 300 columns, not a multiple of the 128-column tile
+    ("fan", 10, 1, 300, (20, 28, 1), dict(sod=100.0, sdd=180.0, pixel_width=0.4), 3),
+    ("fan", len(FAN_EDGE_ANGLES), 1, 70, (24, 24, 1),
+     dict(sod=60.0, sdd=120.0, pixel_width=1.0, angles=FAN_EDGE_ANGLES), 2),
+    # a wide fan (half-angle ~34 degrees) on the curved detector, 2 rows
+    ("fan", len(FAN_EDGE_ANGLES), 2, 200, (48, 48, 2),
+     dict(sod=60.0, sdd=120.0, pixel_width=1.0, angles=FAN_EDGE_ANGLES,
+          detector_type="curved"), 2),
     ("cone", 9, 16, 36, (24, 24, 12), dict(sod=80.0, sdd=160.0, pixel_width=2.0,
                                            pixel_height=2.0), 2),
     ("cone", 6, 20, 40, (32, 32, 24), dict(sod=60.0, sdd=150.0, pixel_width=2.0,
@@ -265,6 +280,128 @@ def test_divergent_pair_dot_test_and_gradient(case):
     xg = x.clone().requires_grad_()
     (grad,) = torch.autograd.grad(0.5 * torch.sum((proj(xg) - y) ** 2), xg)
     torch.testing.assert_close(grad, proj.T(proj(x) - y), rtol=1e-4, atol=1e-5)
+
+
+def _fan_match_plain(g, batch, dtype, cfg=None):
+    """Both fan kernels against their plain versions on random tiles;
+    ``cfg`` None: the fan heuristic."""
+    plan = FanPlan(g)
+    dt = getattr(torch, dtype)
+    cfg = cfg or tune.heuristic_config(g, batch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lanes = batch * g.n_rows
+    vol = torch.randn((g.vol.nx, g.vol.ny, lanes), generator=gen, device="cuda").to(dt)
+    sino = torch.randn((g.n_angles, g.n_cols, lanes), generator=gen,
+                       device="cuda").to(dt)
+    tol = 2e-4 if dtype == "float32" else precision.BF16_KERNEL_REL_TOL
+    fp_fan.reset_launches()
+    for run, plain, x in ((fp_fan.fp_lanes, fp_fan.fp_lanes_plain, vol),
+                          (fp_fan.bp_lanes, fp_fan.bp_lanes_plain, sino)):
+        got = run(x, plan, cfg)
+        torch.cuda.synchronize()
+        want = plain(x, plan)
+        assert bool(torch.isfinite(got).all())
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel <= tol, rel
+    assert fp_fan.LAUNCHES["fp_fan_sf"] >= 1 and fp_fan.LAUNCHES["bp_fan_sf"] >= 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("det", ["flat", "curved"])
+@pytest.mark.parametrize("cfg", [tune.KernelConfig(bu=1, bg=32, lg=1),
+                                 tune.KernelConfig(bu=4, bg=32, lg=1),
+                                 tune.KernelConfig(bu=7, bg=13, lg=3),
+                                 tune.KernelConfig(bu=24, bg=40, lg=2),
+                                 tune.KernelConfig(bu=32, bg=32, lg=16)],
+                         ids=lambda c: f"bu{c.bu}-bg{c.bg}-lg{c.lg}")
+def test_fan_kernels_match_plain_with_a_pinned_config(cfg, det, dtype):
+    """Pinned fan layouts, down to FP tiles of one and four columns, on 132
+    ragged lanes over nx != ny."""
+    requires_cuda()
+    _fan_match_plain(fan_beam(11, 44, 50, VolumeGeometry(24, 20, 44), sod=80.0,
+                              sdd=160.0, pixel_width=1.0, detector_type=det),
+                     3, dtype, cfg)
+
+
+def test_fan_exceeded_bound_writes_nan(monkeypatch):
+    """A voxel meeting more columns than the host's bound (here: cut to 1)
+    writes NaN in both kernels: a dropped nonzero cannot pass the
+    kernel-vs-plain check."""
+    requires_cuda()
+    g = fan_beam(6, 2, 24, VolumeGeometry(16, 16, 2), sod=40.0, sdd=80.0)
+    plan = FanPlan(g)
+    cfg = tune.heuristic_config(g, 2)
+    vol = torch.ones((16, 16, 4), device="cuda")
+    sino = torch.ones((6, 24, 4), device="cuda")
+    assert bool(torch.isfinite(fp_fan.fp_lanes(vol, plan, cfg)).all())
+    assert bool(torch.isfinite(fp_fan.bp_lanes(sino, plan, cfg)).all())
+    monkeypatch.setattr(FanPlan, "ku", lambda self: 1)
+    assert bool(torch.isnan(fp_fan.fp_lanes(vol, plan, cfg)).any())
+    assert bool(torch.isnan(fp_fan.bp_lanes(sino, plan, cfg)).any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fan_kernels_take_tiles_at_any_address(dtype):
+    """A fan tile at an address that is not a multiple of 16 bytes is
+    copied to aligned memory by the wrapper and gives the aligned tile's
+    result; the C launch refuses such a tile itself."""
+    requires_cuda()
+    from repro_torch.kernels import build
+    g = fan_beam(10, 2, 30, VolumeGeometry(20, 20, 2), sod=60.0, sdd=120.0)
+    plan, cfg = FanPlan(g), tune.heuristic_config(g, 4)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for run, shape in ((fp_fan.fp_lanes, (20, 20, 8)), (fp_fan.bp_lanes, (10, 30, 8))):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        base = torch.zeros(x.numel() + 1, dtype=dt, device="cuda")
+        y = base[1:].view(shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16 != 0
+        assert torch.equal(run(y, plan, cfg), run(x, plan, cfg))
+    lib = build.library("fp_fan")
+    dtab = plan.on(x.device)
+    out = torch.empty((20, 20, 8), device="cuda")
+    rc = lib.bp_fan_sf_launch(
+        fp_par._DTYPE_CODE[dt], dtab.tables[0].data_ptr(), dtab.rows[0].data_ptr(),
+        dtab.tables[0].shape[0], y.data_ptr(), out.data_ptr(),
+        *plan.group(0, 8)[:2], 8, *plan.group(0, 8)[2:], g.n_cols, plan.e0,
+        plan.du, *plan.bp_tail(0, x, cfg, 0), torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
+def test_fan_instances_fit_the_card():
+    """Every fan kernel instance fits the card at the fan cells' layouts
+    (8 and 64 lanes, flat and curved) and at pinned ones: blocks per SM
+    from the card, at least one, and the FP's shared memory as the kernel
+    counts it equal to the host's count (``fp_info`` raises otherwise)."""
+    requires_cuda()
+    cfgs = [None, tune.KernelConfig(bu=1, bg=32, lg=1),
+            tune.KernelConfig(bu=7, bg=13, lg=3),
+            tune.KernelConfig(bu=32, bg=32, lg=16)]
+    for n_rows, batch in ((1, 8), (16, 4)):
+        for det in ("flat", "curved"):
+            g = fan_beam(4, n_rows, 1126, VolumeGeometry(512, 512, n_rows),
+                         sod=1024.0, sdd=1536.0, detector_type=det)
+            plan = FanPlan(g)
+            for dt in (torch.float32, torch.bfloat16):
+                for cfg in cfgs:
+                    cfg = cfg or tune.heuristic_config(g, batch)
+                    fl = plan.fp_layout(0, dt, cfg)
+                    info = fp_fan.fp_info(fl, dt, plan.curved)
+                    assert info["smem_bytes"] == fl.smem
+                    assert info["blocks_per_sm"] >= 1, (fl, dt)
+                    bl = plan.bp_layout(cfg)
+                    assert fp_fan.bp_info(bl, dt, plan.curved, g.n_cols)[
+                        "blocks_per_sm"] >= 1, (bl, dt)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_fan_division_rounds_as_ieee(seed):
+    """The fan kernels' division by a reciprocal and two corrections
+    (``fan_div_rn``) gives __fdiv_rn's bits on 2^24 pairs over the divisors
+    the weights take, zero and tiny overlaps included."""
+    requires_cuda()
+    assert fp_fan.division_mismatches(seed, 1 << 24) == 0
 
 
 def _wobbly(na=9, nv=12, nu=32, seed=3):

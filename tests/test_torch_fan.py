@@ -14,7 +14,7 @@ from repro.kernels.fp_fan import bp_fan_sf_pallas, fp_fan_sf_pallas
 
 import repro_torch.core.geometry as tgeo
 from repro_torch import Projector, ProjectorSpec
-from repro_torch.kernels import fp_cone, fp_fan, precision
+from repro_torch.kernels import fp_cone, fp_fan, precision, tune
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.fp_fan import FanPlan
 
@@ -163,3 +163,131 @@ def test_parallel_limit():
     pf, pp = tref.forward(f, gf), tref.forward(f, gp)
     err = float((pf - pp).abs().max() / pp.abs().max())
     assert err < 1e-3, err
+
+
+# --------------------------------------------------------------------------- #
+# What the kernels' launcher derives on the host (csrc/fp_fan.cu), held
+# against the plain weights by brute force
+# --------------------------------------------------------------------------- #
+LAYOUT_GEOMS = {
+    "flat": GEOMS["flat"],
+    "curved": GEOMS["curved"],
+    # a wide fan (half-angle ~34 degrees) at the axes and both sides of the
+    # 45 and 135 degree group edges, flat and curved
+    "edges_wide": (7, 1, 90, (40, 40, 1), dict(
+        sod=48.0, sdd=96.0, pixel_width=1.0,
+        angles=np.deg2rad([0.0, 44.0, 46.0, 90.0, 134.0, 136.0, 225.0]))),
+    "edges_wide_curved": (7, 1, 90, (40, 40, 1), dict(
+        sod=48.0, sdd=96.0, pixel_width=1.0, detector_type="curved",
+        angles=np.deg2rad([0.0, 44.0, 46.0, 90.0, 134.0, 136.0, 225.0]))),
+    "nx_ne_ny": (5, 1, 60, (20, 28, 1), dict(sod=100.0, sdd=180.0,
+                                             pixel_width=0.4)),
+}
+
+
+def _taps(plan, grp):
+    """(view, gi, li, u, t0, t3) of every tap of view group ``grp`` and
+    whether its plain weight is nonzero, as flat arrays."""
+    table = plan.on(torch.device("cpu")).tables[grp]
+    ng, nl = plan.group(grp, 1)[:2]
+    gi = torch.arange(ng, dtype=torch.float32)[None, :, None]
+    li = torch.arange(nl, dtype=torch.float32)[None, None, :]
+    t0, _, _, t3 = (t.reshape(table.shape[0], ng * nl) for t in
+                    fp_cone._corner_trapezoid(table, gi, li, plan.sdd, plan.dxv,
+                                              plan.curved)[:4])
+    us, nz = [], []
+    for u, w in plan.weights(table, ng, nl):
+        us.append(u)
+        nz.append(w != 0)
+    return table, ng, nl, t0, t3, torch.stack(us, -1), torch.stack(nz, -1)
+
+
+@pytest.mark.parametrize("name", list(LAYOUT_GEOMS))
+def test_ku_bounds_the_columns_a_voxel_meets(name):
+    """Every (voxel, view)'s columns that the kernels evaluate (those whose
+    pixel meets its trapezoid, as the kernels' fan_column_window finds them)
+    number at most FanPlan.ku, and every nonzero plain weight is among them:
+    the window drops only exact zeros, and no voxel overflows its slots."""
+    na, nv, nu, vs, kw = LAYOUT_GEOMS[name]
+    plan = FanPlan(tgeo.fan_beam(na, nv, nu, tgeo.VolumeGeometry(*vs), **kw))
+    el = torch.tensor([np.float32(np.float32(plan.e0) + np.float32(
+        np.float32(u) * np.float32(plan.du))) for u in range(nu)])
+    eh = el + plan.du
+    most = 0
+    for grp in (0, 1):
+        _, _, _, t0, t3, u, nz = _taps(plan, grp)
+        meets = (eh > t0[..., None]) & (el < t3[..., None])     # (a, vox, nu)
+        most = max(most, int(meets.sum(-1).max()))
+        hit = torch.gather(meets, 2, u)                           # (a, vox, taps)
+        assert not (nz & ~hit).any(), "a nonzero weight outside the window"
+    assert 1 <= most <= plan.ku(), (most, plan.ku())
+
+
+@pytest.mark.parametrize("name", list(LAYOUT_GEOMS))
+def test_tile_window_holds_every_nonzero_tap(name):
+    """The FP kernel's voxel window of a tile and line (``tile_window``, the
+    host's copy of the kernel's) holds the voxel of every nonzero plain
+    weight of every column of the tile, at tiles of 1, 7 and 128 columns."""
+    na, nv, nu, vs, kw = LAYOUT_GEOMS[name]
+    plan = FanPlan(tgeo.fan_beam(na, nv, nu, tgeo.VolumeGeometry(*vs), **kw))
+    for grp in (0, 1):
+        table, ng, nl, _, _, u, nz = _taps(plan, grp)
+        rows = table.numpy()
+        a, vox, k = torch.nonzero(nz, as_tuple=True)
+        cols = u[a, vox, k]
+        for tu in (1, 7, 128):
+            windows = {}
+            for ai, vi, ui in zip(a.tolist(), vox.tolist(), cols.tolist()):
+                gi, li, t = vi // nl, vi % nl, ui // tu
+                key = (ai, li, t)
+                if key not in windows:
+                    windows[key] = fp_fan.tile_window(
+                        plan, rows[ai], li, t * tu, min(t * tu + tu, nu) - 1, ng)
+                g0, g1 = windows[key]
+                assert g0 <= gi <= g1, (name, grp, tu, ai, gi, li, ui, g0, g1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg", [tune.KernelConfig(), tune.KernelConfig(bu=1, lg=1),
+                                 tune.KernelConfig(bu=7, bg=13, lg=3),
+                                 tune.KernelConfig(bu=32, bg=32, lg=16)],
+                         ids=lambda c: f"bu{c.bu}-bg{c.bg}-lg{c.lg}")
+def test_fp_layout_fills_the_budget(cfg, dtype):
+    """The FP layout takes the config's tile and lane chunk (8 lanes a
+    thread, 16 from 4 groups on), the most voxel slots a piece within
+    FP_SMEM_BUDGET that are a whole number a thread (one at least), and
+    counts its shared memory as the kernel carves it (``_fp_smem``, held
+    against the kernel's count on the card)."""
+    _, tg = _pair("curved")
+    plan = FanPlan(tg)
+    elem = {torch.float32: 4, torch.bfloat16: 2}[dtype]
+    for grp in (0, 1):
+        lay = plan.fp_layout(grp, dtype, cfg)
+        lpt = 16 if cfg.lg >= 4 and cfg.lg % 2 == 0 else 8
+        assert (lay.tu, lay.lpt, lay.tl * lay.lpt) == (cfg.bu, lpt, 8 * cfg.lg)
+        assert lay.nl == plan.group(grp, 1)[1] and lay.ku == plan.ku()
+        count = lambda v: fp_fan._fp_smem(elem, lay.tu, 8 * cfg.lg, lay.nl, v,  # noqa: E731
+                                          lay.segs, lay.ku)
+        assert lay.smem == count(lay.vcap)
+        nt = lay.tu * lay.tl
+        if count(lay.vcap + 1) > fp_fan.fp_par.SMEM_MAX:
+            continue                          # the card's most slots
+        assert lay.vcap % nt == 0             # whole slots a thread
+        assert lay.vcap == nt or lay.smem <= fp_fan.FP_SMEM_BUDGET
+        assert count(lay.vcap + nt) > fp_fan.FP_SMEM_BUDGET
+    bl = plan.bp_layout(cfg)
+    assert (bl.bx * bl.by * bl.tl) % 32 == 0 and bl.ku == plan.ku()
+
+
+def test_heuristic_config_shares_weights_across_lanes():
+    """The fan heuristic: a lane chunk of as many groups of 8 lanes as the
+    lanes need, up to 8 (weights shared by its threads), in blocks of 128
+    threads."""
+    v = tgeo.VolumeGeometry(16, 16, 1)
+    g1 = tgeo.fan_beam(4, 1, 24, v, sod=40.0, sdd=80.0)
+    assert tune.heuristic_config(g1, 8) == tune.KernelConfig(bu=128, bg=128, lg=1)
+    assert tune.heuristic_config(g1, 3) == tune.KernelConfig(bu=128, bg=128, lg=1)
+    g16 = tgeo.fan_beam(4, 16, 24, tgeo.VolumeGeometry(16, 16, 16), sod=40.0, sdd=80.0)
+    assert tune.heuristic_config(g16, 4) == tune.KernelConfig(bu=32, bg=32, lg=8)
+    g44 = tgeo.fan_beam(4, 44, 24, tgeo.VolumeGeometry(16, 16, 44), sod=40.0, sdd=80.0)
+    assert tune.heuristic_config(g44, 3) == tune.KernelConfig(bu=32, bg=32, lg=8)

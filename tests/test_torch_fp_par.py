@@ -271,27 +271,27 @@ def test_bp_layout_bounds_hold_the_nonzero_pattern(name):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lane_padding_keeps_the_lanes(dtype):
-    """The parallel wrappers' ``_aligned``: a tile whose lanes' bytes are a
-    multiple of 16 at an aligned address is passed as it is; a ragged lane
-    axis, or a tile at an address that is not a multiple of 16, becomes a
-    fresh aligned copy whose lane axis is padded by zeros to a multiple of
-    16 bytes; the fan pair (no ``LANE_BYTES``) is never padded."""
-    plan = ParallelPlan(tgeo.parallel_beam(4, 1, 8, tgeo.VolumeGeometry(4, 4, 1)))
-    vn = 16 // torch.tensor([], dtype=dtype).element_size()
-    x = torch.randn(4, 4, 2 * vn).to(dtype)
-    assert fp_par._aligned(x, plan) is x
-    for lanes, offset in ((3, 0), (vn + 1, 0), (vn, 1), (2 * vn, 1)):
-        base = torch.randn(4 * 4 * lanes + offset).to(dtype)
-        y = base[offset:].view(4, 4, lanes)
-        got = fp_par._aligned(y, plan)
-        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
-        assert got.shape[-1] == -(-lanes // vn) * vn
-        assert torch.equal(got[..., :lanes], y)
-        assert not got[..., lanes:].any()
+    """The lane-packed wrappers' ``_aligned``, for the parallel and the fan
+    pair alike (both read 16 bytes at a time, ``LANE_BYTES``): a tile whose
+    lanes' bytes are a multiple of 16 at an aligned address is passed as
+    it is; a ragged lane axis, or a tile at an address that is not a
+    multiple of 16, becomes a fresh aligned copy whose lane axis is padded
+    by zeros to a multiple of 16 bytes."""
+    par = ParallelPlan(tgeo.parallel_beam(4, 1, 8, tgeo.VolumeGeometry(4, 4, 1)))
     fan = FanPlan(tgeo.fan_beam(4, 1, 8, tgeo.VolumeGeometry(4, 4, 1), sod=40.0,
                                 sdd=80.0))
-    y = torch.randn(4, 4, 3).to(dtype)
-    assert fp_par._aligned(y, fan) is y
+    vn = 16 // torch.tensor([], dtype=dtype).element_size()
+    for plan in (par, fan):
+        x = torch.randn(4, 4, 2 * vn).to(dtype)
+        assert fp_par._aligned(x, plan) is x
+        for lanes, offset in ((3, 0), (vn + 1, 0), (vn, 1), (2 * vn, 1)):
+            base = torch.randn(4 * 4 * lanes + offset).to(dtype)
+            y = base[offset:].view(4, 4, lanes)
+            got = fp_par._aligned(y, plan)
+            assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+            assert got.shape[-1] == -(-lanes // vn) * vn
+            assert torch.equal(got[..., :lanes], y)
+            assert not got[..., lanes:].any()
 
 
 def test_layouts_follow_the_config():
@@ -333,5 +333,9 @@ def test_layouts_follow_the_config():
                                 sdd=80.0, pixel_width=2.0))
     cfg = tune.KernelConfig(bu=16, bg=32, lg=2)
     x = torch.zeros(8, 8, 4)
-    assert fan.fp_tail(0, x, cfg) == (*fan.fp_args(), 16, 2)
-    assert fan.bp_tail(0, x, cfg, 1) == (*fan.bp_args(), 1, 32, 2)
+    fl, bl = fan.fp_layout(0, x.dtype, cfg), fan.bp_layout(cfg)
+    head = (fan.sdd, fan.dxv, fan.hw, int(fan.curved))
+    assert fan.fp_tail(0, x, cfg) == (*head, 16, 2, 8, fl.vcap, fl.segs, fl.ku)
+    assert fan.bp_tail(0, x, cfg, 1) == (fan.sdd, fan.dxv, int(fan.curved), 1,
+                                         bl.bx, bl.by, 2, 8, bl.ku)
+    assert (bl.bx * bl.by, bl.tl) == (32, 2)
