@@ -12,13 +12,13 @@ time, its bound and the time of ``torch.sparse.mm`` on the
 CSR system matrix wherever its nonzeros fit int32 indices, then drives each
 path through the public API at the paper's sizes:
 
-* main cell (parallel) — the limited-angle training shape of the reference
-  package's ``configs/leap_ct.py:22`` ``limited_angle_geometry(512, 720)``:
+* main cell (parallel) — the limited-angle training shape,
+  ``configs/leap_ct.py`` ``limited_angle_geometry(512, 720)``:
   a 512x512x1 volume, 720 views over 180 degrees, a 1x768 detector, at
   batch 8 (random ellipse phantoms, seeds 0-7, f32).  Dot tests (f32,
   bf16), the autograd gradient against A^T(Ax - y), Shepp-Logan against its
   analytic projection, FBP of a uniform disk, and 50 SIRT iterations.
-* 3D cell (parallel) — ``configs/leap_ct.py:6``
+* 3D cell (parallel) — ``configs/leap_ct.py``
   ``table1_geometries()["parallel_512_180"]``: a 512^3 volume, 180 views, a
   512x768 detector.  One FP, one BP and the dot test.
 * fan cell — the sparse-view fan class of the reference's
@@ -29,7 +29,7 @@ path through the public API at the paper's sizes:
   Its kernels are also held on fan_rows (kernel phase): the flat fan cell
   as a multi-slice scan, 16 detector rows over 512x512x16 at batch 4, 64
   lanes whose threads share each weight.
-* cone cell — ``configs/leap_ct.py:16-18``
+* cone cell — ``configs/leap_ct.py``
   ``table1_geometries()["cone_512_180"]``: a 512^3 volume, 180 views, a
   512x768 detector of 2 mm pixels, sod 1024, sdd 2048.  One FP, one BP, the
   dot test and FDK of a uniform cylinder.  Its kernels are held against the
@@ -44,15 +44,38 @@ path through the public API at the paper's sizes:
   A^T(Ax - y), double backward, SIRT-30, CGLS-20 (non-increasing residual)
   and FISTA-TV-30 with their PSNRs, and data-consistency refinement on a
   few-view mask of half the views.  Its kernels are held against the plain
-  versions on the whole cell at batch 8 in f32 (6.2e9 nonzeros: no library
-  matrix), and on 90 of its views at batch 8 in f32 and bf16 (the first and
-  last, both sides of each turn's 45 and 135 degree view-group edges, and
-  evenly spaced others; with the library time).  Batch 1 is timed on both
+  versions on the whole cell at batch 8 in f32 (the plain versions on its
+  first 2 samples; 6.2e9 nonzeros: no library matrix), and on 90 of its
+  views at batch 8 in f32 and bf16 (the first and last, both sides of each
+  turn's 45 and 135 degree view-group edges, and evenly spaced others; all
+  8 samples, with the library time).  Batch 1 is timed on both
   kernel instances (one and eight samples per thread).
 * modular_wobbly (kernel phase) — the irregular trajectory of the
   reference's ``tests/test_modular.py:38-57`` scaled x8: 128x128x64, 90
   views, per-view sod/sdd/source height and detector shifts, e_v flipped on
   odd views, a 128x192 detector of 2 mm.
+* cone_packed — a micro-CT slab scan, 512x512x8 voxels of 50 um (a 25.6
+  mm field), 720 views, 8x768 pixels of 75 um, sod 1024, sdd 1536, at
+  batch 8 (ellipse slabs, seeds 0-7, f32), ``mode="auto"``: it resolves the
+  packed cone pair (row shift 0.072 rows under the 0.25 gate), which runs
+  the fan kernels on 64 lanes and no cone kernel; against its plain
+  composition, dot test, gradient, relative L2 error against the exact
+  cone pair on the same batch within ``cone_packed_error_bound``, and both
+  pairs' times.  Its kernel-phase cell holds rows 3-4 on its 64 lanes with
+  the library time on the packed transaxial CSR.  The Table-1 cone cell
+  resolves the exact pair.
+* lane_caps_fan, lane_caps_par_bp, lane_caps_par_fp (kernel phase) — a fan
+  voxel meeting 314 columns, a parallel voxel meeting 455, a parallel
+  column and line meeting 421 voxels, past the 254 the lane-packed kernels
+  once counted in 8 bits; f32 and bf16 against the plain versions.
+* joseph — the Joseph projectors (no kernel: plain torch) on card tensors
+  through ``backend="auto"``: parallel, cone on a flat and a curved
+  detector, and tilted modular frames under ``model="sf"``; dot test,
+  gradient, the card against the host, and no kernel counter moves.
+* iterative_recon — ``examples/iterative_recon_torch.py`` on the card
+  (CGLS-25 and FISTA-TV-40 on the exact cone kernels, CGLS-25 on Joseph for
+  tilted arcs; PSNRs printed), then at 3 iterations on the card and on the
+  host with the same inputs: images within 5e-4 (relative L2).
 * cone_as_modular — the cone cell re-expressed as modular frames: one FP
   and one BP against the cone kernels on the same inputs (relative norm
   < 1e-4); its kernels are held against the plain versions on views 7, 31.
@@ -121,8 +144,8 @@ for comparing kernel sources on one card, and prints no ok line.
 
 Each path runs with every kernel launch count set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
-Last, a torch.profiler breakdown of one projector pair of the main, fan
-and helical cells and of the 3D and cone cells' FP and BP, and of one LM
+Last, a torch.profiler breakdown of one projector pair of the main, fan,
+helical and cone_packed cells and of the 3D and cone cells' FP and BP, and of one LM
 prefill and one LM gradient step (attention kernels, matrix products,
 everything else), says where the device time goes.
 
@@ -473,6 +496,14 @@ def families():
                     source="src/repro_torch/kernels/csrc/fp_fan.cu",
                     replaces=("src/repro/kernels/fp_fan.py:94",
                               "src/repro/kernels/fp_fan.py:247")),
+        # the packed cone pair: the fan kernels on a cone geometry's lanes
+        "cone_packed": dict(plan=fp_fan.ConePackedPlan, fp=fp_fan.fp_lanes,
+                            bp=fp_fan.bp_lanes, fp_plain=fp_fan.fp_lanes_plain,
+                            bp_plain=fp_fan.bp_lanes_plain,
+                            names=("fp_fan_sf", "bp_fan_sf"),
+                            source="src/repro_torch/kernels/csrc/fp_fan.cu",
+                            replaces=("src/repro/kernels/fp_fan.py:94",
+                                      "src/repro/kernels/fp_fan.py:247")),
         "cone": dict(plan=fp_cone.ConePlan, fp=fp_cone.fp_batch,
                      bp=fp_cone.bp_batch, fp_plain=fp_cone.fp_batch_plain,
                      bp_plain=fp_cone.bp_batch_plain,
@@ -500,7 +531,7 @@ def kernel_phase(torch, cells, results):
         fam, geom, batch, plain_reps = c.family, c.geom, c.batch, c.plain_reps
         F = fams[fam]
         plan = F["plan"](geom)
-        lane = fam in ("par", "fan")
+        lane = fam in ("par", "fan", "cone_packed")
         # the parallel pair's or the fan pair's heuristic, as their paths use
         # them; the cone and modular launches derive their block from the
         # shapes
@@ -599,17 +630,29 @@ def kernel_phase(torch, cells, results):
         results["phase_s"][f"kernels {cell}"] = time.perf_counter() - t_cell
 
 
+def main_geometry():
+    """configs/leap_ct.py ``limited_angle_geometry(512, 720)``."""
+    from repro_torch.configs.leap_ct import limited_angle_geometry
+    return limited_angle_geometry(512, 720)
+
+
+def table1(name: str):
+    """configs/leap_ct.py ``table1_geometries()[name]``."""
+    from repro_torch.configs.leap_ct import table1_geometries
+    return table1_geometries()[name]
+
+
 def main_cell(torch, results):
     """The main path, through the public API."""
-    from repro_torch import Projector, ProjectorSpec, VolumeGeometry, parallel_beam
+    from repro_torch import Projector, ProjectorSpec
     from repro_torch.data.metrics import psnr
     from repro_torch.data.phantoms import (SHEPP_LOGAN, analytic_parallel_projection,
                                            random_ellipse_phantom, shepp_logan_2d)
     from repro_torch.kernels import precision
     from repro_torch.recon import sirt
 
-    vol = VolumeGeometry(512, 512, 1)
-    geom = parallel_beam(720, 1, 768, vol, angular_range=180.0)
+    geom = main_geometry()
+    vol = geom.vol
     dev = torch.device("cuda")
     out = {}
     x = torch.from_numpy(np.stack([random_ellipse_phantom(s, vol)[0]
@@ -684,9 +727,9 @@ def main_cell(torch, results):
 
 
 def cell_3d(torch, results):
-    from repro_torch import Projector, ProjectorSpec, VolumeGeometry, parallel_beam
-    vol = VolumeGeometry(512, 512, 512)
-    geom = parallel_beam(180, 512, 768, vol, angular_range=180.0)
+    from repro_torch import Projector, ProjectorSpec
+    geom = table1("parallel_512_180")
+    vol = geom.vol
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.rand(vol.shape, generator=gen, device="cuda")
     y = torch.randn(geom.sino_shape, generator=gen, device="cuda")
@@ -721,12 +764,53 @@ def fan_rows_geometry():
                     sdd=1536.0)
 
 
+def lane_cells() -> dict:
+    """name -> (family, geometry, batch) of the lane-packed pairs' cells
+    (``scripts/lane_bits.py`` compares two trees' kernels on them)."""
+    from repro_torch import VolumeGeometry, parallel_beam
+    return {
+        "main": ("par", main_geometry(), 8),
+        "3d128": ("par", parallel_beam(45, 128, 192, VolumeGeometry(128, 128, 128),
+                                       angular_range=180.0), 1),
+        "3d": ("par", table1("parallel_512_180"), 1),
+        "fan": ("fan", fan_geometry("flat"), 8),
+        "fan_curved": ("fan", fan_geometry("curved"), 8),
+        "fan_rows": ("fan", fan_rows_geometry(), 4),
+    }
+
+
 def cone_geometry():
-    """configs/leap_ct.py:16-18 table1_geometries()["cone_512_180"]."""
+    """configs/leap_ct.py ``table1_geometries()["cone_512_180"]``."""
+    return table1("cone_512_180")
+
+
+def cone_packed_geometry():
+    """A micro-CT slab scan: 512 x 512 x 8 voxels of 50 um (a 25.6 mm
+    field), 720 views, 8 x 768 pixels of 75 um, sod 1024, sdd 1536; its
+    packed row shift is 0.072 rows, under the packed gate's 0.25."""
     from repro_torch import VolumeGeometry, cone_beam
-    return cone_beam(180, 512, 768, VolumeGeometry(512, 512, 512), sod=1024.0,
-                     sdd=2048.0, pixel_width=2.0, pixel_height=2.0,
-                     angular_range=360.0)
+    return cone_beam(720, 8, 768, VolumeGeometry(512, 512, 8, dx=0.05, dy=0.05,
+                                                 dz=0.05),
+                     sod=1024.0, sdd=1536.0, pixel_width=0.075,
+                     pixel_height=0.075)
+
+
+def lane_caps_geometries():
+    """Geometries past the 254 columns or voxels that the lane-packed kernels
+    once counted in 8 bits: a fan BP of 314 columns a voxel, a parallel BP
+    of 455, a parallel FP of 421 voxels a column and line."""
+    from repro_torch import VolumeGeometry, fan_beam, parallel_beam
+    return {
+        "lane_caps_fan": ("fan", fan_beam(
+            720, 1, 2048, VolumeGeometry(16, 16, 1, dx=6.25, dy=6.25), sod=200.0,
+            sdd=400.0, pixel_width=0.1)),
+        "lane_caps_par_bp": ("par", parallel_beam(
+            90, 1, 512, VolumeGeometry(64, 64, 1, dx=16.0, dy=16.0),
+            pixel_width=0.05)),
+        "lane_caps_par_fp": ("par", parallel_beam(
+            90, 1, 16, VolumeGeometry(512, 512, 1, dx=0.02, dy=0.02),
+            pixel_width=6.0)),
+    }
 
 
 def helical_geometry():
@@ -1067,6 +1151,186 @@ def cone_as_modular_path(torch, results):
     torch.cuda.empty_cache()
 
 
+def cone_packed_path(torch, results):
+    """The packed cone pair through the public API on the micro-CT slab at
+    batch 8 (64 lanes), ``mode="auto"``: it resolves packed and runs the fan
+    kernels only; element by element against its plain composition, dot
+    test, gradient = A^T(Ax - y); the pair's times."""
+    from repro_torch import Projector, ProjectorSpec, resolve_mode
+    from repro_torch import kernels as K
+    from repro_torch.kernels import fp_par
+    from repro_torch.kernels.fp_fan import ConePackedPlan
+    geom = cone_packed_geometry()
+    proj = Projector(ProjectorSpec(geom))
+    mode = resolve_mode(proj.spec)
+    check(mode == "packed", f"cone_packed resolves {mode!r}, not 'packed'")
+    t1 = resolve_mode(ProjectorSpec(cone_geometry()))
+    check(t1 == "exact", f"the Table-1 cone cell resolves {t1!r}, not 'exact'")
+    x = helical_phantoms(torch, geom.vol)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    y = torch.randn((8,) + geom.sino_shape, generator=gen, device="cuda")
+    out = {"mode": mode, "table1_cone_mode": t1}
+    ax, out["fp_first_s"] = host_s(torch, lambda: proj(x))
+    aty, out["bp_first_s"] = host_s(torch, lambda: proj.T(y))
+    check(tuple(ax.shape) == (8,) + geom.sino_shape and bool(torch.isfinite(ax).all())
+          and bool(torch.isfinite(aty).all()), "cone_packed shape/finite")
+    lhs, rhs = vdot64(ax, y), vdot64(x, aty)
+    out["dot"] = abs(lhs - rhs) / abs(lhs)
+    check(out["dot"] < 1e-4, f"cone_packed dot test {out['dot']:.3g}")
+    # the plain composition around the pair's plan (no kernel)
+    plan = ConePackedPlan(geom)
+    plain_fp = fp_par.fp_packed(x, plan, torch.float32,
+                                lambda g: fp_par.fp_lanes_plain(g, plan))
+    plain_bp = fp_par.bp_packed(y, plan, torch.float32,
+                                lambda q: fp_par.bp_lanes_plain(q, plan))
+    out["fp_rel_err"], out["bp_rel_err"] = rel_err(ax, plain_fp), rel_err(aty, plain_bp)
+    check(out["fp_rel_err"] <= F32_TOL and out["bp_rel_err"] <= F32_TOL,
+          f"cone_packed kernel vs plain: FP {out['fp_rel_err']:.3g}, BP "
+          f"{out['bp_rel_err']:.3g} > {F32_TOL}")
+    del plain_fp, plain_bp, aty
+    xg = (0.5 * x).requires_grad_()
+    (grad,) = torch.autograd.grad(0.5 * torch.sum((proj(xg) - ax) ** 2), xg)
+    expected = proj.T(proj(xg.detach()) - ax)
+    out["grad_rel_err"] = rel_err(grad, expected)
+    check(torch.allclose(grad, expected, rtol=1e-4,
+                         atol=1e-5 * float(expected.abs().max())),
+          f"cone_packed gradient != A^T(Ax - y) (rel {out['grad_rel_err']:.3g})")
+    del grad, expected, xg
+    out["fp_ms"] = cuda_ms(torch, lambda: proj(x), reps=5)
+    out["bp_ms"] = cuda_ms(torch, lambda: proj.T(ax), reps=5)
+    launches = K.launches()
+    cone = {k: v for k, v in launches.items() if "cone" in k or "modular" in k}
+    check(not any(cone.values()), f"cone_packed launched cone kernels: {cone}")
+    out["launches"] = launches
+    results["cone_packed"] = out
+    log(f"cone_packed (512x512x8, 720 views, batch 8, 64 lanes): mode {mode}; "
+        f"kernel vs plain FP {out['fp_rel_err']:.3g}, BP {out['bp_rel_err']:.3g}; "
+        f"dot {out['dot']:.3g}; gradient rel {out['grad_rel_err']:.3g}; pair FP "
+        f"{out['fp_ms']:.3f} ms, BP {out['bp_ms']:.3f} ms; Table-1 cone: {t1}")
+
+
+def cone_packed_exact(torch, results, launches) -> None:
+    """The packed pair against the exact cone pair on the same batch: its
+    relative L2 error within ``cone_packed_error_bound``, and the exact
+    pair's times beside the packed pair's."""
+    from repro_torch import Projector, ProjectorSpec
+    from repro_torch.kernels.fp_cone import cone_packed_error_bound
+    t = time.perf_counter()
+    geom = cone_packed_geometry()
+    out = results["cone_packed"]
+    x = helical_phantoms(torch, geom.vol)
+    packed = Projector(ProjectorSpec(geom))
+    exact = Projector(ProjectorSpec(geom, mode="exact"))
+    yp, ye = packed(x), exact(x)
+    out["rel_l2_vs_exact"] = float((yp - ye).norm() / ye.norm())
+    out["error_bound"] = cone_packed_error_bound(geom)
+    del yp
+    out["exact_fp_ms"] = cuda_ms(torch, lambda: exact(x), reps=3, warmup=1)
+    out["exact_bp_ms"] = cuda_ms(torch, lambda: exact.T(ye), reps=3, warmup=1)
+    out["path_launches"] = launches
+    del ye, x
+    torch.cuda.empty_cache()
+    results["phase_s"]["cone_packed vs exact"] = time.perf_counter() - t
+    log(f"cone_packed vs the exact cone pair: rel L2 {out['rel_l2_vs_exact']:.4g} "
+        f"(bound {out['error_bound']:.4g}); exact FP {out['exact_fp_ms']:.3f} ms, "
+        f"BP {out['exact_bp_ms']:.3f} ms; packed FP {out['fp_ms']:.3f} ms, BP "
+        f"{out['bp_ms']:.3f} ms")
+    check(out["rel_l2_vs_exact"] <= out["error_bound"],
+          f"cone_packed vs exact {out['rel_l2_vs_exact']:.4g} > bound "
+          f"{out['error_bound']:.4g}")
+
+
+def joseph_geometries():
+    """The Joseph projectors at test sizes: parallel, cone on a flat and a
+    curved detector, and modular frames on two tilted arcs (which the SF
+    kernels do not cover, so ``model="sf"`` runs them on Joseph too)."""
+    from repro_torch import VolumeGeometry, cone_beam, modular_beam, parallel_beam
+    ang = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+    src = np.stack([60 * np.cos(ang), 60 * np.sin(ang), 12 * 0.15 * np.sin(2 * ang)], -1)
+    eu = np.stack([-np.sin(ang), np.cos(ang), np.zeros_like(ang)], -1)
+    ev = np.cross(src / np.linalg.norm(src, axis=1, keepdims=True), eu)
+    cone = dict(sod=80.0, sdd=160.0, pixel_width=1.5, pixel_height=1.5)
+    return {
+        "parallel": ("joseph", parallel_beam(10, 5, 20, VolumeGeometry(12, 14, 4),
+                                             pixel_width=1.3, pixel_height=1.1)),
+        "cone_flat": ("joseph", cone_beam(10, 6, 24, VolumeGeometry(12, 14, 4), **cone)),
+        "cone_curved": ("joseph", cone_beam(10, 6, 24, VolumeGeometry(12, 14, 4),
+                                            detector_type="curved", **cone)),
+        "modular_tilted": ("sf", modular_beam(src, -src, eu, ev, n_rows=8, n_cols=20,
+                                              vol=VolumeGeometry(12, 12, 6),
+                                              pixel_width=2.0, pixel_height=2.0)),
+    }
+
+
+def joseph_path(torch, results):
+    """The Joseph projectors on card tensors through ``backend="auto"``: no
+    kernel pair exists for them, so the plain pair runs on the card (and no
+    kernel counter moves); dot test, gradient = backprojection, the result
+    on the card and equal to the host's on the same inputs."""
+    from repro_torch import Projector, ProjectorSpec
+    out = {}
+    for name, (model, geom) in joseph_geometries().items():
+        gen = torch.Generator().manual_seed(8)
+        x = torch.randn((2,) + geom.vol.shape, generator=gen)
+        y = torch.randn((2,) + geom.sino_shape, generator=gen)
+        proj = Projector(ProjectorSpec(geom, model=model))
+        xc, yc = x.cuda(), y.cuda()
+        ax, aty = proj(xc), proj.T(yc)
+        check(ax.device.type == "cuda" and aty.device.type == "cuda",
+              f"joseph {name}: left the card")
+        lhs, rhs = vdot64(ax, yc), vdot64(xc, aty)
+        dot = abs(lhs - rhs) / abs(lhs)
+        xg = xc.clone().requires_grad_()
+        (grad,) = torch.autograd.grad(0.5 * torch.sum((proj(xg) - yc) ** 2), xg)
+        gerr = rel_err(grad, proj.T(ax - yc))
+        host = Projector(ProjectorSpec(geom, model=model), device="cpu")
+        vs_host = max(rel_err(ax.cpu(), host(x)), rel_err(aty.cpu(), host.T(y)))
+        out[name] = {"dot": dot, "grad_rel_err": gerr, "vs_host": vs_host}
+        log(f"joseph {name} on the card: dot {dot:.3g}, gradient rel {gerr:.3g}, "
+            f"vs the host {vs_host:.3g}")
+        check(dot < 1e-4, f"joseph {name} dot test {dot:.3g}")
+        check(gerr < 1e-4, f"joseph {name} gradient vs backprojection {gerr:.3g}")
+        check(vs_host < 2e-4, f"joseph {name} card vs host {vs_host:.3g}")
+    results["joseph"] = out
+
+
+ITER_IMG_TOL = 5e-4      # card vs host images, as tests/test_torch_solvers.py
+
+
+def iterative_recon_path(torch, results):
+    """examples/iterative_recon_torch.py on the card (CGLS-25, FISTA-TV-40 on
+    the exact cone kernels; CGLS-25 on Joseph for the tilted arcs), then at
+    3 iterations each on the card and on the host with the same inputs: the
+    images agree within ITER_IMG_TOL (relative L2)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "iterative_recon_torch", ROOT / "examples" / "iterative_recon_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    full, t_full = host_s(torch, lambda: ex.main("cuda", verbose=False))
+    out = {"psnr": full["psnr"], "card_s": t_full}
+    log("iterative_recon on the card: " + ", ".join(
+        f"{k} PSNR {v:.2f} dB" for k, v in full["psnr"].items())
+        + f" ({t_full:.2f} s)")
+    cut = dict(n_cgls=3, n_fista=3, verbose=False)
+    card = ex.main("cuda", **cut)
+    t = time.perf_counter()
+    host = ex.main("cpu", **cut)
+    out["host_cut_s"] = time.perf_counter() - t
+    for k in ("cgls", "fista_tv", "modular_cgls"):
+        a, b = card[k].double().cpu(), host[k].double()
+        out[f"{k}_card_vs_host"] = float((a - b).norm() / b.norm())
+    out["psnr_cut"] = {"card": card["psnr"], "host": host["psnr"]}
+    results["iterative_recon"] = out
+    log("iterative_recon at 3 iterations, card vs host: " + ", ".join(
+        f"{k} {out[f'{k}_card_vs_host']:.3g}" for k in ("cgls", "fista_tv",
+                                                        "modular_cgls"))
+        + f" (host {out['host_cut_s']:.1f} s)")
+    for k in ("cgls", "fista_tv", "modular_cgls"):
+        check(out[f"{k}_card_vs_host"] < ITER_IMG_TOL,
+              f"iterative_recon {k}: card vs host {out[f'{k}_card_vs_host']:.3g}")
+
+
 def breakdown(torch, name: str, fn, results, reps: int = 3,
               ms_reps: int = 5, warmup: int = 1) -> None:
     """Where the time of ``fn`` goes: its median device time (CUDA events),
@@ -1104,16 +1368,15 @@ def breakdown(torch, name: str, fn, results, reps: int = 3,
 
 
 def profile_cells(torch, results) -> None:
-    """Device-time breakdown of the main, fan and helical cells' projector
-    pair (one training step's A then A^T on the batch of 8) and of the 3D
-    and cone cells' FP and BP."""
-    from repro_torch import Projector, ProjectorSpec, VolumeGeometry, parallel_beam
+    """Device-time breakdown of the main, fan, helical and cone_packed
+    cells' projector pair (one training step's A then A^T on the batch of
+    8) and of the 3D and cone cells' FP and BP."""
+    from repro_torch import Projector, ProjectorSpec
     from repro_torch.data.phantoms import random_ellipse_phantom
-    vol = VolumeGeometry(512, 512, 1)
+    vol = main_geometry().vol
     x = torch.from_numpy(np.stack([random_ellipse_phantom(s, vol)[0]
                                    for s in range(8)])[..., None]).cuda()
-    for name, geom in (("main_pair", parallel_beam(720, 1, 768, vol,
-                                                   angular_range=180.0)),
+    for name, geom in (("main_pair", main_geometry()),
                        ("fan_pair", fan_geometry("flat"))):
         proj = Projector(ProjectorSpec(geom))
         y = proj(x)
@@ -1126,10 +1389,14 @@ def profile_cells(torch, results) -> None:
     breakdown(torch, "helical_pair", lambda: proj.T(proj(xh) - yh), results,
               reps=2, ms_reps=3)
     del xh, yh
+    packed = Projector(ProjectorSpec(cone_packed_geometry()))
+    xp = helical_phantoms(torch, packed.geom.vol)
+    yp = packed(xp)
+    breakdown(torch, "cone_packed_pair", lambda: packed.T(packed(xp) - yp), results)
+    del xp, yp
     # the kernels are warm from their paths; the cone's take ~4 s a call
     for name, geom, reps, ms_reps in (
-            ("3d", parallel_beam(180, 512, 768, VolumeGeometry(512, 512, 512),
-                                 angular_range=180.0), 2, 3),
+            ("3d", table1("parallel_512_180"), 2, 3),
             ("cone", cone_geometry(), 1, 1)):
         proj3 = Projector(ProjectorSpec(geom))
         x3 = torch.rand(geom.vol.shape, device="cuda")
@@ -1222,12 +1489,8 @@ def par_build_report(results) -> None:
     resident blocks per SM."""
     import re
     import torch
-    from repro_torch import VolumeGeometry, parallel_beam
     from repro_torch.kernels import build, fp_par, tune
-    cells = {"main": (parallel_beam(720, 1, 768, VolumeGeometry(512, 512, 1),
-                                    angular_range=180.0), 8),
-             "3d": (parallel_beam(180, 512, 768, VolumeGeometry(512, 512, 512),
-                                  angular_range=180.0), 1)}
+    cells = {"main": (main_geometry(), 8), "3d": (table1("parallel_512_180"), 1)}
     rows = {}
     for mangled, rep in build.ptxas_report("fp_par").items():
         m = re.search(r"([fb]p_par_sf_kernel)I(f|13__nv_bfloat16)Li(\d+)E", mangled)
@@ -2009,11 +2272,10 @@ def projector_phases(torch, results, only=None) -> dict:
     """The projector kernels' cells and paths, and their profile; returns the
     launches of each projector kernel on its own path.  ``only``: the names
     of the kernel-phase cells to run, and nothing else."""
-    from repro_torch import VolumeGeometry, cone_beam, parallel_beam
     from repro_torch.core.geometry import cone_as_modular
     from repro_torch.data.phantoms import random_ellipse_phantom
 
-    main_vol = VolumeGeometry(512, 512, 1)
+    main_vol = main_geometry().vol
     gen = torch.Generator(device="cuda").manual_seed(2)
 
     def phantom_lanes():                    # (512, 512, 8): seeds 0-7 as lanes
@@ -2029,20 +2291,24 @@ def projector_phases(torch, results, only=None) -> dict:
     # the axes and both sides of the 45 and 135 degree group boundaries
     cone_edges = cone.subset([0, 22, 23, 45, 67, 68, 90])
     cone128 = cone128_geometry()
+    lanes = lane_cells()
+
+    def lane_cell(name, *a, **kw):
+        return Cell(*lanes[name], *a, **kw)
+
     cells = {
-        "main": Cell("par", parallel_beam(720, 1, 768, main_vol, angular_range=180.0),
-                     8, phantom_lanes, plain_reps=1),
-        "3d128": Cell("par", parallel_beam(45, 128, 192, VolumeGeometry(128, 128, 128),
-                                           angular_range=180.0), 1, rand(128, 128, 128)),
-        "3d": Cell("par", parallel_beam(180, 512, 768, VolumeGeometry(512, 512, 512),
-                                        angular_range=180.0), 1, rand(512, 512, 512),
-                   plain_reps=1),
-        "fan": Cell("fan", fan_geometry("flat"), 8, phantom_lanes, plain_reps=1),
-        "fan_curved": Cell("fan", fan_geometry("curved"), 8, phantom_lanes,
-                           plain_reps=1),
-        "fan_rows": Cell("fan", fan_rows_geometry(), 4, rand(512, 512, 64), 0,
-                         "16 detector rows over 512x512x16 at batch 4: 64 lanes, "
-                         "whose threads share each weight"),
+        "main": lane_cell("main", phantom_lanes, plain_reps=1),
+        "3d128": lane_cell("3d128", rand(128, 128, 128)),
+        "3d": lane_cell("3d", rand(512, 512, 512), plain_reps=1),
+        "fan": lane_cell("fan", phantom_lanes, plain_reps=1),
+        "fan_curved": lane_cell("fan_curved", phantom_lanes, plain_reps=1),
+        "fan_rows": lane_cell("fan_rows", rand(512, 512, 64), 0,
+                              "16 detector rows over 512x512x16 at batch 4: 64 "
+                              "lanes, whose threads share each weight"),
+        "cone_packed": Cell("cone_packed", cone_packed_geometry(), 8,
+                            rand(512, 512, 64), 0,
+                            "the packed cone pair's kernels (rows 3-4) on the "
+                            "micro-CT slab: 8 rows at batch 8, 64 lanes"),
         "cone": Cell("cone", cone_two, 1, rand(1, 512, 512, 512), 0,
                      "2 of the 180 views: the plain version cannot run all 180 at "
                      "512^3 in this run's time"),
@@ -2056,6 +2322,9 @@ def projector_phases(torch, results, only=None) -> dict:
                               rand(1, 128, 128, 128), 2,
                               "cone128 with 1.5 mm rows (not a power of two)"),
     }
+    for name, (fam, geom) in lane_caps_geometries().items():
+        cells[name] = Cell(fam, geom, 8, rand(geom.vol.nx, geom.vol.ny, 8), 0,
+                           "past the old 8-bit counts")
     helical = helical_geometry()
     cells.update({
         "helical": Cell("modular", helical, 8,
@@ -2104,6 +2373,13 @@ def projector_phases(torch, results, only=None) -> dict:
                              lambda: helical_path(torch, results)))
     run_path(torch, results, "cone_as_modular", modular,
              lambda: cone_as_modular_path(torch, results))
+    fan = ("fp_fan_sf", "bp_fan_sf")
+    packed = run_path(torch, results, "cone_packed", fan,
+                      lambda: cone_packed_path(torch, results))
+    cone_packed_exact(torch, results, packed)
+    run_path(torch, results, "joseph", (), lambda: joseph_path(torch, results))
+    run_path(torch, results, "iterative_recon", ("fp_cone_sf", "bp_cone_sf"),
+             lambda: iterative_recon_path(torch, results))
     t = time.perf_counter()
     profile_cells(torch, results)
     torch.cuda.synchronize()
@@ -2126,6 +2402,9 @@ def run_path(torch, results, name: str, kernels, fn) -> dict:
     log(f"{name} path launches {launches}")
     for k in kernels:
         check(launches[k] > 0, f"kernel {k} was not launched on the {name} path")
+    if not kernels:
+        check(not any(launches.values()),
+              f"the {name} path launched kernels: {launches}")
     return {k: launches[k] for k in kernels}
 
 
@@ -2191,7 +2470,9 @@ def main() -> int:
     # each kernel at its own path's cell and dtype: the projectors' main
     # cells in f32, the attention kernels at Qwen3's shapes in its bf16
     own = {}
-    for F in families().values():
+    for fam, F in families().items():
+        if fam == "cone_packed":           # rows 3-4 on another geometry
+            continue
         for i, kname in enumerate(F["names"]):
             cell = {"par": "main", "fan": "fan", "cone": "cone",
                     "modular": "helical"}[kname.split("_")[1]]

@@ -14,10 +14,10 @@ from repro_torch.core.geometry import (CTGeometry, VolumeGeometry, cone_beam,
                                        modular_beam, parallel_beam)
 from repro_torch.core.spec import ProjectorSpec
 from repro_torch.core.projector import Projector
-from repro_torch.kernels.ops import back_project, forward_project
+from repro_torch.kernels.ops import back_project, forward_project, resolve_mode
 
 __all__ = [
     "CTGeometry", "VolumeGeometry", "parallel_beam", "fan_beam", "cone_beam",
     "modular_beam", "helical_beam", "from_config", "ProjectorSpec",
-    "Projector", "forward_project", "back_project",
+    "Projector", "forward_project", "back_project", "resolve_mode",
 ]

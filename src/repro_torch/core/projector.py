@@ -56,6 +56,10 @@ class Projector:
         return self.spec.config
 
     @property
+    def mode(self) -> str:
+        return self.spec.mode
+
+    @property
     def compute_dtype(self):
         return self.spec.compute_dtype
 
@@ -112,8 +116,9 @@ class Projector:
 
     def __repr__(self):
         g = self.geom
+        mode = f", mode={self.mode}" if self.mode != "auto" else ""
         cdt = (f", compute_dtype={self.compute_dtype}"
                if self.compute_dtype is not None else "")
-        return (f"Projector({g.geom_type}, model={self.model}{cdt}, "
+        return (f"Projector({g.geom_type}, model={self.model}{mode}{cdt}, "
                 f"device={self.device}, vol={g.vol.shape}, "
                 f"sino={g.sino_shape})")

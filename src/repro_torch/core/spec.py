@@ -9,13 +9,17 @@ key for batching compatible requests (``spec.bucket_key()``), and the
 validation point: bad model/backend/dtype values raise here, once.
 
 Backends: ``"auto"`` follows the input tensor (CUDA tensors go through the
-hand-written kernels, CPU tensors through the plain PyTorch reference),
+hand-written kernels, CPU tensors through the plain PyTorch reference; a
+geometry and model with no kernels run the plain reference on either),
 ``"cuda"`` demands the kernels (and raises on a CPU tensor), ``"ref"``
-always runs the plain reference.
+always runs the plain reference.  Modes: ``"exact"`` | ``"packed"`` (the
+approximate packed cone pair) | ``"auto"`` (packed where its error gate
+accepts the geometry); ``kernels/ops.py`` ``resolve_mode`` says which.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 from typing import Optional, Tuple, TYPE_CHECKING
@@ -29,6 +33,7 @@ __all__ = ["ProjectorSpec"]
 
 _MODELS = ("sf", "joseph")
 _BACKENDS = ("auto", "cuda", "ref")
+_MODES = ("auto", "exact", "packed")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -41,6 +46,9 @@ class ProjectorSpec:
                        the geometry objects differ).
         model:         footprint model, ``"sf"`` | ``"joseph"``.
         backend:       ``"auto"`` | ``"cuda"`` | ``"ref"``.
+        mode:          ``"auto"`` | ``"exact"`` | ``"packed"``: which pair of
+                       the (geometry, model) runs where a packed pair is
+                       registered.
         compute_dtype: kernel tile precision, ``"bfloat16"`` | ``"float32"``
                        | None (follow the input dtype); aliases like
                        ``"bf16"`` are canonicalized at construction.
@@ -51,6 +59,7 @@ class ProjectorSpec:
     geom: CTGeometry
     model: str = "sf"
     backend: str = "auto"
+    mode: str = "auto"
     compute_dtype: Optional[str] = None
     config: Optional["KernelConfig"] = None
 
@@ -67,11 +76,22 @@ class ProjectorSpec:
         if self.backend not in _BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; expected "
                              f"one of {_BACKENDS}")
+        if self.mode not in _MODES:
+            raise ValueError(f"unknown mode {self.mode!r}; expected "
+                             f"one of {_MODES}")
         if self.config is not None and not isinstance(self.config, KernelConfig):
             raise TypeError(f"config must be a KernelConfig, "
                             f"got {self.config!r}")
         object.__setattr__(self, "compute_dtype",
                            precision.normalize(self.compute_dtype))
+
+    @functools.cached_property
+    def resolved_mode(self) -> str:
+        """The pair ("exact" | "packed") that dispatch runs for this spec
+        (``kernels/ops.py`` ``resolve_mode``), resolved at its first use and
+        kept."""
+        from repro_torch.kernels.ops import _resolve_mode
+        return _resolve_mode(self)
 
     def replace(self, **kw) -> "ProjectorSpec":
         return dataclasses.replace(self, **kw)
@@ -80,7 +100,7 @@ class ProjectorSpec:
     def _identity(self) -> Tuple:
         """Content identity: geometry by canonical hash, the rest by value."""
         return (self.geom.canonical_hash(), self.model, self.backend,
-                self.compute_dtype, self.config)
+                self.mode, self.compute_dtype, self.config)
 
     def __eq__(self, other):
         if not isinstance(other, ProjectorSpec):
@@ -91,27 +111,34 @@ class ProjectorSpec:
         return hash(self._identity())
 
     # -- keys --------------------------------------------------------------- #
-    def cache_key(self, in_dtype: Optional[str] = None) -> Tuple:
-        """The op-cache key.  ``in_dtype`` is the dtype name of the tensor
-        the ops are applied to (a ``compute_dtype=None`` bundle follows its
-        input's dtype, so f32 and bf16 callers get separate bundles)."""
+    def cache_key(self, resolved_mode: Optional[str] = None,
+                  in_dtype: Optional[str] = None) -> Tuple:
+        """The op-cache key.  ``resolved_mode`` is the concrete pair
+        dispatch picks ("exact" | "packed"), so that ``mode="auto"`` and an
+        explicit equivalent share one bundle; ``in_dtype`` is the dtype name
+        of the tensor the ops are applied to (a ``compute_dtype=None`` bundle
+        follows its input's dtype, so f32 and bf16 callers get separate
+        bundles)."""
         return (self.geom.canonical_hash(), self.model, self.backend,
-                self.config, self.compute_dtype, in_dtype)
+                self.config, resolved_mode or self.mode, self.compute_dtype,
+                in_dtype)
 
     def bucket_key(self) -> str:
         """Short stable digest: requests whose specs share this key can be
-        packed into one batch (identical geometry content, kernels and
-        precision)."""
+        packed into one batch (identical geometry content, kernels, mode
+        policy and precision)."""
         cfg = (None if self.config is None
                else sorted(dataclasses.asdict(self.config).items()))
         payload = json.dumps(
             [self.geom.canonical_hash(), self.model, self.backend,
-             self.compute_dtype, cfg])
+             self.mode, self.compute_dtype, cfg])
         return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
     def __repr__(self):
         g = self.geom
         extras = []
+        if self.mode != "auto":
+            extras.append(f"mode={self.mode}")
         if self.compute_dtype is not None:
             extras.append(f"compute_dtype={self.compute_dtype}")
         if self.config is not None:

@@ -73,6 +73,9 @@
 
 #define FAN_MAX_THREADS 1024
 #define FAN_BP_UNROLL 3  // BP: columns a (voxel, view) summed unrolled
+// BP: a warp slot packs a view's first column and its count (at most ku + 1)
+// in 16 bits each
+#define FAN_MAX_KU 65534
 #define FAN_SLOT_VECS 2  // FP: 16-byte vectors a voxel that its slot's
                          // thread stages (wider: a segment at a time)
 
@@ -503,7 +506,7 @@ __global__ void __launch_bounds__(FAN_MAX_THREADS)
 // memory.  The voxel's threads take the views blockDim.x at a time: thread
 // j forms the trapezoid of view a0 + j, its exact column window and its
 // weights, and leaves them in its slots of the warp's shared memory (su:
-// first column << 8 | count; sw: the weights); then every thread of the
+// first column << 16 | count; sw: the weights); then every thread of the
 // voxel sums, view after view and column after column, the weights times
 // its lanes of the sinogram.  `accumulate` adds into the buffer (the second
 // view group) instead of overwriting it (the first).
@@ -528,7 +531,7 @@ __global__ void __launch_bounds__(FAN_MAX_THREADS)
   float2* sd = reinterpret_cast<float2*>(fan_smem);
   float* sw = reinterpret_cast<float*>(fan_smem + fan_align16((size_t)nu * 8)) +
               (tid >> 5) * 32 * (kup + 1);
-  int* su = reinterpret_cast<int*>(sw + 32 * kup);
+  unsigned* su = reinterpret_cast<unsigned*>(sw + 32 * kup);
   const bool live = gi < ng && li < nl;
   const float rdu = __frcp_rn(du);
 
@@ -562,18 +565,19 @@ __global__ void __launch_bounds__(FAN_MAX_THREADS)
         }
       }
     }
-    su[wl] = u0 << 8 | cnt;
+    su[wl] = (unsigned)u0 << 16 | (unsigned)cnt;
     __syncwarp();
     if (live) {
       const int nb = min(tl, n_views - a0);
       for (int b = 0; b < nb; ++b) {
-        const int pk = su[first + b], cb = pk & 255;
+        const unsigned pk = su[first + b];
+        const int cb = (int)(pk & 0xffffu);
         if (cb > ku) {
           bad = true;
           continue;
         }
         const float* wb = sw + (first + b) * kup;
-        const T* xb = q + ((long long)__ldg(rows + a0 + b) * nu + (pk >> 8)) *
+        const T* xb = q + ((long long)__ldg(rows + a0 + b) * nu + (pk >> 16)) *
                               lanes + lane0;
         // one column's terms; the first FAN_BP_UNROLL columns unrolled, so
         // that their loads are in flight together
@@ -783,7 +787,8 @@ extern "C" int bp_fan_sf_launch(int dtype, const void* table, const void* rows,
                                 void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (!fan_aligned(q, lanes, dtype)) return (int)cudaErrorMisalignedAddress;
-  if (ku < 1 || ku > 254) return (int)cudaErrorInvalidValue;
+  if (ku < 1 || ku > FAN_MAX_KU || nu > 65536)
+    return (int)cudaErrorInvalidValue;
   const int lc = lpt * tl;
   const FanBpRun run{
       dim3((ng + bx - 1) / bx, (nl + by - 1) / by, (lanes + lc - 1) / lc),

@@ -73,6 +73,8 @@
 #define PAR_MARGIN 2        // voxels of margin of the FP's staged window
 #define BP_UNROLL 3         // BP: columns a (voxel, view) summed unrolled
 #define PAR_MAX_THREADS 1024
+// FP and BP pack a first index and a count in 16 bits each
+#define PAR_MAX_COUNT 65535
 
 // Lanes in one 16-byte vector of a tile type.
 template <typename T>
@@ -313,7 +315,7 @@ __device__ __forceinline__ void par_stage(T* sx, const T* __restrict__ g,
 // of lch loop lines: the threads stage the slab that the batch's views
 // meet (one slab for all of them), and meanwhile evaluate the exact window
 // and the weights of every (view, line, column) once (sw, ss: start in the
-// staged window << 8 | count); then each thread sums its output's terms.
+// staged window << 16 | count); then each thread sums its output's terms.
 template <typename T, int LPT>
 __global__ void __launch_bounds__(PAR_MAX_THREADS)
     fp_par_sf_kernel(const float* __restrict__ table,
@@ -332,7 +334,7 @@ __global__ void __launch_bounds__(PAR_MAX_THREADS)
   const ParFpSmem m = par_fp_smem(sizeof(T), VN, tu, lc, nvb, lch, wcap, kw);
   T* sx = reinterpret_cast<T*>(par_smem);
   float* sw = reinterpret_cast<float*>(par_smem + m.sw);
-  int* ss = reinterpret_cast<int*>(par_smem + m.ss);
+  unsigned* ss = reinterpret_cast<unsigned*>(par_smem + m.ss);
   float* sv = reinterpret_cast<float*>(par_smem + m.sv);
   int* sbad = reinterpret_cast<int*>(par_smem + m.sbad);
 
@@ -397,16 +399,17 @@ __global__ void __launch_bounds__(PAR_MAX_THREADS)
           }
         }
       }
-      ss[qi] = s << 8 | cnt;
+      ss[qi] = (unsigned)s << 16 | (unsigned)cnt;
     }
     par_cp_async_wait();
     __syncthreads();
     if (own) {
       for (int l = 0; l < nlch; ++l) {
         const int qi = (z * lch + l) * tu + c;
-        const int sc = ss[qi], cnt = sc & 255;
+        const unsigned sc = ss[qi];
+        const int cnt = (int)(sc & 0xffffu);
         const float* wq = sw + qi * kw;
-        const T* xq = sx + (sc >> 8) * row + l * lc + j * VN;
+        const T* xq = sx + (sc >> 16) * row + l * lc + j * VN;
         for (int k = 0; k < cnt; ++k, xq += row) {
           const float w = wq[k];
 #pragma unroll
@@ -439,7 +442,7 @@ __global__ void __launch_bounds__(PAR_MAX_THREADS)
 // blockDim.z voxels a block.  The voxel's threads take the views blockDim.x at a
 // time: thread j finds the exact column window of view a0 + j and its
 // weights and leaves them in its slots of the warp's shared memory (su:
-// first column << 8 | count; sw: the weights); then every thread of the
+// first column << 16 | count; sw: the weights); then every thread of the
 // voxel sums, view after view and column after column, the weights times
 // its lanes of the sinogram.  `accumulate` adds into the buffer (the second
 // view group) instead of overwriting it (the first).
@@ -460,7 +463,7 @@ __global__ void __launch_bounds__(PAR_MAX_THREADS)
   const int tid = j + tl * (threadIdx.y + blockDim.y * threadIdx.z);
   const int wl = tid & 31, first = wl - j, kup = ku | 1;
   float* sw = reinterpret_cast<float*>(par_smem) + (tid >> 5) * 32 * (kup + 1);
-  int* su = reinterpret_cast<int*>(sw + 32 * kup);
+  unsigned* su = reinterpret_cast<unsigned*>(sw + 32 * kup);
   const bool live = gi < ng && li < nl;
   const float rdu = __frcp_rn(du);
 
@@ -489,18 +492,19 @@ __global__ void __launch_bounds__(PAR_MAX_THREADS)
               sf_weight(sf_edge(e0, du, u0 + k), du, uc, hs, hd, h));
       }
     }
-    su[wl] = u0 << 8 | cnt;
+    su[wl] = (unsigned)u0 << 16 | (unsigned)cnt;
     __syncwarp();
     if (live) {
       const int nb = min(tl, n_views - a0);
       for (int b = 0; b < nb; ++b) {
-        const int pk = su[first + b], cb = pk & 255;
+        const unsigned pk = su[first + b];
+        const int cb = (int)(pk & 0xffffu);
         if (cb > ku) {
           bad = true;
           continue;
         }
         const float* wb = sw + (first + b) * kup;
-        const T* xb = q + ((long long)__ldg(rows + a0 + b) * nu + (pk >> 8)) *
+        const T* xb = q + ((long long)__ldg(rows + a0 + b) * nu + (pk >> 16)) *
                               lanes + lane0;
         // one column's terms; the first BP_UNROLL columns unrolled, so
         // that their loads are in flight together
@@ -674,6 +678,8 @@ extern "C" int fp_par_sf_launch(int dtype, const void* table, const void* rows,
   if (n_views == 0) return 0;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (!par_aligned(g, lanes, dtype)) return (int)cudaErrorMisalignedAddress;
+  if (wcap < 1 || wcap > 65535 || kw < 1 || kw > PAR_MAX_COUNT)
+    return (int)cudaErrorInvalidValue;
   const int lc = lpt * tl;
   const ParFpRun run{
       dim3((nu + tu - 1) / tu, n_batches, (lanes + lc - 1) / lc),
@@ -696,6 +702,8 @@ extern "C" int bp_par_sf_launch(int dtype, const void* table, const void* rows,
                                 void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (!par_aligned(q, lanes, dtype)) return (int)cudaErrorMisalignedAddress;
+  if (ku < 1 || ku > PAR_MAX_COUNT - 1 || nu > 65536)
+    return (int)cudaErrorInvalidValue;
   const int lc = lpt * tl;
   const ParBpRun run{
       dim3((ng + bx - 1) / bx, (nl + by - 1) / by, (lanes + lc - 1) / lc),

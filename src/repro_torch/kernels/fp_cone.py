@@ -32,9 +32,19 @@ passes through shared memory; :func:`fp_layout` sizes the tile and the
 buffers from the plan.  The BP kernel gives a thread 4 z slices of one
 voxel, in warps of 32 neighbouring gathered voxels, and keeps each
 slice's axial weights for a view; :func:`bp_layout` bounds the rows a
-slice meets.  Curved-detector cone is not ported (ROADMAP.md
-queue 1): its plan raises.  Each kernel wrapper counts its launches in
-:data:`LAUNCHES`.
+slice meets.  A curved-detector cone has no SF pair (as in the reference):
+its plan raises, and ``model="joseph"`` projects it (``kernels/ref.py``).
+Each kernel wrapper counts its launches in :data:`LAUNCHES`.
+
+**The packed pair** (the reference's ``fp_cone_packed`` / ``bp_cone_packed``)
+is the small-cone-angle approximation of the exact pair: the axial footprint
+at the central magnification ``sdd / sod`` (:func:`_z_overlap_cone_packed`),
+applied as one einsum outside the kernels, so that the batch and the
+detector rows share one lane axis and the fan pair's entry points
+(``fp_fan.fp_fan_sf`` / ``bp_fan_sf``, ``csrc/fp_fan.cu``) carry the
+transaxial footprint on a ``fp_fan.ConePackedPlan``.  Its error against the
+exact pair is bounded by :func:`cone_packed_error_bound`; ``mode="auto"``
+takes it where ``tune.packed_cone_ok`` holds (``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -197,10 +207,8 @@ class ConePlan:
             raise ValueError(f"the cone SF pair needs a cone geometry, got "
                              f"{geom.geom_type!r}")
         if geom.detector_type != "flat":
-            raise NotImplementedError(
-                "curved-detector cone is not ported to the PyTorch port yet "
-                "(the reference runs it on its Joseph projector); ROADMAP.md "
-                "queue 1 lists it")
+            raise NotImplementedError("SF cone supports flat detectors; "
+                                      "use model='joseph' for curved")
         px, py, order = _view_params_cone(geom)
         self._set(geom, px, py, order, geom.sdd)
         self.mag_bounds = _mag_bounds(geom)
@@ -723,7 +731,76 @@ def bp_cone_sf(sino: torch.Tensor, plan: ConePlan,
                        lambda q: bp_batch(q, plan))
 
 
+# --------------------------------------------------------------------------- #
+# Packed (lane-packed) cone pair: small-cone-angle axial pre-resample
+# --------------------------------------------------------------------------- #
+def _z_overlap_cone_packed(geom: CTGeometry) -> np.ndarray:
+    """(nz, nv) axial pre-resample matrix at the *central* magnification.
+
+    The exact pair resamples each volume z-line onto detector rows at the
+    voxel's own magnification ``sdd/ell``, which keeps the batch and the rows
+    off one lane axis.  The packed approximation freezes the magnification
+    at its rotation-axis value ``mag0 = sdd/sod`` (and the axial obliquity
+    at the central ray's ``sqrt(1 + z^2/sod^2)``): the z -> row map becomes
+    one (nz, nv) rectangle-overlap matrix applied outside the kernels, as
+    the parallel and fan pairs' axial separation, and what remains is the
+    fan pair's transaxial footprint.  A z-plane at height ``z`` lands
+    ``z * (sdd/ell - mag0)`` mm from its exact row
+    (:func:`cone_packed_row_shift`).  Float64, as the reference."""
+    v = geom.vol
+    mag0 = geom.sdd / geom.sod
+    dv = geom.pixel_height
+    zc = v.z_coords().astype(np.float64)[:, None]            # (nz, 1)
+    ve = geom.v_coords().astype(np.float64)[None, :]         # (1, nv)
+    vlo = (zc - v.dz / 2.0) * mag0
+    vhi = (zc + v.dz / 2.0) * mag0
+    ov = np.maximum(np.minimum(vhi, ve + dv / 2.0)
+                    - np.maximum(vlo, ve - dv / 2.0), 0.0) / dv
+    obl = np.sqrt(1.0 + (zc / geom.sod) ** 2)                # central ray
+    return (ov * obl).astype(np.float32)
+
+
+def _z_edge_extent(geom: CTGeometry) -> float:
+    """|z| of the outermost voxel *edge* (mm): the worst-case height."""
+    v = geom.vol
+    return v.nz * v.dz / 2.0 + abs(v.offset_z)
+
+
+def half_cone_tangent(geom: CTGeometry) -> float:
+    """tan of the half-cone angle the volume's z extent subtends at the
+    source (``z_max / sod``, the small parameter of the approximation)."""
+    return _z_edge_extent(geom) / geom.sod
+
+
+def cone_packed_row_shift(geom: CTGeometry) -> float:
+    """Worst-case axial footprint displacement of the packed approximation,
+    in detector rows: over the volume disk ``ell`` ranges in [sod - R,
+    sod + R], so a footprint edge at height ``z`` moves by at most
+    ``z_max * max(sdd/(sod-R) - mag0, mag0 - sdd/(sod+R))`` mm on the
+    detector (first order in the cone angle; zero in the fan limit)."""
+    r = geom.vol.radius
+    mag0 = geom.sdd / geom.sod
+    dmag = max(geom.sdd / max(geom.sod - r, 1e-3) - mag0,
+               mag0 - geom.sdd / (geom.sod + r))
+    return _z_edge_extent(geom) * dmag / geom.pixel_height
+
+
+def cone_packed_error_bound(geom: CTGeometry) -> float:
+    """Bound on the relative L2 sinogram error of the packed pair against
+    the exact cone pair: twice the row shift (the normalized rectangle
+    overlaps are 2-Lipschitz in it) plus the obliquity's second-order term
+    ``0.5 tan(theta_half)^2 ((sod/(sod-R))^2 - 1)``."""
+    r = geom.vol.radius
+    s = cone_packed_row_shift(geom)
+    t = half_cone_tangent(geom)
+    obl = 0.5 * (t ** 2) * ((geom.sod / max(geom.sod - r, 1e-3)) ** 2 - 1.0)
+    return 2.0 * s + obl
+
+
 def register() -> None:
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import fp_fan, ops
     ops.register_kernel("cone", "sf", ConePlan, fp_cone_sf, bp_cone_sf,
-                        fp_batched=fp_cone_sf, bp_batched=bp_cone_sf)
+                        fp_batched=fp_cone_sf, bp_batched=bp_cone_sf,
+                        packed_plan=fp_fan.ConePackedPlan,
+                        fp_packed=fp_fan.fp_fan_sf, bp_packed=fp_fan.bp_fan_sf,
+                        packed_ok=tune.packed_cone_ok)

@@ -31,10 +31,19 @@ meet by :meth:`FanPlan.ku`; the FP's voxel window of a tile and line is
 the footprint's half-width bound widened around the tile
 (:func:`tile_window`, the host's copy of the kernel's), so the CPU tests
 hold both against the plain version's nonzero weights.  The FP's shared
-memory is counted here (:func:`_fp_smem`) and checked against the kernel's
-own count at each layout's first launch (:func:`fp_info`).  The kernels
-read 16 bytes at a time, so the wrappers pad the lane axis to a multiple of
-16 bytes where it is not (``LANE_BYTES``).
+memory is counted here (:func:`_fp_smem`, and the BP's in
+``fp_par.bp_fit``) and checked against the kernel's own count at each
+layout's first launch (:func:`fp_info`, :func:`bp_info`).  A column count
+and a first column pack in 16 bits each; a wide footprint takes whole warps
+off the BP's block until its slots fit the card's shared memory.  The
+kernels read 16 bytes at a time, so the wrappers pad the lane axis to a
+multiple of 16 bytes where it is not (``LANE_BYTES``).
+
+:class:`ConePackedPlan` runs the same kernels on a flat-detector cone
+geometry: with :func:`fp_fan_sf` / :func:`bp_fan_sf` it is the packed cone
+pair, whose axial map is the central-magnification pre-resample
+(``fp_cone._z_overlap_cone_packed``); ``ops`` registers it on the cone
+entry.
 """
 from __future__ import annotations
 
@@ -49,12 +58,13 @@ from repro_torch.core.geometry import CTGeometry
 from repro_torch.kernels import fp_par, precision, tune
 from repro_torch.kernels.footprint import trapezoid_pixel_weight
 from repro_torch.kernels.fp_cone import (_corner_trapezoid, _view_params_cone,
+                                         _z_overlap_cone_packed,
                                          footprint_halfwidth)
 from repro_torch.kernels.fp_par import (LanePlan, bp_lanes, bp_lanes_plain,
                                         fp_lanes, fp_lanes_plain)
 
-__all__ = ["FanPlan", "LAUNCHES", "reset_launches", "fp_lanes", "bp_lanes",
-           "fp_lanes_plain", "bp_lanes_plain", "fp_fan_sf", "bp_fan_sf",
+__all__ = ["FanPlan", "ConePackedPlan", "LAUNCHES", "reset_launches",
+           "fp_lanes", "bp_lanes", "fp_lanes_plain", "bp_lanes_plain", "fp_fan_sf", "bp_fan_sf",
            "register", "FanFpLayout", "fp_info", "bp_info", "tile_window",
            "division_mismatches"]
 
@@ -69,7 +79,6 @@ LAUNCHES: Dict[str, int] = {"fp_fan_sf": 0, "bp_fan_sf": 0}
 FP_SMEM_BUDGET = 24 * 1024
 FP_SEGS = 16
 _MAX_SLOTS = 65535          # a slot index is 16 bits
-_MAX_KU = 254               # the BP packs a count in 8 bits
 _ELEM = {torch.float32: 4, torch.bfloat16: 2}
 
 
@@ -165,14 +174,18 @@ class FanPlan(LanePlan):
     launches = LAUNCHES
 
     def __init__(self, geom: CTGeometry):
-        if geom.geom_type != "fan":
-            raise ValueError(f"the fan SF pair needs a fan geometry, got "
-                             f"{geom.geom_type!r}")
+        self._accept(geom)
         super().__init__(geom, *_view_params_cone(geom))
         self.sdd = float(np.float32(geom.sdd))
         self.dxv = float(np.float32(geom.vol.dx))
         self.hw = float(np.float32(footprint_halfwidth(geom)))
         self.curved = geom.detector_type == "curved"
+
+    @staticmethod
+    def _accept(geom: CTGeometry) -> None:
+        if geom.geom_type != "fan":
+            raise ValueError(f"the fan SF pair needs a fan geometry, got "
+                             f"{geom.geom_type!r}")
 
     def ku(self) -> int:
         """Columns a (voxel, view) can meet: its footprint spans at most
@@ -189,9 +202,9 @@ class FanPlan(LanePlan):
         lpt = fp_par._lanes_per_thread(cfg.lg)
         tu, tl, lc = cfg.bu, cfg.lg * 8 // lpt, 8 * cfg.lg
         nl, ku = self.group(grp, 1)[1], self.ku()
-        if ku > _MAX_KU:
+        if ku > fp_par.MAX_COUNT:
             raise ValueError(f"fp_fan_sf: {ku} columns a voxel exceed the "
-                             f"kernels' {_MAX_KU}")
+                             f"kernels' {fp_par.MAX_COUNT}")
 
         def smem(v):
             return _fp_smem(elem, tu, lc, nl, v, FP_SEGS, ku)
@@ -216,13 +229,11 @@ class FanPlan(LanePlan):
         return FanFpLayout(tu, tl, lpt, nl, vcap, FP_SEGS, ku, smem(vcap))
 
     def bp_layout(self, cfg: tune.KernelConfig) -> fp_par.BpLayout:
-        """The BP kernel's layout: the parallel BP's block for ``cfg``
-        (``fp_par.bp_block``) and :meth:`ku` columns a (voxel, view)."""
-        ku = self.ku()
-        if ku > _MAX_KU:
-            raise ValueError(f"bp_fan_sf: {ku} columns a voxel exceed the "
-                             f"kernels' {_MAX_KU}")
-        return fp_par.BpLayout(*fp_par.bp_block(cfg), ku)
+        """The BP kernel's layout: the parallel BP's block for ``cfg`` with
+        :meth:`ku` columns a (voxel, view) (``fp_par.bp_fit``), after the
+        table of the columns' divisors."""
+        return fp_par.bp_fit(cfg, self.ku(),
+                             fp_par._align16(8 * self.geom.n_cols), "bp_fan_sf")
 
     def fp_tail(self, grp: int, x: torch.Tensor, cfg: tune.KernelConfig) -> tuple:
         lay = self.fp_layout(grp, x.dtype, cfg)
@@ -235,6 +246,9 @@ class FanPlan(LanePlan):
     def bp_tail(self, grp: int, x: torch.Tensor, cfg: tune.KernelConfig,
                 accumulate: int) -> tuple:
         lay = self.bp_layout(cfg)
+        if x.is_cuda and (x.dtype, self.curved, lay) not in _CHECKED:
+            bp_info(lay, x.dtype, self.curved, self.geom.n_cols)
+            _CHECKED.add((x.dtype, self.curved, lay))
         return (self.sdd, self.dxv, int(self.curved), accumulate, lay.bx,
                 lay.by, lay.tl, lay.lpt, lay.ku)
 
@@ -257,8 +271,28 @@ class FanPlan(LanePlan):
             yield u.clamp(0, nu - 1), torch.where((u >= 0) & (u < nu), w, 0.0)
 
 
-# (dtype, curved, FanFpLayout) whose shared memory count the kernel has
-# confirmed (fp_info), each once a process.
+class ConePackedPlan(FanPlan):
+    """The packed cone pair's plan (for :func:`fp_fan_sf` /
+    :func:`bp_fan_sf`): the fan plan of a flat-detector cone geometry, whose transaxial footprint is the
+    fan pair's, with the axial map at the central magnification
+    (``fp_cone._z_overlap_cone_packed``) in place of the fan's rectangle
+    overlap.  Its kernels are the fan pair's, and count their launches
+    there."""
+
+    def __init__(self, geom: CTGeometry):
+        super().__init__(geom)
+        self.fz = _z_overlap_cone_packed(geom)
+
+    @staticmethod
+    def _accept(geom: CTGeometry) -> None:
+        if geom.geom_type != "cone" or geom.detector_type != "flat":
+            raise NotImplementedError(
+                "packed cone pair supports flat-detector cone geometries "
+                f"only, got {geom.geom_type}/{geom.detector_type}")
+
+
+# (dtype, curved, FanFpLayout or BpLayout) whose shared memory count the
+# kernel has confirmed (fp_info, bp_info), each once a process.
 _CHECKED: set = set()
 
 
@@ -274,11 +308,7 @@ def fp_info(lay: FanFpLayout, dtype: torch.dtype, curved: bool) -> Dict[str, int
         fp_par._DTYPE_CODE[dtype], int(curved), lay.tu, lay.tl, lay.lpt,
         lay.nl, lay.vcap, lay.segs, lay.ku, ctypes.byref(smem),
         ctypes.byref(blocks)), "fp_fan_sf info")
-    if smem.value != lay.smem:
-        raise RuntimeError(
-            f"fp_fan_sf carves {smem.value} bytes of shared memory from the "
-            f"layout {lay}, the host counted {lay.smem}: csrc/fp_fan.cu "
-            f"fan_fp_smem and fp_fan._fp_smem disagree")
+    fp_par.check_smem("fp_fan_sf", smem.value, lay)
     return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 
@@ -286,8 +316,9 @@ def bp_info(lay: fp_par.BpLayout, dtype: torch.dtype, curved: bool,
             nu: int) -> Dict[str, int]:
     """The BP kernel instance for ``dtype`` tiles on the ``curved`` or flat
     detector at layout ``lay`` with ``nu`` columns, on this card: its
-    dynamic shared memory a block (bytes, the kernel's count) and resident
-    blocks per SM."""
+    dynamic shared memory a block (bytes, as the kernel counts it) and
+    resident blocks per SM.  Raises when the kernel's count is not the
+    host's (``lay.smem``)."""
     import ctypes
     from repro_torch.kernels import build
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
@@ -295,6 +326,7 @@ def bp_info(lay: fp_par.BpLayout, dtype: torch.dtype, curved: bool,
         fp_par._DTYPE_CODE[dtype], int(curved), lay.lpt,
         lay.bx * lay.by * lay.tl, nu, lay.ku, ctypes.byref(smem),
         ctypes.byref(blocks)), "bp_fan_sf info")
+    fp_par.check_smem("bp_fan_sf", smem.value, lay)
     return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 

@@ -26,10 +26,12 @@ offset.  :func:`_view_params_modular` gives 24 floats per view: the cone
 layout on q̂, then ``e_vz·sdd_a``, ``s_z``, ``cv`` and a pad; the tables are
 bit-identical to the reference package's.
 
-Tilted frames and sources inside the volume raise ``NotImplementedError``:
-the reference runs them on its Joseph ray-marcher, which the port does not
-have yet (ROADMAP.md queue 1).  Each kernel wrapper counts its launches in
-:data:`LAUNCHES`.
+Tilted frames and sources inside the volume have no SF pair: the plan raises
+``NotImplementedError``, the entry's ``supports`` gate
+(:func:`modular_frames_axial`) keeps ``backend="auto"`` off the kernels for
+them, and ``backend="auto"`` / ``"ref"`` run them on the Joseph ray-marcher
+(``ref.fp_modular_joseph``), as the reference does.  Each kernel wrapper
+counts its launches in :data:`LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -122,8 +124,8 @@ def _require_axial(geom: CTGeometry, fr=None) -> None:
         raise NotImplementedError(
             "the modular SF pair supports axial frames (detector rows "
             "parallel to the rotation axis, source outside the volume); "
-            "use model='joseph' (ray marching) for tilted frames — the "
-            "PyTorch port has no Joseph projector yet (ROADMAP.md queue 1)")
+            "backend='auto' or 'ref' runs other frames on the Joseph "
+            "ray-marcher (model='joseph')")
 
 
 def _ell_center(geom: CTGeometry, fr) -> Tuple[np.ndarray, float]:
@@ -322,4 +324,5 @@ def register() -> None:
     from repro_torch.kernels import ops
     ops.register_kernel("modular", "sf", ModularPlan, fp_modular_sf,
                         bp_modular_sf, fp_batched=fp_modular_sf,
-                        bp_batched=bp_modular_sf)
+                        bp_batched=bp_modular_sf,
+                        supports=modular_frames_axial)

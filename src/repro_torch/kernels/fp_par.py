@@ -39,9 +39,11 @@ The bounds are proven from the tables (:meth:`ParallelPlan.fp_kw`,
 :meth:`~ParallelPlan.fp_wcap`, :meth:`~ParallelPlan.bp_ku`), and
 :func:`_tile_window` is the host's copy of the kernel's staged window, so
 the CPU tests hold both against the plain version's nonzero weights.  The
-FP's shared memory is counted here to choose the layout and checked against
-the kernel's own count at each layout's first launch (:func:`fp_info`); the
-BP's is the kernel's alone (:func:`bp_info`).  The parallel kernels read
+FP's shared memory is counted here to choose the layout, the BP's to fit
+its block (:func:`bp_fit`: a wide footprint takes whole warps off it), and
+both are checked against the kernel's own count at each layout's first
+launch (:func:`fp_info`, :func:`bp_info`).  A first index and a count pack
+in 16 bits each (``MAX_COUNT``).  The parallel kernels read
 16 bytes at a time, so their wrappers pad the lane axis to a multiple of
 16 bytes in fresh memory where it is not (``LanePlan.LANE_BYTES``).
 """
@@ -82,8 +84,10 @@ FP_SMEM_BUDGET = 96 * 1024
 FP_CHUNKS = (8, 4, 2, 1)
 FP_VIEWS = 4
 FP_THREADS = 256
-# Weights a (line, column) or (voxel, view) pair packs its count in 8 bits.
-_MAX_TAPS = 254
+# The FP packs a (line, column)'s first staged row and its count, the BP a
+# (voxel, view)'s first column and its count (at most ku + 1), in 16 bits
+# each.
+MAX_COUNT = 65534
 _ELEM = {torch.float32: 4, torch.bfloat16: 2}
 
 
@@ -223,12 +227,14 @@ class FpLayout:
 class BpLayout:
     """The BP kernel's launch: ``bx`` x ``by`` voxels (gi x li) and ``tl``
     threads a voxel of ``lpt`` lanes a block, ``ku`` columns a (voxel,
-    view) pair at most."""
+    view) pair at most; ``smem``: the host's count of its dynamic shared
+    memory (bytes; the C launch's ``bp_smem_bytes`` is the kernel's)."""
     bx: int
     by: int
     tl: int
     lpt: int
     ku: int
+    smem: int
 
 
 def _align16(n: int) -> int:
@@ -257,10 +263,42 @@ def bp_block(cfg: tune.KernelConfig) -> Tuple[int, int, int, int]:
     nvox = max(per, cfg.bg // per * per)
     while tl * nvox > 1024:
         nvox -= per
+    return _split(nvox, tl, lpt)
+
+
+def _split(nvox: int, tl: int, lpt: int) -> Tuple[int, int, int, int]:
     by = 1
     while by * by * 4 <= nvox and nvox % (by * 2) == 0:
         by *= 2
     return nvox // by, by, tl, lpt
+
+
+def bp_fit(cfg: tune.KernelConfig, ku: int, fixed: int,
+           kname: str) -> BpLayout:
+    """A lane-packed BP's layout for ``cfg`` (:func:`bp_block`) with ``ku``
+    columns a (voxel, view): its block's warps each keep a slot of ku + 1
+    words a thread in shared memory after ``fixed`` bytes (the fan BP's
+    column table), so a wide footprint takes whole warps off the block
+    until that memory fits SMEM_MAX."""
+    if ku > MAX_COUNT:
+        raise ValueError(f"{kname}: {ku} columns a voxel and view exceed the "
+                         f"kernel's {MAX_COUNT}")
+    bx, by, tl, lpt = bp_block(cfg)
+    per = 32 // tl                      # voxels a warp
+
+    def smem(nvox):
+        return fixed + (tl * nvox + 31) // 32 * 32 * ((ku | 1) + 1) * 4
+    nvox = bx * by
+    while smem(nvox) > SMEM_MAX and nvox > per:
+        nvox -= per
+    if smem(nvox) > SMEM_MAX:
+        raise ValueError(
+            f"{kname}: a warp's slots for {ku} columns a voxel need "
+            f"{smem(nvox)} bytes of shared memory, more than the {SMEM_MAX} "
+            f"a block may use")
+    if nvox != bx * by:
+        bx, by = _split(nvox, tl, lpt)[:2]
+    return BpLayout(bx, by, tl, lpt, ku, smem(nvox))
 
 
 def _tile_window(rows: np.ndarray, e0: float, du: float, u_first: int,
@@ -368,7 +406,9 @@ class ParallelPlan(LanePlan):
             hi = np.max([np.where(ok, x, -np.inf) for x in xs], axis=(0, 2))
             lo = np.min([np.where(ok, x, np.inf) for x in xs], axis=(0, 2))
             span = max(span, float(np.max(hi - lo)))
-        self._bounds[key] = int(np.floor(span)) + 4 + 2 * PAR_MARGIN
+        # the window is clamped into the ng gathered voxels
+        ng = self.group(grp, 1)[0]
+        self._bounds[key] = min(int(np.floor(span)) + 4 + 2 * PAR_MARGIN, ng)
         return self._bounds[key]
 
     def bp_ku(self) -> int:
@@ -392,9 +432,9 @@ class ParallelPlan(LanePlan):
         tu, lpt = cfg.bu, _lanes_per_thread(cfg.lg)
         tl, lc, vn = cfg.lg * 8 // lpt, 8 * cfg.lg, 16 // elem
         kw = self.fp_kw(grp)
-        if kw > _MAX_TAPS:
+        if kw > MAX_COUNT:
             raise ValueError(f"fp_par_sf: {kw} weights a column and line "
-                             f"exceed the kernel's {_MAX_TAPS}")
+                             f"exceed the kernel's {MAX_COUNT}")
         most = max(1, min(FP_VIEWS, FP_THREADS // (tl * tu),
                           1024 // (tl * tu)))
         cands = []
@@ -419,12 +459,8 @@ class ParallelPlan(LanePlan):
         return FpLayout(tu, tl, lpt, nvb, lch, wcap, kw, smem)
 
     def bp_layout(self, cfg: tune.KernelConfig) -> BpLayout:
-        """The BP kernel's layout: :func:`bp_block` and :meth:`bp_ku`."""
-        ku = self.bp_ku()
-        if ku > _MAX_TAPS:
-            raise ValueError(f"bp_par_sf: {ku} columns a voxel and view "
-                             f"exceed the kernel's {_MAX_TAPS}")
-        return BpLayout(*bp_block(cfg), ku)
+        """The BP kernel's layout: :func:`bp_fit` with :meth:`bp_ku`."""
+        return bp_fit(cfg, self.bp_ku(), 0, "bp_par_sf")
 
     def fp_tail(self, grp: int, x: torch.Tensor, cfg: tune.KernelConfig) -> tuple:
         lay = self.fp_layout(grp, x.dtype, cfg)
@@ -442,11 +478,14 @@ class ParallelPlan(LanePlan):
     def bp_tail(self, grp: int, x: torch.Tensor, cfg: tune.KernelConfig,
                 accumulate: int) -> tuple:
         lay = self.bp_layout(cfg)
+        if (x.dtype, lay) not in _CHECKED:
+            bp_info(lay, x.dtype)
+            _CHECKED.add((x.dtype, lay))
         return (accumulate, lay.bx, lay.by, lay.tl, lay.lpt, lay.ku)
 
 
-# (dtype, FpLayout) whose shared memory count the kernel has confirmed
-# (fp_info), each once a process.
+# (dtype, FpLayout or BpLayout) whose shared memory count the kernel has
+# confirmed (fp_info, bp_info), each once a process.
 _CHECKED: set = set()
 
 
@@ -462,25 +501,33 @@ def fp_info(lay: FpLayout, dtype: torch.dtype) -> Dict[str, int]:
         _DTYPE_CODE[dtype], lay.tu, lay.tl, lay.lpt, lay.nvb, lay.lch,
         lay.wcap, lay.kw, ctypes.byref(smem), ctypes.byref(blocks)),
         "fp_par_sf info")
-    if smem.value != lay.smem:
-        raise RuntimeError(
-            f"fp_par_sf carves {smem.value} bytes of shared memory from the "
-            f"layout {lay}, the host counted {lay.smem}: csrc/fp_par.cu "
-            f"par_fp_smem and ParallelPlan.fp_layout disagree")
+    check_smem("fp_par_sf", smem.value, lay)
     return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 
 def bp_info(lay: BpLayout, dtype: torch.dtype) -> Dict[str, int]:
     """The BP kernel instance for ``dtype`` tiles at layout ``lay``, on
-    this card: its dynamic shared memory a block (bytes, the kernel's
-    count) and resident blocks per SM."""
+    this card: its dynamic shared memory a block (bytes, as the kernel
+    counts it) and resident blocks per SM.  Raises when the kernel's count
+    is not the host's (``lay.smem``)."""
     import ctypes
     from repro_torch.kernels import build
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
     build.check("fp_par", build.library("fp_par").bp_par_sf_info(
         _DTYPE_CODE[dtype], lay.lpt, lay.bx * lay.by * lay.tl, lay.ku,
         ctypes.byref(smem), ctypes.byref(blocks)), "bp_par_sf info")
+    check_smem("bp_par_sf", smem.value, lay)
     return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+
+
+def check_smem(kname: str, smem: int, lay) -> None:
+    """Raise unless the kernel's count of its shared memory is the host's
+    (``lay.smem``)."""
+    if smem != lay.smem:
+        raise RuntimeError(
+            f"{kname} carves {smem} bytes of shared memory from the layout "
+            f"{lay}, the host counted {lay.smem}: the C count and the "
+            f"layout's disagree")
 
 
 # --------------------------------------------------------------------------- #

@@ -11,10 +11,25 @@ backward calls the other Function's ``apply``, so gradients of gradients
 (``create_graph=True``) work too.
 
 Backends (``ProjectorSpec.backend``):
-    * ``auto`` — follow the input: a CUDA tensor runs the registered CUDA
-      kernel pair, a CPU tensor the plain reference (``kernels/ref.py``).
-    * ``cuda`` — the kernel pair; a CPU tensor raises.
-    * ``ref``  — the plain reference, on whatever device the tensor is.
+    * ``auto`` -- follow the input: a CUDA tensor runs the registered CUDA
+      kernel pair, a CPU tensor its plain version (``kernels/ref.py``).  A
+      (geometry, model) with no kernel pair (Joseph), or one whose entry's
+      ``supports`` gate rejects the geometry (tilted modular frames), runs
+      the plain pair on whatever device the tensor is on, as the
+      reference's ``auto`` does where it has no Pallas kernel.
+    * ``cuda`` -- the kernel pair; a CPU tensor, or a geometry with no kernel
+      pair, raises.
+    * ``ref``  -- the plain reference, on whatever device the tensor is.
+
+Modes (``ProjectorSpec.mode``, :func:`resolve_mode`): ``exact`` runs the
+exact pair; ``packed`` the registered approximate *packed* pair (the cone
+pair's lane-packed axial pre-resample), raising where none is registered;
+``auto`` the packed pair where its ``packed_ok`` gate accepts the geometry,
+else the exact one.  The port's ``auto`` and ``cuda`` backends resolve the
+mode as the reference's ``backend="pallas"`` does, ``ref`` as its ``ref``
+(always exact).  On a CPU tensor the ``auto`` backend runs the plain version
+of whichever pair was resolved.  A registered kernel that fails to build or
+launch raises: no path falls back from a kernel to its plain version.
 
 The op cache is a bounded LRU keyed on ``spec.cache_key()`` (geometry
 *content* plus model/backend/config/precision and the input dtype), so equal
@@ -29,6 +44,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.geometry import CTGeometry
 from repro_torch.core.spec import ProjectorSpec
 from repro_torch.kernels import ref
 
@@ -37,24 +53,41 @@ class _KernelEntry(NamedTuple):
     """A registered CUDA kernel pair.  ``plan(geom)`` derives what the pair
     needs from a geometry once per bundle; ``fp``/``bp`` take
     ``(tensor, plan, config=, compute_dtype=)``; the batched variants accept
-    a leading batch dimension and fold it into the kernel."""
+    a leading batch dimension and fold it into the kernel.  ``fp_packed``/
+    ``bp_packed`` on ``packed_plan(geom)`` are an approximate packed pair,
+    taken by ``mode="packed"``, or by ``mode="auto"`` where
+    ``packed_ok(geom)`` holds; ``supports(geom)`` restricts the entry to the
+    geometries its kernels cover."""
     plan: Callable
     fp: Callable
     bp: Callable
     fp_batched: Optional[Callable] = None
     bp_batched: Optional[Callable] = None
+    packed_plan: Optional[Callable] = None
+    fp_packed: Optional[Callable] = None
+    bp_packed: Optional[Callable] = None
+    packed_ok: Optional[Callable] = None     # geom -> bool (mode="auto" gate)
+    supports: Optional[Callable] = None      # geom -> bool (kernel coverage)
 
 
-# {(geom_type, model): _KernelEntry} — filled by the kernels package on import
+# {(geom_type, model): _KernelEntry} -- filled by the kernels package on import
 _KERNEL_TABLE: Dict[Tuple[str, str], _KernelEntry] = {}
 
 
 def register_kernel(geom_type: str, model: str, plan: Callable, fp: Callable,
                     bp: Callable, fp_batched: Optional[Callable] = None,
-                    bp_batched: Optional[Callable] = None) -> None:
-    """Register a CUDA kernel pair for one (geometry type, model)."""
-    _KERNEL_TABLE[(geom_type, model)] = _KernelEntry(plan, fp, bp, fp_batched,
-                                                     bp_batched)
+                    bp_batched: Optional[Callable] = None,
+                    packed_plan: Optional[Callable] = None,
+                    fp_packed: Optional[Callable] = None,
+                    bp_packed: Optional[Callable] = None,
+                    packed_ok: Optional[Callable] = None,
+                    supports: Optional[Callable] = None) -> None:
+    """Register a CUDA kernel pair for one (geometry type, model), with an
+    optional packed pair and its gate, and an optional coverage gate
+    (:class:`_KernelEntry`)."""
+    _KERNEL_TABLE[(geom_type, model)] = _KernelEntry(
+        plan, fp, bp, fp_batched, bp_batched, packed_plan, fp_packed,
+        bp_packed, packed_ok, supports)
 
 
 class _Pair:
@@ -101,26 +134,78 @@ class Ops(NamedTuple):
     plain: Optional[Tuple[Callable, Callable]]
 
 
-def _build(spec: ProjectorSpec) -> Ops:
+def _resolve_mode(spec: ProjectorSpec) -> str:
+    """Collapse ``spec.mode`` to the concrete pair that will dispatch
+    ("exact" | "packed"): ``auto``/``cuda`` as the reference's ``pallas``
+    backend, ``ref`` as its ``ref``.  The spec has validated its fields."""
+    if spec.mode == "exact":
+        return "exact"
+    geom, model = spec.geom, spec.model
+    entry = _KERNEL_TABLE.get((geom.geom_type, model))
+    has_packed = (spec.backend in ("auto", "cuda") and entry is not None
+                  and entry.fp_packed is not None
+                  and entry.bp_packed is not None)
+    if spec.mode == "packed":
+        if not has_packed:
+            raise NotImplementedError(
+                f"mode='packed' needs a registered packed kernel pair for "
+                f"({geom.geom_type}, {model}) on the auto or cuda backend")
+        return "packed"
+    # "auto": packed only where the registered gate accepts the geometry
+    if has_packed and entry.packed_ok is not None and entry.packed_ok(geom):
+        return "packed"
+    return "exact"
+
+
+def resolve_mode(spec_or_geom, model: str = "sf", backend: str = "auto",
+                 mode: str = "auto") -> str:
+    """The concrete pair ("exact" | "packed") that ``forward_project`` /
+    ``back_project`` dispatch for these arguments, given a
+    :class:`ProjectorSpec` or a geometry.  The port's backends map onto the
+    reference's: ``auto`` and ``cuda`` act as its ``backend="pallas"``
+    (``mode="auto"`` is packed where the entry's ``packed_ok`` holds;
+    ``mode="packed"`` needs a registered packed pair, else
+    ``NotImplementedError``), ``ref`` as its ``ref`` (``auto`` is exact,
+    ``packed`` raises).  A spec resolves once, at its first use
+    (``ProjectorSpec.resolved_mode``), and keeps its pair: a later change
+    of ``REPRO_TORCH_PACKED_CONE_TOL`` moves new specs only."""
+    spec = (spec_or_geom if isinstance(spec_or_geom, ProjectorSpec)
+            else ProjectorSpec(spec_or_geom, model=model, backend=backend,
+                               mode=mode))
+    return spec.resolved_mode
+
+
+def _build(spec: ProjectorSpec, rmode: str) -> Ops:
     geom, model, cdt = spec.geom, spec.model, spec.compute_dtype
     kernel = plain = None
-    if spec.backend in ("auto", "cuda"):
-        entry = _KERNEL_TABLE.get((geom.geom_type, model))
-        if entry is None:
-            raise NotImplementedError(
-                f"no CUDA kernel pair for {(geom.geom_type, model)} in the "
-                f"PyTorch port yet; ROADMAP.md queue 2 lists the kernels "
-                f"still to port")
-        plan = entry.plan(geom)
-        fp = entry.fp_batched or entry.fp
-        bp = entry.bp_batched or entry.bp
+    entry = _KERNEL_TABLE.get((geom.geom_type, model))
+    if spec.backend == "cuda" and entry is None:
+        raise NotImplementedError(
+            f"no CUDA kernel pair for {(geom.geom_type, model)}; "
+            f"backend='auto' or 'ref' runs its plain version")
+    if (spec.backend == "auto" and entry is not None
+            and entry.supports is not None and not entry.supports(geom)):
+        entry = None          # the plain pair on every device
+    # an explicit backend="cuda" builds the plan, which refuses what the
+    # kernels do not cover; the kernel pair and its plain version share it
+    plan = None
+    if spec.backend in ("auto", "cuda") and entry is not None:
+        if rmode == "packed":
+            plan = entry.packed_plan(geom)
+            fp, bp = entry.fp_packed, entry.bp_packed
+        else:
+            plan = entry.plan(geom)
+            fp = entry.fp_batched or entry.fp
+            bp = entry.bp_batched or entry.bp
         kernel = _make_pair(
             lambda f: fp(f, plan, config=spec.config, compute_dtype=cdt),
             lambda p: bp(p, plan, config=spec.config, compute_dtype=cdt))
     if spec.backend in ("auto", "ref"):
-        ref._plan(geom, model)                  # unsupported pairs raise here
-        plain = _make_pair(lambda f: ref.forward(f, geom, model, dtype=cdt),
-                           lambda p: ref.adjoint(p, geom, model, dtype=cdt))
+        # unsupported pairs raise here
+        rplan = ref._plan(geom, model) if plan is None else plan
+        plain = _make_pair(
+            lambda f: ref.forward(f, geom, model, dtype=cdt, plan=rplan),
+            lambda p: ref.adjoint(p, geom, model, dtype=cdt, plan=rplan))
     return Ops(kernel, plain)
 
 
@@ -132,14 +217,17 @@ _STATS = {"hits": 0, "misses": 0}
 
 def _get_bundle(spec: ProjectorSpec, in_dtype: Optional[torch.dtype] = None) -> Ops:
     idt = None if in_dtype is None else str(in_dtype).removeprefix("torch.")
-    key = spec.cache_key(idt)
+    # keyed on the resolved mode: "auto" and an explicit equivalent share one
+    # bundle
+    rmode = spec.resolved_mode
+    key = spec.cache_key(rmode, idt)
     hit = _OPS_CACHE.get(key)
     if hit is not None:
         _STATS["hits"] += 1
         _OPS_CACHE.move_to_end(key)
         return hit
     _STATS["misses"] += 1
-    bundle = _build(spec)
+    bundle = _build(spec, rmode)
     _OPS_CACHE[key] = bundle
     while len(_OPS_CACHE) > _OPS_CACHE_SIZE:
         _OPS_CACHE.popitem(last=False)

@@ -29,16 +29,25 @@ samples per thread from the batch (``fp_cone.samples_per_thread``).
 The kernels read 16 bytes at a time, and their wrappers pad the lane axis
 to a multiple of 16 bytes where it is not one (``fp_par._aligned``).
 ``resolve_config`` returns an explicit pin when one is given, else the
-pair's heuristic.
+pair's heuristic.  The packed cone pair (the fan pair's entry points on a
+``fp_fan.ConePackedPlan``) runs the fan kernels on batch x detector-row
+lanes and takes the fan heuristic.
+
+:func:`packed_cone_ok` is the ``mode="auto"`` gate of the packed cone pair
+(``kernels/ops.py``): the packed pair's worst axial footprint displacement
+(``fp_cone.cone_packed_row_shift``) at most :func:`packed_cone_tolerance`
+detector rows.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
 from repro_torch.core.geometry import CTGeometry
 
-__all__ = ["KernelConfig", "LANES_PER_THREAD", "heuristic_config",
+__all__ = ["KernelConfig", "LANES_PER_THREAD", "PACKED_CONE_DEFAULT_TOL",
+           "heuristic_config", "packed_cone_ok", "packed_cone_tolerance",
            "parallel_config", "resolve_config"]
 
 LANES_PER_THREAD = 8        # lanes a group (the kernels' lane vectors)
@@ -114,3 +123,38 @@ def parallel_config(geom: CTGeometry, batch: int = 1) -> KernelConfig:
     lg = min(_pow2_ceil(groups), _MAX_GROUPS)
     tl = lg if lg < 4 else lg // 2          # threads an output
     return KernelConfig(bu=32 if tl == 1 else 16, bg=128 // tl, lg=lg)
+
+
+# --------------------------------------------------------------------------- #
+# Packed-cone dispatch gate
+# --------------------------------------------------------------------------- #
+# Default ceiling on the packed approximation's worst-case axial footprint
+# displacement (detector rows).  A quarter row keeps the relative error bound
+# (2x the shift + the second-order obliquity term, see
+# fp_cone.cone_packed_error_bound) well below typical detector noise.
+PACKED_CONE_DEFAULT_TOL = 0.25
+PACKED_CONE_TOL_ENV = "REPRO_TORCH_PACKED_CONE_TOL"
+
+
+def packed_cone_tolerance() -> float:
+    """Row-shift ceiling for ``mode="auto"`` packed-cone dispatch
+    (``REPRO_TORCH_PACKED_CONE_TOL`` overrides the default; a value that is
+    not a float raises, rather than dispatching the approximate pair at a
+    gate the user did not ask for)."""
+    val = os.environ.get(PACKED_CONE_TOL_ENV, "").strip()
+    if val:
+        try:
+            return float(val)
+        except ValueError:
+            raise ValueError(
+                f"{PACKED_CONE_TOL_ENV}={val!r} is not a float") from None
+    return PACKED_CONE_DEFAULT_TOL
+
+
+def packed_cone_ok(geom: CTGeometry) -> bool:
+    """True when the packed (lane-packed, axial pre-resample) cone pair is
+    within tolerance for this geometry: the ``mode="auto"`` gate."""
+    if geom.geom_type != "cone" or geom.detector_type != "flat":
+        return False
+    from repro_torch.kernels import fp_cone            # late: fp_cone imports us
+    return fp_cone.cone_packed_row_shift(geom) <= packed_cone_tolerance()

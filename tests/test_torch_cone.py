@@ -148,8 +148,10 @@ def test_dot_gradient_and_double_backward():
 def test_curved_cone_raises_not_implemented():
     g = tgeo.cone_beam(4, 4, 12, tgeo.VolumeGeometry(8, 8, 4), sod=40.0,
                        sdd=80.0, pixel_width=2.0, detector_type="curved")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # no SF pair on a curved detector, as in the reference (model="joseph"
+    # projects it: tests/test_torch_joseph.py)
+    with pytest.raises(NotImplementedError, match="flat detectors"):
         ConePlan(g)
     proj = Projector(ProjectorSpec(g), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="flat detectors"):
         proj(torch.zeros(g.vol.shape))

@@ -922,3 +922,163 @@ def test_long_branch_without_kernels_refuses_on_the_card():
     short = toks[:, :2048]
     got = make_prefill_step(cfg)(params, {"tokens": short})
     assert _rel(got, make_prefill_step(cfg, backend="ref")(params, {"tokens": short})) <= 1e-4
+
+
+# --------------------------------------------------------------------------- #
+# The lane-packed kernels past the old 8-bit counts
+# --------------------------------------------------------------------------- #
+LANE_CAPS = {
+    # a fan voxel meeting 314 columns
+    "fan_314": lambda: fan_beam(720, 1, 2048, VolumeGeometry(16, 16, 1, dx=6.25,
+                                                            dy=6.25),
+                                sod=200.0, sdd=400.0, pixel_width=0.1),
+    # a parallel voxel meeting 455 columns
+    "par_bp_455": lambda: parallel_beam(90, 1, 512, VolumeGeometry(
+        64, 64, 1, dx=16.0, dy=16.0), pixel_width=0.05),
+    # a parallel column and line meeting 421 voxels
+    "par_fp_421": lambda: parallel_beam(90, 1, 16, VolumeGeometry(
+        512, 512, 1, dx=0.02, dy=0.02), pixel_width=6.0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(LANE_CAPS))
+def test_lane_caps_match_plain(name, dtype):
+    requires_cuda()
+    g = LANE_CAPS[name]()
+    if g.geom_type == "parallel":
+        _par_match_plain(g, 8, dtype)
+        return
+    plan, cfg = FanPlan(g), tune.heuristic_config(g, 8)
+    assert plan.ku() > 254
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    tol = 2e-4 if dtype == "float32" else precision.BF16_KERNEL_REL_TOL
+    for run, plain, shape in ((fp_fan.fp_lanes, fp_fan.fp_lanes_plain,
+                               (g.vol.nx, g.vol.ny, 8)),
+                              (fp_fan.bp_lanes, fp_fan.bp_lanes_plain,
+                               (g.n_angles, g.n_cols, 8))):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        got = run(x, plan, cfg)
+        want = plain(x, plan)
+        assert bool(torch.isfinite(got).all())
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel <= tol, rel
+
+
+# --------------------------------------------------------------------------- #
+# The packed cone pair: the fan kernels on a cone geometry's lanes
+# --------------------------------------------------------------------------- #
+def _packed_geom(sod=256.0):
+    return cone_beam(24, 8, 96, VolumeGeometry(64, 64, 8, dx=0.4, dy=0.4, dz=0.4),
+                     sod=sod, sdd=1.5 * sod, pixel_width=0.6, pixel_height=0.6)
+
+
+@pytest.mark.parametrize("cfg", [None, tune.KernelConfig(bu=16, bg=32, lg=2),
+                                 tune.KernelConfig(bu=1, bg=32, lg=1)],
+                         ids=["heuristic", "bu16_lg2", "bu1"])
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_packed_pair_matches_plain(dtype, batch, cfg):
+    """The packed pair (fp_fan_sf / bp_fan_sf on a ConePackedPlan) on CUDA
+    tensors (the fan kernels, and only they, launch) against the plain
+    composition on the same plan."""
+    requires_cuda()
+    g = _packed_geom()
+    plan = fp_fan.ConePackedPlan(g)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lead = () if batch is None else (batch,)
+    dt = getattr(torch, dtype)
+    x = torch.randn(lead + g.vol.shape, generator=gen, device="cuda")
+    y = torch.randn(lead + g.sino_shape, generator=gen, device="cuda")
+    tol = 2e-4 if dtype == "float32" else precision.BF16_KERNEL_REL_TOL
+    K.reset_launches()
+    got_fp = fp_fan.fp_fan_sf(x, plan, config=cfg, compute_dtype=dt)
+    got_bp = fp_fan.bp_fan_sf(y, plan, config=cfg, compute_dtype=dt)
+    launches = K.launches()
+    assert launches["fp_fan_sf"] >= 1 and launches["bp_fan_sf"] >= 1
+    assert launches["fp_cone_sf"] == 0 and launches["bp_cone_sf"] == 0
+    want_fp = fp_par.fp_packed(x, plan, dt, lambda t: fp_par.fp_lanes_plain(t, plan))
+    want_bp = fp_par.bp_packed(y, plan, dt, lambda t: fp_par.bp_lanes_plain(t, plan))
+    for got, want in ((got_fp, want_fp), (got_bp, want_bp)):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        rel = float((got - want).abs().max() / want.abs().max())
+        assert rel <= tol, rel
+
+
+def test_packed_pair_through_the_projector():
+    """``mode="auto"`` resolves the packed pair on a geometry under the gate:
+    dot test, gradient = backprojection, the fan kernels launch and the cone
+    kernels do not; ``mode="exact"`` launches the cone kernels."""
+    requires_cuda()
+    from repro_torch import resolve_mode
+    g = _packed_geom(1024.0)
+    assert resolve_mode(g) == "packed"
+    proj = Projector(ProjectorSpec(g))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.rand((2,) + g.vol.shape, generator=gen, device="cuda")
+    y = torch.randn((2,) + g.sino_shape, generator=gen, device="cuda")
+    K.reset_launches()
+    lhs = float(torch.sum(proj(x).double() * y.double()))
+    rhs = float(torch.sum(x.double() * proj.T(y).double()))
+    assert abs(lhs - rhs) / abs(lhs) < 1e-4
+    xg = x.clone().requires_grad_()
+    (grad,) = torch.autograd.grad(0.5 * torch.sum((proj(xg) - y) ** 2), xg)
+    torch.testing.assert_close(grad, proj.T(proj(x) - y), rtol=1e-4, atol=1e-5)
+    launches = K.launches()
+    assert launches["fp_fan_sf"] >= 1 and launches["fp_cone_sf"] == 0
+    exact = Projector(ProjectorSpec(g, mode="exact"))
+    err = float((proj(x) - exact(x)).norm() / exact(x).norm())
+    assert err <= fp_cone.cone_packed_error_bound(g)
+    assert K.launches()["fp_cone_sf"] >= 1
+
+
+# --------------------------------------------------------------------------- #
+# The Joseph projectors on card tensors (plain torch, no kernel)
+# --------------------------------------------------------------------------- #
+def _tilted_arcs():
+    ang = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+    src = np.stack([60 * np.cos(ang), 60 * np.sin(ang), 1.8 * np.sin(2 * ang)], -1)
+    eu = np.stack([-np.sin(ang), np.cos(ang), np.zeros_like(ang)], -1)
+    ev = np.cross(src / np.linalg.norm(src, axis=1, keepdims=True), eu)
+    return modular_beam(src, -src, eu, ev, n_rows=8, n_cols=20,
+                        vol=VolumeGeometry(12, 12, 6), pixel_width=2.0,
+                        pixel_height=2.0)
+
+
+JOSEPH = {
+    "parallel": ("joseph", lambda: parallel_beam(10, 5, 20, VolumeGeometry(12, 14, 4),
+                                                 pixel_width=1.3, pixel_height=1.1)),
+    "cone_flat": ("joseph", lambda: cone_beam(10, 6, 24, VolumeGeometry(12, 14, 4),
+                                              sod=80.0, sdd=160.0, pixel_width=1.5,
+                                              pixel_height=1.5)),
+    "cone_curved": ("joseph", lambda: cone_beam(
+        10, 6, 24, VolumeGeometry(12, 14, 4), sod=80.0, sdd=160.0, pixel_width=1.5,
+        pixel_height=1.5, detector_type="curved")),
+    "modular_tilted_sf": ("sf", _tilted_arcs),
+}
+
+
+@pytest.mark.parametrize("name", list(JOSEPH))
+def test_joseph_on_card_tensors(name):
+    requires_cuda()
+    from repro_torch.kernels import ref
+    model, make = JOSEPH[name]
+    g = make()
+    proj = Projector(ProjectorSpec(g, model=model))
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2,) + g.vol.shape, generator=gen)
+    y = torch.randn((2,) + g.sino_shape, generator=gen)
+    K.reset_launches()
+    ax, aty = proj(x.cuda()), proj.T(y.cuda())
+    assert ax.device.type == "cuda" and aty.device.type == "cuda"
+    assert not any(K.launches().values())
+    lhs = float(torch.sum(ax.double().cpu() * y.double()))
+    rhs = float(torch.sum(x.double() * aty.double().cpu()))
+    assert abs(lhs - rhs) / abs(lhs) < 1e-4
+    torch.testing.assert_close(ax.cpu(), ref.forward(x, g, model), rtol=2e-4,
+                               atol=2e-4 * float(ax.abs().max()))
+    torch.testing.assert_close(aty.cpu(), ref.adjoint(y, g, model), rtol=2e-4,
+                               atol=2e-4 * float(aty.abs().max()))
+    with pytest.raises(NotImplementedError):
+        Projector(ProjectorSpec(g, model=model, backend="cuda"))(x.cuda())

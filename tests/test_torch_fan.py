@@ -14,7 +14,7 @@ from repro.kernels.fp_fan import bp_fan_sf_pallas, fp_fan_sf_pallas
 
 import repro_torch.core.geometry as tgeo
 from repro_torch import Projector, ProjectorSpec
-from repro_torch.kernels import fp_cone, fp_fan, precision, tune
+from repro_torch.kernels import fp_cone, fp_fan, fp_par, precision, tune
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.fp_fan import FanPlan
 
@@ -291,3 +291,37 @@ def test_heuristic_config_shares_weights_across_lanes():
     assert tune.heuristic_config(g16, 4) == tune.KernelConfig(bu=32, bg=32, lg=8)
     g44 = tgeo.fan_beam(4, 44, 24, tgeo.VolumeGeometry(16, 16, 44), sod=40.0, sdd=80.0)
     assert tune.heuristic_config(g44, 3) == tune.KernelConfig(bu=32, bg=32, lg=8)
+
+
+def test_layouts_hold_past_the_old_eight_bit_count():
+    """A coarse volume over a fine detector (16 x 16 voxels of 6.25 mm over
+    2048 columns of 0.1 mm): a voxel meets up to 314 columns, past the 254
+    an 8-bit count held.  ``FanPlan.ku`` still bounds the columns every
+    (voxel, view) meets, every nonzero plain weight is among them, and both
+    layouts fit the card's shared memory (the BP's by fewer warps a block)."""
+    g = tgeo.fan_beam(720, 1, 2048, tgeo.VolumeGeometry(16, 16, 1, dx=6.25,
+                                                        dy=6.25),
+                      sod=200.0, sdd=400.0, pixel_width=0.1)
+    plan = FanPlan(g.subset([0, 89, 90, 91, 180, 269, 270, 271, 450]))
+    assert plan.ku() == 314
+    el = torch.tensor([np.float32(np.float32(plan.e0) + np.float32(
+        np.float32(u) * np.float32(plan.du))) for u in range(g.n_cols)])
+    eh = el + plan.du
+    most = 0
+    for grp in (0, 1):
+        _, _, _, t0, t3, u, nz = _taps(plan, grp)
+        meets = (eh > t0[..., None]) & (el < t3[..., None])
+        most = max(most, int(meets.sum(-1).max()))
+        assert not (nz & ~torch.gather(meets, 2, u)).any()
+    assert 254 < most <= plan.ku(), most
+    for batch in (1, 8):
+        cfg = tune.heuristic_config(g, batch)
+        for dtype in (torch.float32, torch.bfloat16):
+            for grp in (0, 1):
+                lay = plan.fp_layout(grp, dtype, cfg)
+                assert lay.ku == plan.ku() and lay.smem <= fp_par.SMEM_MAX
+        bl = plan.bp_layout(cfg)
+        assert bl.ku == plan.ku() and bl.smem <= fp_par.SMEM_MAX
+        assert (bl.bx * bl.by * bl.tl) % 32 == 0
+        assert bl.smem == (fp_par._align16(8 * g.n_cols) + bl.bx * bl.by
+                           * bl.tl * ((bl.ku | 1) + 1) * 4)

@@ -325,7 +325,10 @@ def test_layouts_follow_the_config():
     # them in a strided loop)
     lay = plan.fp_layout(0, torch.float32, tune.KernelConfig(bu=1, lg=1))
     assert (lay.tu, lay.tl, lay.lpt, lay.nvb) == (1, 1, 8, fp_par.FP_VIEWS)
-    wide = ParallelPlan(tgeo.parallel_beam(4, 1, 64, tgeo.VolumeGeometry(64, 64, 1),
+    # the staged window is clamped to the gathered axis: a wide one needs
+    # a wide volume
+    wide = ParallelPlan(tgeo.parallel_beam(4, 1, 64,
+                                           tgeo.VolumeGeometry(4096, 4096, 1),
                                            pixel_width=8.0))
     with pytest.raises(ValueError, match="shared memory"):
         wide.fp_layout(0, torch.float32, tune.KernelConfig(bu=512, lg=2))
@@ -339,3 +342,42 @@ def test_layouts_follow_the_config():
     assert fan.bp_tail(0, x, cfg, 1) == (fan.sdd, fan.dxv, int(fan.curved), 1,
                                          bl.bx, bl.by, 2, 8, bl.ku)
     assert (bl.bx * bl.by, bl.tl) == (32, 2)
+
+
+WIDE = {
+    # a coarse volume over a fine detector: 455 columns a voxel and view
+    "bp_455": lambda: tgeo.parallel_beam(
+        90, 1, 512, tgeo.VolumeGeometry(64, 64, 1, dx=16.0, dy=16.0),
+        pixel_width=0.05),
+    # a fine volume over a coarse detector: 421 voxels a column and line
+    "fp_421": lambda: tgeo.parallel_beam(
+        90, 1, 16, tgeo.VolumeGeometry(512, 512, 1, dx=0.02, dy=0.02),
+        pixel_width=6.0),
+}
+
+
+@pytest.mark.parametrize("name", list(WIDE))
+def test_layouts_hold_past_the_old_eight_bit_counts(name):
+    """Past the 254 an 8-bit count held, the bounds still hold the plain
+    version's nonzero weights (``fp_kw`` a line and column, ``bp_ku`` a
+    voxel and view), the staged window stays within the gathered axis, and
+    both layouts fit the card's shared memory (the BP's by fewer warps a
+    block)."""
+    g = WIDE[name]()
+    plan = ParallelPlan(g.subset([0, 11, 22, 23, 34, 45, 56, 67, 68, 80]))
+    cfg = fp_par.tune.parallel_config(g, 8)
+    bl = plan.bp_layout(cfg)
+    assert bl.smem <= fp_par.SMEM_MAX and (bl.bx * bl.by * bl.tl) % 32 == 0
+    assert bl.smem == bl.bx * bl.by * bl.tl * ((bl.ku | 1) + 1) * 4
+    kws = []
+    for grp in (0, 1):
+        ng = plan.group(grp, 1)[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            lay = plan.fp_layout(grp, dtype, cfg)
+            assert lay.smem <= fp_par.SMEM_MAX and lay.wcap <= ng
+            kws.append(lay.kw)
+        for _, nz, win in _patterns(plan, grp):
+            assert not (nz & ~win).any(), "a nonzero outside the window"
+            assert win.sum(axis=2).max() <= bl.ku
+            assert win.sum(axis=0).max() <= min(kws)
+    assert max(min(kws), bl.ku) > 254

@@ -64,7 +64,7 @@ def test_spec_identity_and_keys():
     a = ProjectorSpec(g1, compute_dtype="bf16")
     b = ProjectorSpec(g2, compute_dtype="bfloat16")
     assert a == b and hash(a) == hash(b)
-    assert a.cache_key("float32") == b.cache_key("float32")
+    assert a.cache_key(in_dtype="float32") == b.cache_key(in_dtype="float32")
     assert a.bucket_key() == b.bucket_key()
     c = ProjectorSpec(g1, config=KernelConfig(bu=64, bg=64, lg=2))
     assert c.bucket_key() != ProjectorSpec(g1).bucket_key()
@@ -74,3 +74,39 @@ def test_spec_identity_and_keys():
         ProjectorSpec(g1, compute_dtype="float16")
     with pytest.raises(ValueError):
         KernelConfig(bu=512, lg=4)
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_leap_ct_workloads_equal_the_reference(reduced):
+    """configs/leap_ct.py: the Table-1 cells and the limited-angle shape are
+    the reference's geometries (same config, same hash)."""
+    from repro.configs import leap_ct as jleap
+    from repro_torch.configs import leap_ct as tleap
+    jc, tc = jleap.table1_geometries(reduced), tleap.table1_geometries(reduced)
+    assert list(jc) == list(tc)
+    for name in jc:
+        assert tc[name].to_config() == jc[name].to_config(), name
+        assert tc[name].canonical_hash() == jc[name].canonical_hash(), name
+    for args in ((), (64, 90)):
+        a, b = jleap.limited_angle_geometry(*args), tleap.limited_angle_geometry(*args)
+        assert b.to_config() == a.to_config()
+        assert b.canonical_hash() == a.canonical_hash()
+
+
+def test_leap_ct_gives_the_card_cells_geometries():
+    """chip_smoke.py's main, 3d and cone cells come from configs/leap_ct.py:
+    the same geometries it built inline before (same hash)."""
+    from repro_torch.configs import leap_ct as tleap
+    V = tgeo.VolumeGeometry
+    t1 = tleap.table1_geometries()
+    pairs = [
+        (tleap.limited_angle_geometry(512, 720),
+         tgeo.parallel_beam(720, 1, 768, V(512, 512, 1), angular_range=180.0)),
+        (t1["parallel_512_180"],
+         tgeo.parallel_beam(180, 512, 768, V(512, 512, 512), angular_range=180.0)),
+        (t1["cone_512_180"],
+         tgeo.cone_beam(180, 512, 768, V(512, 512, 512), sod=1024.0, sdd=2048.0,
+                        pixel_width=2.0, pixel_height=2.0, angular_range=360.0)),
+    ]
+    for a, b in pairs:
+        assert a.canonical_hash() == b.canonical_hash()

@@ -386,14 +386,24 @@ def test_bp_layout_refuses_pitches_outside_the_exact_division(dv):
 @pytest.mark.parametrize("make", [_tilted, _source_inside],
                          ids=["tilted", "source_inside"])
 def test_unsupported_frames_raise_not_implemented(make, backend):
+    """Frames the SF kernels do not cover: backend="cuda" raises (the plan
+    refuses them); "auto" and "ref" run the Joseph ray-marcher under
+    model="sf", as the reference's fp_modular_sf_ref does."""
     g = make(tgeo)
     proj = Projector(ProjectorSpec(g, backend=backend), device="cpu")
-    msg = "supports axial frames" if backend == "cuda" else "ROADMAP"
-    with pytest.raises(NotImplementedError, match=msg) as err:
-        proj(torch.zeros(g.vol.shape))
-    assert "ROADMAP" in str(err.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        proj.T(torch.zeros(g.sino_shape))
+    x = torch.from_numpy(_data(g.vol.shape, 0))
+    y = torch.from_numpy(_data(g.sino_shape, 1))
+    if backend == "cuda":
+        with pytest.raises(NotImplementedError, match="supports axial frames"):
+            proj(x)
+        with pytest.raises(NotImplementedError, match="supports axial frames"):
+            proj.T(y)
+        return
+    # (the Joseph adjoint sums scattered terms in no fixed order)
+    torch.testing.assert_close(proj(x), tref.forward(x, g, "joseph"),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(proj.T(y), tref.adjoint(y, g, "joseph"),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_supports_gate_registered_and_launches_listed():
@@ -402,7 +412,8 @@ def test_supports_gate_registered_and_launches_listed():
     # the axial gate sits in the plan, which every backend builds first
     assert fp_modular.modular_frames_axial(_helical(tgeo))
     assert not fp_modular.modular_frames_axial(_tilted(tgeo))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert entry.supports is fp_modular.modular_frames_axial
+    with pytest.raises(NotImplementedError, match="supports axial frames"):
         ModularPlan(_tilted(tgeo))
     counts = tkernels.launches()
     assert {"fp_modular_sf", "bp_modular_sf"} <= set(counts)

@@ -96,7 +96,8 @@ def test_unported_geometry_raises_not_implemented():
     vol = VolumeGeometry(8, 8, 4)
     g = repro_torch.cone_beam(4, 4, 8, vol, sod=40.0, sdd=80.0,
                               detector_type="curved")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # no SF pair on a curved cone detector, as in the reference
+    with pytest.raises(NotImplementedError, match="flat detectors"):
         Projector(ProjectorSpec(g), device="cpu")(torch.zeros(vol.shape))
 
 
