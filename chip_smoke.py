@@ -86,6 +86,27 @@ path through the public API at the paper's sizes:
   held bit for bit against ``__fdiv_rn`` over every float overlap with a
   normal quotient, at the cells' pitches and at published detector pitches.
 
+* train — the CT training subsystem (``launch/ct_train.py``), one path
+  per geometry of the reference's ``launch/ct_train.py:182-199``, each
+  launching its kernels: limited_angle (rows 1-2; the hybrid CT-Net +
+  U-Net), sparse_fan (rows 3-4) and helical (rows 7-8; nz = 8, the helical
+  cell's geometry).  Per geometry: the training-smoke gate of
+  docs/TRAINING.md at ``smoke_config`` (40 steps on the card: the loss
+  falls, data-consistency refinement raises held-out PSNR) and its first 3
+  losses against the host's (rtol 1e-4); one step's loss and gradients
+  with the kernels against ``backend="ref"`` on the card (rel 1e-5 and
+  relative L2 1e-4; at n = 512, helical at the smoke size); a fit at
+  n = 512 with the TrainConfig defaults (base 16, levels 2, depth 3, batch
+  4; 20 steps, helical 8) with its median step (CUDA events), peak memory
+  and ``evaluate(n_test=2)``, beside a category breakdown of one step
+  (projector kernels, convolution, the FBP's gather and scatter, matmul,
+  other; busy share) taken by a process of its own, whose first profiler
+  sessions these are.  limited_angle
+  adds 3 steps in bf16 (first loss within ``BF16_FP_REL_BOUND`` of f32),
+  sparse_fan a checkpoint resume under deterministic cuDNN (losses within
+  1e-6 of the uninterrupted run's).  TF32 stays off, so card and host
+  compare in f32.
+
 * flash attention (kernel phase) — the four kernels of
   ``csrc/flash.cu`` against the plain chunked attention and the plain
   backward, and beside ``scaled_dot_product_attention``: cell
@@ -141,13 +162,17 @@ dropped thread-views, columns and terms.
 
 runs only the build and the named cells of the projector kernel phase,
 for comparing kernel sources on one card, and prints no ok line.
+``--train-breakdown FILE`` is the child process the full run starts for
+the training step's breakdown.
 
 Each path runs with every kernel launch count set to 0 just before it and
 read just after; a kernel of the path that was not launched fails the run.
 Last, a torch.profiler breakdown of one projector pair of the main, fan,
 helical and cone_packed cells and of the 3D and cone cells' FP and BP, and of one LM
 prefill and one LM gradient step (attention kernels, matrix products,
-everything else), says where the device time goes.
+everything else), says where the device time goes.  Each breakdown
+checks the profiler's kernel events against the launches the wrappers
+counted in its window and logs ``INCOMPLETE`` where they differ.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device, or without the repository's ``src/`` beside it, it exits non-zero
@@ -162,6 +187,7 @@ their launches in nemotron_attn_layer).  Details go to
 import dataclasses
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -1331,13 +1357,19 @@ def iterative_recon_path(torch, results):
               f"iterative_recon {k}: card vs host {out[f'{k}_card_vs_host']:.3g}")
 
 
-def breakdown(torch, name: str, fn, results, reps: int = 3,
-              ms_reps: int = 5, warmup: int = 1) -> None:
-    """Where the time of ``fn`` goes: its median device time (CUDA events),
-    then a torch.profiler window over ``reps`` calls — device time by
-    kernel and the device's busy share of the window's wall time."""
+PORT_KERNEL = re.compile(r"_sf_kernel|flash_\w*kernel")
+
+
+def profiled(torch, fn, reps: int):
+    """``fn`` ``reps`` times in a torch.profiler window.  Returns the device
+    kernels as ``(us per call, name)`` sorted longest first, the window's
+    wall time in us, and the port's kernel events the profiler recorded
+    against the launches the wrappers counted in the window (a profiler
+    session that follows many others in one process can lose kernel events;
+    ``events_complete`` is false then)."""
     from torch.profiler import ProfilerActivity, profile
-    ms = cuda_ms(torch, fn, reps=ms_reps, warmup=warmup)
+    from repro_torch import kernels as K
+    before = sum(K.launches().values())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1345,7 +1377,8 @@ def breakdown(torch, name: str, fn, results, reps: int = 3,
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    rows = []
+    launched = sum(K.launches().values()) - before
+    rows, seen = [], 0
     for ev in prof.key_averages():
         # device-side events only: the CPU op that launched a kernel also
         # reports that kernel's time as its own
@@ -1354,17 +1387,39 @@ def breakdown(torch, name: str, fn, results, reps: int = 3,
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us / reps, ev.key[:60]))
+        if us <= 0:
+            continue
+        rows.append((us / reps, ev.key))
+        if PORT_KERNEL.search(ev.key):
+            seen += ev.count
     rows.sort(reverse=True)
+    return rows, wall_us, {"port_kernel_events": seen, "port_kernel_launches": launched,
+                           "events_complete": seen == launched}
+
+
+def events_note(events: dict) -> str:
+    if events["events_complete"]:
+        return ""
+    return (f" (INCOMPLETE: the profiler saw {events['port_kernel_events']} of "
+            f"{events['port_kernel_launches']} kernel launches)")
+
+
+def breakdown(torch, name: str, fn, results, reps: int = 3,
+              ms_reps: int = 5, warmup: int = 1) -> None:
+    """Where the time of ``fn`` goes: its median device time (CUDA events),
+    then a torch.profiler window over ``reps`` calls — device time by
+    kernel and the device's busy share of the window's wall time."""
+    ms = cuda_ms(torch, fn, reps=ms_reps, warmup=warmup)
+    rows, wall_us, events = profiled(torch, fn, reps)
     busy = sum(us for us, _ in rows) * reps / wall_us
     results.setdefault("breakdown", {})[name] = {
-        "ms": ms, "device_busy_share": busy,
-        "device_us_per_call": [[k, us] for us, k in rows[:10]]}
+        "ms": ms, "device_busy_share": busy, **events,
+        "device_us_per_call": [[k[:60], us] for us, k in rows[:10]]}
     log(f"breakdown {name}: {ms:.3f} ms per call, device busy {busy:.3f} of the "
-        f"profiled window" + ("" if rows else " (profiler saw no device time)"))
+        f"profiled window" + ("" if rows else " (profiler saw no device time)")
+        + events_note(events))
     for us, k in rows[:6]:
-        log(f"  {us / 1e3:9.3f} ms  {k}")
+        log(f"  {us / 1e3:9.3f} ms  {k[:60]}")
 
 
 def profile_cells(torch, results) -> None:
@@ -2091,49 +2146,41 @@ def lm_serve(torch, results, cfg, params):
     torch.cuda.empty_cache()
 
 
-def lm_breakdown(torch, results, name: str, fn, reps: int = 2) -> None:
-    """Device time of ``fn`` by category (the attention kernels, matrix
-    products, everything else), its median time, and the device's busy
-    share of the profiled window."""
-    from torch.profiler import ProfilerActivity, profile
+def lm_category(key: str) -> str:
+    if "flash_" in key:
+        return "attention_kernels"
+    if any(s in key for s in ("gemm", "xmma", "cutlass", "nvjet", "matmul", "cublas")):
+        return "matmul"
+    return "other"
+
+
+def category_breakdown(torch, results, name: str, fn, reps: int = 2,
+                       section: str = "lm_breakdown", classify=lm_category,
+                       categories=("attention_kernels", "matmul", "other")) -> None:
+    """Device time of ``fn`` by category (``classify`` of each lower-cased
+    kernel name; the LM's: the attention kernels, matrix products,
+    everything else), its median time, and the device's busy share of the
+    profiled window."""
     ms = cuda_ms(torch, fn, reps=3, warmup=1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    cats = {"attention_kernels": 0.0, "matmul": 0.0, "other": 0.0}
-    top = []
-    for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us <= 0:
-            continue
-        key = ev.key.lower()
-        if "flash_" in key:
-            cat = "attention_kernels"
-        elif any(s in key for s in ("gemm", "xmma", "cutlass", "nvjet", "matmul", "cublas")):
-            cat = "matmul"
-        else:
-            cat = "other"
-        cats[cat] += us / reps
-        top.append((us / reps, ev.key[:60]))
-    top.sort(reverse=True)
+    rows, wall_us, events = profiled(torch, fn, reps)
+    cats = dict.fromkeys(categories, 0.0)
+    top = {k: [] for k in categories}
+    for us, key in rows:
+        cat = classify(key.lower())
+        cats[cat] += us
+        top[cat].append([key[:90], us / 1e3])
     total = sum(cats.values())
-    results.setdefault("lm_breakdown", {})[name] = {
-        "ms": ms, "device_busy_share": total * reps / wall_us,
+    results.setdefault(section, {})[name] = {
+        "ms": ms, "device_busy_share": total * reps / wall_us, **events,
         "device_ms_by_category": {k: v / 1e3 for k, v in cats.items()},
         "share_by_category": {k: (v / total if total else 0.0) for k, v in cats.items()},
-        "device_us_per_call": [[k, us] for us, k in top[:10]]}
+        "top_ms_by_category": {k: v[:4] for k, v in top.items()},
+        "device_us_per_call": [[k[:60], us] for us, k in rows[:10]]}
     log(f"breakdown {name}: {ms:.2f} ms per call, device busy {total * reps / wall_us:.3f}; "
-        + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in cats.items()))
-    for us, k in top[:5]:
-        log(f"  {us / 1e3:9.3f} ms  {k}")
+        + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in cats.items()) + events_note(events))
+    for cat, ks in top.items():
+        for key, kms in ks[:3]:
+            log(f"  {kms:9.3f} ms  {cat:18s} {key[:60]}")
 
 
 def lm_paths(torch, results) -> dict:
@@ -2163,7 +2210,8 @@ def lm_paths(torch, results) -> dict:
     t = time.perf_counter()
     toks = lm_tokens(torch, cfg, 2, 4096)
     prefill = make_prefill_step(cfg)
-    lm_breakdown(torch, results, "lm_prefill", lambda: prefill(params, {"tokens": toks}))
+    category_breakdown(torch, results, "lm_prefill",
+                       lambda: prefill(params, {"tokens": toks}))
     toks1 = lm_tokens(torch, cfg, 1, 4096, seed=1)
     leaves = [p for _, p in model._leaves(params)]
 
@@ -2175,7 +2223,7 @@ def lm_paths(torch, results) -> dict:
             p.requires_grad_(False)
         return g
 
-    lm_breakdown(torch, results, "lm_grad", grad_step)
+    category_breakdown(torch, results, "lm_grad", grad_step)
     bd = results["lm_breakdown"]
     results["lm_prefill"]["ms"] = bd["lm_prefill"]["ms"]
     results["lm_prefill"]["tokens_per_s"] = 2 * 4096 / (bd["lm_prefill"]["ms"] / 1e3)
@@ -2388,6 +2436,263 @@ def projector_phases(torch, results, only=None) -> dict:
     return launches
 
 
+# -- CT training (launch/ct_train.py) --------------------------------------- #
+TRAIN_KERNELS = {"limited_angle": ("fp_par_sf", "bp_par_sf"),
+                 "sparse_fan": ("fp_fan_sf", "bp_fan_sf"),
+                 "helical": ("fp_modular_sf", "bp_modular_sf")}
+TRAIN_N = 512                # the full-width cells: TrainConfig defaults at n = 512
+TRAIN_STEPS = {"limited_angle": 20, "sparse_fan": 20, "helical": 8}
+TRAIN_LOSS_TOL = 1e-5        # one step, kernel pair vs plain pair: the loss (rel)
+TRAIN_GRAD_TOL = 1e-4        # ... and the gradients (relative L2)
+TRAIN_HOST_TOL = 1e-4        # smoke run: the first 3 losses, card vs host (rel)
+TRAIN_RESUME_TOL = 1e-6      # resumed vs uninterrupted losses (deterministic cuDNN)
+
+
+TRAIN_CATEGORIES = ("projector_kernels", "convolution", "gather_scatter", "matmul",
+                    "other")
+
+
+def train_category(key: str) -> str:
+    """Kernel classes of a training step: the port's projector kernels;
+    cuDNN's convolutions (f32 without TF32 picks FFT algorithms: the
+    ``fft2d_*`` transforms and their complex ``cf32`` products count here,
+    with the implicit-gemm and weight-gradient engines); the FBP's column
+    interpolation (``torch.gather`` and, in its backward, the scatter);
+    real matrix products (the FBP's einsum: cuBLAS ``xmma``/``sgemm``
+    kernels without ``cf32``); the rest."""
+    if "_sf_kernel" in key:
+        return "projector_kernels"
+    if "cf32" in key or any(s in key for s in (
+            "cudnn", "fft2d", "implicit", "wgrad", "dgrad", "fprop",
+            "winograd", "convolve")):
+        return "convolution"
+    if "scatter_gather" in key or "scatter_add" in key:
+        return "gather_scatter"
+    if any(s in key for s in ("gemm", "cutlass", "nvjet", "cublas", "matmul")):
+        return "matmul"
+    return "other"
+
+
+def rel_l2(got: dict, want: dict) -> float:
+    num = sum(float(((got[k].double() - want[k].double()) ** 2).sum()) for k in want)
+    den = sum(float((w.double() ** 2).sum()) for w in want.values())
+    return (num / den) ** 0.5
+
+
+def train_step_vs_plain(torch, cfg, out: dict) -> None:
+    """One step's loss and gradients with the kernel pair against the plain
+    pair (``backend="ref"``) on the card: the same weights (one seed), the
+    same batch (the kernels' synthesized sinogram)."""
+    from repro_torch import Projector, ProjectorSpec
+    from repro_torch.launch.ct_train import CTTrainer
+    kern, plain = CTTrainer(cfg), CTTrainer(cfg)
+    plain.proj = Projector(ProjectorSpec(plain.geom, backend="ref",
+                                         compute_dtype=cfg.compute_dtype),
+                           plain.device)
+    batch = kern.data(0)
+    (lk, gk), t_k = host_s(torch, lambda: kern.grad_fn(kern.params, *batch))
+    (lp, gp), t_p = host_s(torch, lambda: plain.grad_fn(plain.params, *batch))
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    grad_rel = rel_l2(gk, gp)
+    out["vs_plain"] = {"n": cfg.n, "loss": float(lk), "loss_plain": float(lp),
+                       "loss_rel": loss_rel, "grad_rel_l2": grad_rel,
+                       "step_s": t_k, "plain_step_s": t_p}
+    log(f"train {cfg.geometry} n={cfg.n}: one step, kernels vs plain: loss rel "
+        f"{loss_rel:.3g}, gradients rel L2 {grad_rel:.3g} (grad {t_k:.3f} s, "
+        f"plain {t_p:.3f} s)")
+    check(loss_rel < TRAIN_LOSS_TOL, f"train {cfg.geometry}: loss vs plain {loss_rel:.3g}")
+    check(grad_rel < TRAIN_GRAD_TOL, f"train {cfg.geometry}: gradients vs plain "
+                                     f"{grad_rel:.3g}")
+
+
+def train_smoke(torch, geometry: str, out: dict) -> None:
+    """The training-smoke gate of docs/TRAINING.md on the card (smoke_config,
+    40 steps; the loss falls, refinement raises held-out PSNR), and its first
+    3 losses against the same run on the host."""
+    from repro_torch.launch.ct_train import CTTrainer, _check_run, smoke_config
+    cfg = smoke_config(geometry)
+    trainer = CTTrainer(cfg)
+    losses, t_fit = host_s(torch, lambda: trainer.fit(log_every=0))
+    metrics = trainer.evaluate()
+    host = CTTrainer(cfg, device="cpu")
+    host_losses = [float(host.train_step(*host.data(i))) for i in range(3)]
+    host_rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:3], host_losses))
+    out["smoke"] = {"losses": losses, "fit_s": t_fit, "metrics": metrics,
+                    "host_losses": host_losses, "card_vs_host_rel": host_rel}
+    log(f"train {geometry} smoke: loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+        f"({t_fit:.2f} s), PSNR net {metrics['psnr_net']:.3f} -> refined "
+        f"{metrics['psnr_refined']:.3f} dB; first 3 losses card vs host {host_rel:.3g}")
+    fails = _check_run(geometry, losses, metrics)
+    check(not fails, "; ".join(fails))
+    check(host_rel < TRAIN_HOST_TOL, f"train {geometry} smoke: card vs host {host_rel:.3g}")
+
+
+def train_full(torch, results, geometry: str, out: dict):
+    """A short fit at n = 512 with the TrainConfig defaults: the median step
+    (CUDA events between steps, after the warm-up step, host data included),
+    the peak memory, and evaluate(n_test=2), beside the step's breakdown
+    from ``train_breakdowns``.  Returns the first loss."""
+    from repro_torch.launch.ct_train import CTTrainer, TrainConfig
+    cfg = TrainConfig(geometry=geometry, n=TRAIN_N, steps=TRAIN_STEPS[geometry])
+    trainer = CTTrainer(cfg)
+    _, data_s = host_s(torch, lambda: trainer.pipe.batch(0))
+    events = []
+
+    def on_step(i, loss):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append(e)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, fit_s = host_s(torch, lambda: trainer.fit(log_every=0, on_step=on_step))
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+    check(len(losses) == cfg.steps and all(np.isfinite(losses)),
+          f"train {geometry} n={cfg.n}: losses {losses}")
+    metrics, eval_s = host_s(torch, lambda: trainer.evaluate(n_test=2))
+    bd = results["train_breakdown"][geometry]
+    out["full"] = {
+        "n": cfg.n, "batch": cfg.batch, "steps": cfg.steps, "losses": losses,
+        "fit_s": fit_s, "step_ms_median": statistics.median(step_ms),
+        "step_ms": step_ms, "host_batch_s": data_s, "peak_bytes": peak,
+        "train_step_ms": bd["ms"], "device_busy_share": bd["device_busy_share"],
+        "device_ms_by_category": bd["device_ms_by_category"],
+        "events_complete": bd["events_complete"], "metrics": metrics, "evaluate_s": eval_s}
+    log(f"train {geometry} n={cfg.n} batch {cfg.batch}: {cfg.steps} steps, loss "
+        f"{losses[0]:.6g} -> {losses[-1]:.6g}; step {statistics.median(step_ms):.2f} ms "
+        f"median (host batch {data_s * 1e3:.1f} ms), train_step {bd['ms']:.2f} ms, "
+        f"busy {bd['device_busy_share']:.3f}, peak {peak / 2**30:.2f} GiB; "
+        f"evaluate(2): PSNR net {metrics['psnr_net']:.3f} -> refined "
+        f"{metrics['psnr_refined']:.3f} dB, residual {metrics['dc_net']:.4f} -> "
+        f"{metrics['dc_refined']:.4f} ({eval_s:.2f} s) [{results['device']}]")
+    for k in ("psnr_net", "psnr_refined", "dc_net", "dc_refined"):
+        check(np.isfinite(metrics[k]), f"train {geometry}: {k} {metrics[k]}")
+    check(metrics["dc_refined"] < metrics["dc_net"],
+          f"train {geometry}: refinement did not lower the residual")
+    del trainer
+    torch.cuda.empty_cache()
+    return losses[0]
+
+
+def train_bf16(torch, first_f32: float, out: dict) -> None:
+    """compute_dtype="bfloat16" at limited_angle n = 512, 3 steps: the first
+    loss within BF16_FP_REL_BOUND of the f32 run's (same weights, batch)."""
+    from repro_torch.kernels import precision
+    from repro_torch.launch.ct_train import CTTrainer, TrainConfig
+    cfg = TrainConfig(geometry="limited_angle", n=TRAIN_N, steps=3,
+                      compute_dtype="bfloat16")
+    losses = CTTrainer(cfg).fit(log_every=0)
+    rel = abs(losses[0] - first_f32) / abs(first_f32)
+    out["bf16"] = {"losses": losses, "first_loss_rel_to_f32": rel}
+    log(f"train limited_angle n={TRAIN_N} bf16: losses {losses}, first vs f32 {rel:.3g} "
+        f"(bound {precision.BF16_FP_REL_BOUND:.3g})")
+    check(all(np.isfinite(losses)), "train bf16: non-finite loss")
+    check(rel < precision.BF16_FP_REL_BOUND, f"train bf16: first loss {rel:.3g} off f32")
+
+
+class _Stop(Exception):
+    pass
+
+
+def train_resume(torch, out: dict) -> None:
+    """Fit 6 steps with a checkpoint every 3, stopped after step 4; a new
+    trainer resumes from step 3 and its losses equal the uninterrupted
+    run's, under deterministic cuDNN (restored after)."""
+    import shutil
+    from repro_torch.launch.ct_train import CTTrainer, smoke_config
+    cfg = smoke_config("sparse_fan", steps=6, ckpt_every=3)
+    d = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        full = CTTrainer(cfg).fit(log_every=0)
+
+        def stop(i, loss):
+            if i == 3:
+                raise _Stop
+
+        ck = cfg.replace(ckpt_dir=str(d))
+        try:
+            CTTrainer(ck).fit(log_every=0, on_step=stop)
+        except _Stop:
+            pass
+        again = CTTrainer(ck)
+        rest = again.fit(log_every=0)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        shutil.rmtree(d, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rest, full[3:]))
+    out["resume"] = {"full": full, "resumed": rest, "rel": rel}
+    log(f"train resume: steps 3-5 resumed {rest} vs uninterrupted {full[3:]} (rel {rel:.3g})")
+    check(len(rest) == 3, f"train resume: {len(rest)} steps after the resume, not 3")
+    check(rel < TRAIN_RESUME_TOL, f"train resume: rel {rel:.3g}")
+
+
+def train_breakdowns(torch, results) -> None:
+    """Device time of one train_step at n = 512 by category, per geometry
+    (TrainConfig defaults, a fixed batch), measured by a process of its own
+    (``chip_smoke.py --train-breakdown FILE``) whose first profiler sessions
+    these are: a session that follows others in one process has lost
+    kernel events, or seen none.  Each checks the profiler's kernel events
+    against the counted launches."""
+    t = time.perf_counter()
+    out = ROOT / "chiprun_out" / "train_breakdown.json"
+    out.parent.mkdir(exist_ok=True)
+    subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train-breakdown",
+                    str(out)], check=True, timeout=600)
+    results["train_breakdown"] = json.loads(out.read_text())
+    results["phase_s"]["train_breakdown"] = time.perf_counter() - t
+
+
+def train_breakdown_child(torch, out: pathlib.Path) -> int:
+    """The process of ``train_breakdowns``: writes its section to ``out``."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.ct_train import CTTrainer, TrainConfig
+    build.build_all()
+    results = {}
+    for geometry in TRAIN_KERNELS:
+        trainer = CTTrainer(TrainConfig(geometry=geometry, n=TRAIN_N))
+        batch = trainer.data(0)
+        category_breakdown(torch, results, geometry,
+                           lambda: trainer.train_step(*batch),
+                           section="train_breakdown", classify=train_category,
+                           categories=TRAIN_CATEGORIES)
+        del trainer, batch
+        torch.cuda.empty_cache()
+    out.write_text(json.dumps(results["train_breakdown"]))
+    return 0
+
+
+def train_path(torch, results, geometry: str) -> None:
+    """One geometry of the training phase: the smoke gate on the card and
+    host, the kernel pair against the plain pair (at n = 512; helical at the
+    smoke size, whose plain pair at n = 512 takes minutes), the n = 512 fit;
+    limited_angle adds bf16, sparse_fan the resume check."""
+    from repro_torch.launch.ct_train import TrainConfig, smoke_config
+    out = {}
+    train_smoke(torch, geometry, out)
+    train_step_vs_plain(torch, smoke_config(geometry) if geometry == "helical"
+                        else TrainConfig(geometry=geometry, n=TRAIN_N), out)
+    first = train_full(torch, results, geometry, out)
+    if geometry == "limited_angle":
+        train_bf16(torch, first, out)
+    if geometry == "sparse_fan":
+        train_resume(torch, out)
+    results.setdefault("train", {})[geometry] = out
+
+
+def train_paths(torch, results) -> None:
+    """The CT training phase: one path per geometry, each with its kernels'
+    launch counts."""
+    t = time.perf_counter()
+    for geometry, kernels in TRAIN_KERNELS.items():
+        run_path(torch, results, f"train_{geometry}", kernels,
+                 lambda g=geometry: train_path(torch, results, g))
+    results["phase_s"]["train"] = time.perf_counter() - t
+
+
 def run_path(torch, results, name: str, kernels, fn) -> dict:
     """Run one path with every launch count set to 0 just before it and read
     just after; fail if a kernel of the path was not launched.  Returns the
@@ -2421,6 +2726,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--train-breakdown"]:
+        return train_breakdown_child(torch, pathlib.Path(sys.argv[2]))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -2452,6 +2759,8 @@ def main() -> int:
     if only is None:
         fp_division_check(torch, results)
 
+    if only is None:
+        train_breakdowns(torch, results)
     launches = projector_phases(torch, results, only)
     if only is not None:
         for row in results["kernels"]:
@@ -2461,6 +2770,7 @@ def main() -> int:
         outdir.mkdir(exist_ok=True)
         (outdir / "chip_smoke_cells.json").write_text(json.dumps(results, indent=1))
         return 0
+    train_paths(torch, results)
     flash_phase(torch, results)
     launches.update(lm_paths(torch, results))
     t = time.perf_counter()

@@ -63,6 +63,18 @@ class Projector:
     def compute_dtype(self):
         return self.spec.compute_dtype
 
+    @classmethod
+    def from_model_config(cls, geom: CTGeometry, model_config,
+                          device: Optional[Union[str, torch.device]] = None,
+                          **kwargs) -> "Projector":
+        """A projector honoring a ``models.config.ModelConfig``: its
+        ``compute_dtype`` becomes the kernel tile precision, so a
+        reconstruction head shares one precision policy with the model
+        around it.  ``kwargs`` are further ``ProjectorSpec`` fields."""
+        kwargs.setdefault("compute_dtype",
+                          getattr(model_config, "compute_dtype", None))
+        return cls(ProjectorSpec(geom, **kwargs), device)
+
     def _on_device(self, x: torch.Tensor) -> torch.Tensor:
         if x.device.type != self.device.type:
             raise ValueError(

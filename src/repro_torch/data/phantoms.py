@@ -44,18 +44,28 @@ SHEPP_LOGAN = (
 
 def rasterize(ellipses: Sequence[Ellipse], vol: VolumeGeometry,
               supersample: int = 1) -> np.ndarray:
-    """(nx, ny) image of summed densities (antialiased via supersampling)."""
+    """(nx, ny) image of summed densities (antialiased via supersampling).
+
+    Each ellipse is tested only on the samples of its bounding box, widened
+    by two samples: outside it the test is false, so the image is the
+    reference package's bit for bit, at a fraction of its cost for small
+    ellipses."""
     ss = supersample
     nx, ny = vol.nx * ss, vol.ny * ss
-    xs = (np.arange(nx) - (nx - 1) / 2.0) * (vol.dx / ss) + vol.offset_x
-    ys = (np.arange(ny) - (ny - 1) / 2.0) * (vol.dy / ss) + vol.offset_y
-    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    hx, hy = vol.dx / ss, vol.dy / ss
+    xs = (np.arange(nx) - (nx - 1) / 2.0) * hx + vol.offset_x
+    ys = (np.arange(ny) - (ny - 1) / 2.0) * hy + vol.offset_y
     img = np.zeros((nx, ny), np.float32)
     for e in ellipses:
         ca, sa = np.cos(e.angle), np.sin(e.angle)
+        ex = np.hypot(e.a * ca, e.b * sa) + 2 * hx
+        ey = np.hypot(e.a * sa, e.b * ca) + 2 * hy
+        i0, i1 = np.searchsorted(xs, (e.cx - ex, e.cx + ex))
+        j0, j1 = np.searchsorted(ys, (e.cy - ey, e.cy + ey))
+        X, Y = xs[i0:i1, None], ys[None, j0:j1]
         xr = (X - e.cx) * ca + (Y - e.cy) * sa
         yr = -(X - e.cx) * sa + (Y - e.cy) * ca
-        img += e.rho * (((xr / e.a) ** 2 + (yr / e.b) ** 2) <= 1.0)
+        img[i0:i1, j0:j1] += e.rho * (((xr / e.a) ** 2 + (yr / e.b) ** 2) <= 1.0)
     if ss > 1:
         img = img.reshape(vol.nx, ss, vol.ny, ss).mean(axis=(1, 3))
     return img

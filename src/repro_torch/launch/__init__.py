@@ -1,3 +1,4 @@
-"""Step builders and the serving driver of the port's language model, the
-counterparts of the reference package's ``launch/steps.py`` and
-``launch/serve.py`` (one card, no mesh)."""
+"""Entry points of the port (one card, no mesh): the language model's step
+builders and serving driver (``launch/steps.py``, ``launch/serve.py``) and
+the CT training subsystem (``launch/ct_train.py``), the counterparts of the
+reference package's modules of the same names."""

@@ -1,6 +1,6 @@
 """Prefill and serving step builders, the counterparts of the reference
 package's ``launch/steps.py`` ``make_prefill_step`` and ``make_serve_step``.
-``make_train_step`` waits for the port of the optimizer (``optim/``).
+``make_train_step`` comes with the LM training loop, on ``optim/``.
 
 Both steps run without autograd, so a long prompt's attention takes the
 forward-only flash kernel."""

@@ -1082,3 +1082,79 @@ def test_joseph_on_card_tensors(name):
                                atol=2e-4 * float(aty.abs().max()))
     with pytest.raises(NotImplementedError):
         Projector(ProjectorSpec(g, model=model, backend="cuda"))(x.cuda())
+
+
+# --------------------------------------------------------------------------- #
+# CT training on the card
+# --------------------------------------------------------------------------- #
+TRAIN_KERNELS = {"limited_angle": ("fp_par_sf", "bp_par_sf"),
+                 "sparse_fan": ("fp_fan_sf", "bp_fan_sf"),
+                 "helical": ("fp_modular_sf", "bp_modular_sf")}
+
+
+def _tiny_train(geometry, **kw):
+    """tests/test_ct_train.py's tiny() sizes; helical at its smoke size."""
+    from repro_torch.launch.ct_train import TrainConfig
+    base = dict(geometry=geometry, n=12, steps=3, batch=2, base=8, levels=1,
+                depth=1, warmup=1, ema_warmup=2, refine_iters=5,
+                model="unet" if geometry != "limited_angle" else "auto")
+    if geometry == "helical":
+        base.update(n=20, nz=4)
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+@pytest.mark.parametrize("geometry", list(TRAIN_KERNELS))
+def test_ct_trainer_step_kernels_match_plain(geometry):
+    """One CTTrainer step's loss (rel 1e-5) and gradients (relative L2 1e-4)
+    with the kernel pair against the plain pair on the card."""
+    requires_cuda()
+    from repro_torch.launch.ct_train import CTTrainer
+    cfg = _tiny_train(geometry)
+    kern, plain = CTTrainer(cfg), CTTrainer(cfg)
+    plain.proj = Projector(ProjectorSpec(plain.geom, backend="ref",
+                                         compute_dtype=cfg.compute_dtype),
+                           plain.device)
+    batch = kern.data(0)
+    K.reset_launches()
+    lk, gk = kern.grad_fn(kern.params, *batch)
+    assert all(K.launches()[k] > 0 for k in TRAIN_KERNELS[geometry])
+    lp, gp = plain.grad_fn(plain.params, *batch)
+    assert abs(float(lk) - float(lp)) / abs(float(lp)) < 1e-5
+    num = sum(float(((gk[k] - gp[k]).double() ** 2).sum()) for k in gp)
+    den = sum(float((g.double() ** 2).sum()) for g in gp.values())
+    assert (num / den) ** 0.5 < 1e-4
+    loss = kern.train_step(*batch)
+    assert loss.device.type == "cuda" and bool(torch.isfinite(loss))
+    assert all(v.device.type == "cuda" for v in kern.params.values())
+
+
+def test_ct_trainer_checkpoint_resume_on_the_card(tmp_path):
+    """Fit 4 steps with checkpoints every 2, stopped after step 3; a new
+    trainer restores the step-2 state and its next losses equal the
+    uninterrupted run's (deterministic cuDNN); a completed run restores
+    whole and fit() is then a no-op."""
+    requires_cuda()
+    from repro_torch.launch.ct_train import CTTrainer
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        cfg = _tiny_train("sparse_fan", steps=4, ckpt_every=2)
+        full = CTTrainer(cfg).fit(log_every=0)
+
+        def stop(i, loss):
+            if i == 2:
+                raise RuntimeError("stop")
+
+        ck = cfg.replace(ckpt_dir=str(tmp_path / "ck"))
+        with pytest.raises(RuntimeError, match="stop"):
+            CTTrainer(ck).fit(log_every=0, on_step=stop)
+        rest = CTTrainer(ck).fit(log_every=0)
+        assert len(rest) == 2
+        assert max(abs(a - b) / abs(b) for a, b in zip(rest, full[2:])) < 1e-6
+        done = CTTrainer(ck)
+        assert done.resume() == 4
+        assert all(v.device.type == "cuda" for v in done.params.values())
+        assert done.fit(log_every=0) == []
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags

@@ -9,8 +9,9 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("*_torch.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -31,7 +32,8 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_import_is_lazy():
-    code = ("import sys, repro_torch, repro_torch.kernels, repro_torch.recon; "
+    code = ("import sys, repro_torch, repro_torch.kernels, repro_torch.recon, "
+            "repro_torch.launch.ct_train, repro_torch.nn, repro_torch.optim; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'repro')]; "
             "from repro_torch.kernels import build; "
