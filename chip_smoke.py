@@ -107,6 +107,38 @@ path through the public API at the paper's sizes:
   1e-6 of the uninterrupted run's).  TF32 stays off, so card and host
   compare in f32.
 
+* serve — CT serving (``launch/ct_serve.py``): a scanner-farm burst of
+  176 requests in five buckets at full width, submitted interleaved to one
+  ``CTServer(max_batch=16)`` warmed at every size class, then drained:
+  serve_main_fbp (the main cell, FBP, interactive, 64), serve_main_sirt
+  (SIRT-50, quality, 32), serve_main_fista (FISTA-TV-30, its Lipschitz
+  constant computed at warm(), 16), serve_fan_cgls (the flat fan cell,
+  CGLS-20, 32) and serve_cone_packed_fdk (the cone_packed slab, FDK,
+  interactive, 32); sinograms are the card's projections of the cells'
+  phantoms.  Every answer is held against its solver on that request
+  alone through ``Projector`` on the card (relative L2 within 2e-4), and
+  bit for bit against its solver on its own packed batch; for one batch
+  of each bucket, the kernel pair at that batch's lane count (16 lanes,
+  128 on cone_packed) is held against the plain pair (2e-4: the FP of
+  the batch's answers, the BP of its sinograms); every interactive dispatch comes before any quality one and no dispatch
+  holds two buckets; the burst leaves ``tune.sweep_count()``, the op
+  cache's size and misses, the server's executors and
+  ``build.loaded()`` as warm() left them; rows 1-4 are launched by the
+  burst.  Per bucket: wall time, us a recon batched (and serial,
+  ``max_batch=1``, for the two interactive buckets), p50/p99 latency, the
+  size-class histogram.  Then a batch executor that raises leaves its
+  batch mates answered.
+* autotune — ``kernels/tune.py`` on the card: sweeps of the main and the
+  flat fan cells at batch 8 in f32 (each candidate's FP and BP ms, the
+  heuristic's pair against the tuned pair), the tuned pair against the
+  plain pair (2e-4) and the dot test (< 1e-4), the winner read back from
+  the run's cache file with no new sweep; and a SIRT bucket's server
+  warmed with ``REPRO_TORCH_AUTOTUNE=1`` sweeps inside warm() and not in
+  its burst.  The run keeps its tune cache in a temporary directory and
+  runs with ``REPRO_TORCH_AUTOTUNE=0``; these two phases come after every
+  other and ``tune.clear()`` follows them, so that no measured
+  configuration reaches another phase or run.
+
 * flash attention (kernel phase) — the four kernels of
   ``csrc/flash.cu`` against the plain chunked attention and the plain
   backward, and beside ``scaled_dot_product_attention``: cell
@@ -161,7 +193,8 @@ dropped thread-views, columns and terms.
     python3 chip_smoke.py --cells cone128,cone128_dv1.5
 
 runs only the build and the named cells of the projector kernel phase,
-for comparing kernel sources on one card, and prints no ok line.
+for comparing kernel sources on one card, and prints no ok line;
+``--phases serve,autotune`` runs only the build and those phases.
 ``--train-breakdown FILE`` is the child process the full run starts for
 the training step's breakdown.
 
@@ -184,13 +217,17 @@ qwen3_attn, and their hd-192 instances, ``_hd192``, at nemotron_attn with
 their launches in nemotron_attn_layer).  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
+import atexit
 import dataclasses
 import json
+import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -2693,6 +2730,426 @@ def train_paths(torch, results) -> None:
     results["phase_s"]["train"] = time.perf_counter() - t
 
 
+# --------------------------------------------------------------------------- #
+# CT serving and the autotuner
+# --------------------------------------------------------------------------- #
+# A served answer against the solver on its request alone (rel L2).  The
+# kernels give each lane the same bits at any lane count, and CGLS reduces
+# its inner products one sample at a time, so the iterative answers are
+# bit-equal to their requests alone; FBP/FDK chunk their views by the batch.
+SERVE_TOL = 2e-4
+SERVE_MAX_BATCH = 16
+SERVE_PLAIN_CHUNK = 8        # requests a plain call: the kernel phase's batch
+SERVE_KERNELS = ("fp_par_sf", "bp_par_sf", "fp_fan_sf", "bp_fan_sf")
+
+
+def serve_buckets() -> dict:
+    """name -> (geometry, solver, solver kwargs, requests): the scanner-farm
+    burst's five buckets, each at an existing cell's full width."""
+    main, fan, cone = main_geometry(), fan_geometry("flat"), cone_packed_geometry()
+    return {
+        "serve_main_fbp": (main, "fbp", {}, 64),
+        "serve_main_sirt": (main, "sirt", {"n_iters": 50}, 32),
+        "serve_main_fista": (main, "fista_tv", {"n_iters": 30}, 16),
+        "serve_fan_cgls": (fan, "cgls", {"n_iters": 20}, 32),
+        "serve_cone_packed_fdk": (cone, "fbp", {}, 32),
+    }
+
+
+def image_rel_l2(a, b) -> float:
+    return float(np.linalg.norm(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+                 / max(np.linalg.norm(np.asarray(b, np.float64)), 1e-30))
+
+
+def serve_sinograms(torch, geom, n: int):
+    """n sinograms (numpy, on the host, as a scanner sends them): the
+    forward projections on the card of the cells' ellipse phantoms, seeds
+    0..n-1 (2D), or slabs blended along z from seeds s and s + 8."""
+    from repro_torch import Projector, ProjectorSpec
+    from repro_torch.data.phantoms import random_ellipse_phantom
+    proj = Projector(ProjectorSpec(geom))
+    out = []
+    for s0 in range(0, n, 8):
+        seeds = range(s0, min(n, s0 + 8))
+        if geom.vol.nz == 1:
+            x = torch.from_numpy(np.stack([random_ellipse_phantom(s, geom.vol)[0]
+                                           for s in seeds])[..., None]).cuda()
+        else:
+            x = helical_phantoms(torch, geom.vol, seeds)
+        out.extend(proj(x).cpu().numpy())
+    return out
+
+
+def warm_state(srv) -> dict:
+    """What a warm server's request path must leave as it is."""
+    from repro_torch.kernels import build, ops, tune
+    st = ops.cache_stats()
+    return {"sweeps": tune.sweep_count(), "cache_size": st["size"],
+            "cache_misses": st["misses"], "executors": set(srv._executors),
+            "loaded": build.loaded()}
+
+
+def check_warm(before: dict, after: dict, what: str) -> None:
+    for k in before:
+        check(after[k] == before[k], f"{what}: {k} changed on the request path "
+              f"({before[k]} -> {after[k]})")
+
+
+def alone(torch, geom, solver: str, kw: dict, y):
+    """The bucket's solver on one request alone, through Projector on the
+    card; FISTA-TV with the Lipschitz constant its server computes."""
+    from repro_torch import Projector, ProjectorSpec
+    from repro_torch import recon
+    proj = Projector(ProjectorSpec(geom))
+    yd = torch.from_numpy(y).cuda()
+    with torch.no_grad():
+        if solver == "fbp":
+            return proj.fbp(yd).cpu()
+        if solver == "fista_tv":
+            kw = dict(kw, L=float(recon.power_iteration(proj)) * 1.05)
+        return getattr(recon, solver)(proj, yd, **kw).image.cpu()
+
+
+def plain_pair(torch, geom):
+    """The plain version of the pair that ``ProjectorSpec(geom)`` runs: the
+    ``ref`` backend, or, where ``mode="auto"`` resolves the packed cone pair
+    (the ``ref`` backend runs the exact cone pair there), the plain
+    composition around its plan, as ``cone_packed_path`` holds it."""
+    from repro_torch import Projector, ProjectorSpec, resolve_mode
+    from repro_torch.kernels import fp_par
+    from repro_torch.kernels.fp_fan import ConePackedPlan
+    if resolve_mode(ProjectorSpec(geom)) == "packed":
+        plan = ConePackedPlan(geom)
+        return (lambda x: fp_par.fp_packed(x, plan, torch.float32,
+                                           lambda g: fp_par.fp_lanes_plain(g, plan)),
+                lambda y: fp_par.bp_packed(y, plan, torch.float32,
+                                           lambda q: fp_par.bp_lanes_plain(q, plan)))
+    plain = Projector(ProjectorSpec(geom, backend="ref"))
+    return plain, plain.T
+
+
+def served_vs_plain(torch, geom, x, y) -> tuple:
+    """The server's kernel pair at a served batch's own lane count against
+    its plain version (max-abs relative): the FP of the batch's answers
+    ``x`` and the BP of its packed sinograms ``y``, the whole size class
+    each; the plain pair runs SERVE_PLAIN_CHUNK requests a call (its memory
+    at the kernel phase's batch), which gives each request the same
+    values."""
+    from repro_torch import Projector, ProjectorSpec
+    kern = Projector(ProjectorSpec(geom))
+    fp_plain, bp_plain = plain_pair(torch, geom)
+    xd, yd, c = x.cuda(), torch.from_numpy(y).cuda(), SERVE_PLAIN_CHUNK
+    with torch.no_grad():
+        fp_err = rel_err(kern(xd), torch.cat([fp_plain(xd[i:i + c])
+                                              for i in range(0, len(xd), c)]))
+        bp_err = rel_err(kern.T(yd), torch.cat([bp_plain(yd[i:i + c])
+                                                for i in range(0, len(yd), c)]))
+    return fp_err, bp_err
+
+
+def latency_ms(resps) -> dict:
+    lat = np.array([r.latency_s for r in resps]) * 1e3
+    return {"p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def serve_phase(torch, results) -> None:
+    """The scanner-farm burst: five buckets at full width (SERVE_BUCKETS),
+    submitted interleaved to one warmed CTServer(max_batch=16) and drained.
+    Every answer bit-equal to the solver on its own packed batch, and
+    against its request alone on the card (SERVE_TOL); for one dispatch of
+    each bucket, the kernel pair at that batch's lane count against the
+    plain pair (F32_TOL: the FP of the answers, the BP of the sinograms);
+    interactive dispatches first, one bucket a dispatch; warm() leaves the
+    burst no sweep, op-cache miss or entry, executor or library to make;
+    rows 1-4 launched by the burst (run_path); per bucket wall time, us a
+    recon batched (and serial, max_batch=1, for the interactive buckets),
+    p50/p99 latency and the size-class histogram; then a batch executor
+    that raises leaves its batch mates answered."""
+    from collections import Counter
+    from repro_torch import ProjectorSpec
+    from repro_torch.launch.ct_serve import CTServer, ReconRequest
+    t_phase = time.perf_counter()
+    buckets = serve_buckets()
+    out = {"max_batch": SERVE_MAX_BATCH, "buckets": {}}
+    t = time.perf_counter()
+    sinos = {}
+    for name, (geom, _, _, n) in buckets.items():
+        cell = geom.canonical_hash()
+        if cell not in sinos or len(sinos[cell]) < n:
+            sinos[cell] = serve_sinograms(torch, geom, n)
+    out["setup_s"] = time.perf_counter() - t
+    specs = {name: ProjectorSpec(b[0]) for name, b in buckets.items()}
+
+    srv = CTServer(max_batch=SERVE_MAX_BATCH)
+    t = time.perf_counter()
+    for name, (geom, solver, kw, _) in buckets.items():
+        srv.warm(specs[name], solver, kw)
+    torch.cuda.synchronize()
+    out["warm_s"] = time.perf_counter() - t
+    log(f"serve: sinograms {out['setup_s']:.1f} s, warm {out['warm_s']:.1f} s "
+        f"({len(srv._executors)} executors)")
+
+    order = []                                   # interleaved: one of each in turn
+    for i in range(max(b[3] for b in buckets.values())):
+        order += [(name, i) for name, b in buckets.items() if i < b[3]]
+    rid_of = {}
+
+    def burst():
+        before = warm_state(srv)
+        for name, i in order:
+            geom, solver, kw, _ = buckets[name]
+            rid = srv.submit(ReconRequest(spec=specs[name],
+                                          sino=sinos[geom.canonical_hash()][i],
+                                          solver=solver, solver_kwargs=dict(kw)))
+            rid_of[rid] = (name, i)
+        t0 = time.perf_counter()
+        srv.drain()
+        torch.cuda.synchronize()
+        out["burst_s"] = time.perf_counter() - t0
+        check_warm(before, warm_state(srv), "serve burst")
+
+    out["launches"] = run_path(torch, results, "serve", SERVE_KERNELS, burst)
+    done = srv.take_responses()
+    check(len(done) == len(order) == sum(b[3] for b in buckets.values()),
+          f"serve: {len(done)} responses for {len(order)} requests")
+    bad = [(rid_of[r], d.error) for r, d in done.items() if not d.ok]
+    check(not bad, f"serve: failed requests {bad[:4]}")
+    tiers = [rec["tier"] for rec in srv.dispatch_log]
+    check(tiers == sorted(tiers, key=("interactive", "quality").index),
+          f"serve: a quality dispatch came before an interactive one: {tiers}")
+    for rec in srv.dispatch_log:
+        names = {rid_of[r][0] for r in rec["rids"]}
+        check(len(names) == 1, f"serve: one dispatch held buckets {names}")
+        rec["name"] = names.pop()
+
+    # each answer: the solver's on its own packed batch, bit for bit (the
+    # server adds nothing), and on that request alone within the tolerance;
+    # the first batch of each bucket also holds the kernel pair at its lane
+    # count against the plain pair
+    t = time.perf_counter()
+    for rec in srv.dispatch_log:
+        name = rec["name"]
+        geom, solver, kw, _ = buckets[name]
+        ys = sinos[geom.canonical_hash()]
+        pack = np.zeros((rec["size_class"],) + geom.sino_shape, np.float32)
+        for j, r in enumerate(rec["rids"]):
+            pack[j] = ys[rid_of[r][1]]
+        got = alone(torch, geom, solver, kw, pack)
+        same = [bool(torch.equal(done[r].image, got[j])) for j, r in enumerate(rec["rids"])]
+        check(all(same), f"serve {name}: {same.count(False)} answers differ "
+              f"from the solver on the same packed batch")
+        if name in out["buckets"]:
+            continue
+        fp_err, bp_err = served_vs_plain(torch, geom, got, pack)
+        lanes = rec["size_class"] * geom.n_rows
+        out["buckets"][name] = {"max_rel_l2": 0.0, "bit_equal": 0, "plain_lanes": lanes,
+                                "fp_vs_plain": fp_err, "bp_vs_plain": bp_err}
+        log(f"serve {name}: a batch of {rec['size_class']} ({lanes} lanes), kernel "
+            f"pair vs plain: FP of its answers {fp_err:.3g}, BP of its sinograms "
+            f"{bp_err:.3g}")
+        check(fp_err <= F32_TOL and bp_err <= F32_TOL,
+              f"serve {name}: kernel pair at {lanes} lanes vs plain FP {fp_err:.3g}, "
+              f"BP {bp_err:.3g} > {F32_TOL}")
+    out["pack_check_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    want = {}
+    for rid, (name, i) in rid_of.items():
+        geom, solver, kw, _ = buckets[name]
+        want[(name, i)] = alone(torch, geom, solver, kw, sinos[geom.canonical_hash()][i])
+        err = image_rel_l2(done[rid].image, want[(name, i)])
+        b = out["buckets"].setdefault(name, {"max_rel_l2": 0.0, "bit_equal": 0})
+        b["max_rel_l2"] = max(b["max_rel_l2"], err)
+        b["bit_equal"] += bool(torch.equal(done[rid].image, want[(name, i)]))
+        check(err <= SERVE_TOL, f"serve {name} request {i}: rel L2 {err:.3g} "
+              f"against the request alone > {SERVE_TOL}")
+    out["alone_s"] = time.perf_counter() - t
+
+    for name, (geom, solver, kw, n) in buckets.items():
+        b = out["buckets"][name]
+        recs = [rec for rec in srv.dispatch_log if rec["name"] == name]
+        b["wall_s"] = sum(rec["wall_s"] for rec in recs)
+        b["us_per_recon"] = b["wall_s"] / n * 1e6
+        b["size_classes"] = dict(sorted(Counter(rec["size_class"] for rec in recs).items()))
+        b.update(latency_ms([d for r, d in done.items() if rid_of[r][0] == name]))
+
+    # serial baseline (max_batch=1) of the interactive buckets
+    serial = CTServer(max_batch=1)
+    inter = [name for name, b in buckets.items() if b[1] == "fbp"]
+    for name in inter:
+        geom, solver, kw, _ = buckets[name]
+        serial.warm(specs[name], solver, kw, batch_sizes=(1,))
+    srid = {}
+    for name, i in order:
+        if name in inter:
+            geom, solver, kw, _ = buckets[name]
+            srid[serial.submit(ReconRequest(
+                spec=specs[name], sino=sinos[geom.canonical_hash()][i],
+                solver=solver, solver_kwargs=dict(kw)))] = (name, i)
+    sdone = serial.drain()
+    for rec in serial.dispatch_log:
+        rec["name"] = srid[rec["rids"][0]][0]
+    for name in inter:
+        b = out["buckets"][name]
+        recs = [rec for rec in serial.dispatch_log if rec["name"] == name]
+        b["serial_wall_s"] = sum(rec["wall_s"] for rec in recs)
+        b["serial_us_per_recon"] = b["serial_wall_s"] / buckets[name][3] * 1e6
+        b["batched_over_serial"] = b["serial_us_per_recon"] / b["us_per_recon"]
+        sl = latency_ms([d for r, d in sdone.items() if srid[r][0] == name])
+        b["serial_p50_ms"], b["serial_p99_ms"] = sl["p50_ms"], sl["p99_ms"]
+    for r, d in sdone.items():
+        check(d.ok and image_rel_l2(d.image, want[srid[r]]) <= SERVE_TOL,
+              f"serve serial {srid[r]}: {d.error or 'differs from alone'}")
+    for tier in ("interactive", "quality"):
+        out[tier] = latency_ms([d for d in done.values() if d.tier == tier])
+
+    for name, b in out["buckets"].items():
+        serial_s = (f", serial {b['serial_us_per_recon']:.1f} us a recon "
+                    f"({b['batched_over_serial']:.2f}x), serial p50/p99 "
+                    f"{b['serial_p50_ms']:.1f}/{b['serial_p99_ms']:.1f} ms"
+                    if "serial_us_per_recon" in b else "")
+        log(f"{name}: {buckets[name][3]} requests, wall {b['wall_s']:.3f} s, "
+            f"{b['us_per_recon']:.1f} us a recon batched{serial_s}; latency "
+            f"p50 {b['p50_ms']:.1f} ms p99 {b['p99_ms']:.1f} ms; size classes "
+            f"{b['size_classes']}; vs alone max rel L2 {b['max_rel_l2']:.3g}, "
+            f"{b['bit_equal']}/{buckets[name][3]} bit-equal")
+    log(f"serve tiers: interactive p50/p99 {out['interactive']['p50_ms']:.1f}/"
+        f"{out['interactive']['p99_ms']:.1f} ms, quality "
+        f"{out['quality']['p50_ms']:.1f}/{out['quality']['p99_ms']:.1f} ms; burst "
+        f"{out['burst_s']:.2f} s, {len(srv.dispatch_log)} dispatches")
+
+    # a batch executor that raises: its batch mates are re-run one by one
+    key = srv.bucket_key(ReconRequest(spec=specs["serve_main_fbp"],
+                                      sino=sinos[buckets["serve_main_fbp"][0]
+                                                 .canonical_hash()][0],
+                                      solver="fbp"))
+    saved = {k: srv._executors[(key, k)] for k in (1, 4)}
+
+    def exploding_batch(batch):
+        raise RuntimeError("batch executor blew up")
+
+    def picky_single(batch):
+        if float(batch.sum()) < 0:
+            raise RuntimeError("poisoned request")
+        return saved[1](batch)
+
+    srv._executors[(key, 4)], srv._executors[(key, 1)] = exploding_batch, picky_single
+    try:
+        main_sinos = sinos[buckets["serve_main_fbp"][0].canonical_hash()]
+        good = [srv.submit(ReconRequest(spec=specs["serve_main_fbp"],
+                                        sino=main_sinos[i], solver="fbp"))
+                for i in range(3)]
+        poisoned = srv.submit(ReconRequest(spec=specs["serve_main_fbp"],
+                                           sino=-np.abs(main_sinos[3]), solver="fbp"))
+        iso = srv.drain()
+    finally:
+        srv._executors.update({(key, k): v for k, v in saved.items()})
+    for i, rid in enumerate(good):
+        check(iso[rid].ok and image_rel_l2(iso[rid].image, want[("serve_main_fbp", i)])
+              <= SERVE_TOL, f"serve isolation: batch mate {i} {iso[rid].error}")
+    check(not iso[poisoned].ok and "poisoned" in iso[poisoned].error,
+          f"serve isolation: the poisoned request answered {iso[poisoned].error}")
+    out["isolation"] = "ok"
+    log("serve isolation: a raising batch executor left its 3 batch mates "
+        "answered; the poisoned request failed alone")
+    results["serve"] = out
+    results["phase_s"]["serve"] = time.perf_counter() - t_phase
+
+
+def autotune_phase(torch, results) -> None:
+    """The autotuner on the card: sweeps of the main and fan cells at batch
+    8 in f32 (each candidate's FP and BP ms; the heuristic's pair against
+    the tuned pair), the tuned pair against the plain pair (F32_TOL) and
+    the dot test (< 1e-4), the winner read back from the run's cache file
+    with no new sweep; then a SIRT bucket's server warmed with
+    REPRO_TORCH_AUTOTUNE=1 sweeps inside warm() and not in its burst."""
+    from repro_torch import Projector, ProjectorSpec
+    from repro_torch.data.phantoms import random_ellipse_phantom
+    from repro_torch.kernels import tune
+    from repro_torch.launch.ct_serve import CTServer, ReconRequest
+    t_phase = time.perf_counter()
+    out = {}
+    for name, geom in (("main", main_geometry()), ("fan", fan_geometry("flat"))):
+        tune.clear()
+        n0 = tune.sweep_count()
+        cfg, t_sweep = host_s(torch, lambda: tune.autotune(
+            geom, 8, torch.float32, device="cuda"))
+        rec = tune.last_sweep()
+        check(tune.sweep_count() == n0 + 1 and rec.get("tuned") == cfg,
+              f"autotune {name}: sweep not recorded ({rec.get('tuned')} vs {cfg})")
+        for (lg, bu), ms in sorted(rec["fp_ms"].items()):
+            log(f"autotune {name} FP lg {lg} bu {bu}: {ms:.4f} ms")
+        for (lg, bg), ms in sorted(rec["bp_ms"].items()):
+            log(f"autotune {name} BP lg {lg} bg {bg}: {ms:.4f} ms")
+        heur = rec["heuristic"]
+        log(f"autotune {name}: heuristic {heur} pair {rec['heuristic_ms']:.4f} ms, "
+            f"tuned {cfg} pair {rec['tuned_ms']:.4f} ms, sweep {t_sweep:.2f} s")
+        x = torch.from_numpy(np.stack([random_ellipse_phantom(s, geom.vol)[0]
+                                       for s in range(8)])[..., None]).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        y = torch.randn((8,) + geom.sino_shape, generator=gen, device="cuda")
+        tuned = Projector(ProjectorSpec(geom, config=cfg))
+        plain = Projector(ProjectorSpec(geom, backend="ref"))
+        ax = tuned(x)
+        fp_err, bp_err = rel_err(ax, plain(x)), rel_err(tuned.T(y), plain.T(y))
+        dot = abs(vdot64(ax, y) - vdot64(x, tuned.T(y))) / abs(vdot64(ax, y))
+        check(fp_err <= F32_TOL and bp_err <= F32_TOL and dot < 1e-4,
+              f"autotune {name}: tuned pair vs plain FP {fp_err:.3g}, BP "
+              f"{bp_err:.3g}, dot {dot:.3g}")
+        path = tune.cache_path()
+        check(path.exists() and str(path) == os.environ[tune.CACHE_PATH_ENV],
+              f"autotune {name}: no cache file at {path}")
+        tune.clear()
+        n1 = tune.sweep_count()
+        back = tune.get_config(geom, 8, torch.float32, device="cuda")
+        check(back == cfg and tune.sweep_count() == n1,
+              f"autotune {name}: read back {back} (want {cfg}), sweeps "
+              f"{tune.sweep_count() - n1}")
+        out[name] = {"fp_ms": {f"{k[0]},{k[1]}": v for k, v in rec["fp_ms"].items()},
+                     "bp_ms": {f"{k[0]},{k[1]}": v for k, v in rec["bp_ms"].items()},
+                     "heuristic": dataclasses.asdict(heur),
+                     "heuristic_ms": rec["heuristic_ms"],
+                     "tuned": dataclasses.asdict(cfg), "tuned_ms": rec["tuned_ms"],
+                     "sweep_s": t_sweep, "fp_rel_err": fp_err, "bp_rel_err": bp_err,
+                     "dot": dot}
+        log(f"autotune {name}: tuned pair vs plain FP {fp_err:.3g}, BP {bp_err:.3g}, "
+            f"dot {dot:.3g}; read back from disk with no sweep")
+
+    # a server warmed with autotuning on sweeps in warm() only
+    geom = main_geometry()
+    spec = ProjectorSpec(geom)
+    kw = {"n_iters": 5}
+    os.environ[tune.AUTOTUNE_ENV] = "1"
+    try:
+        tune.clear()
+        srv = CTServer(max_batch=SERVE_MAX_BATCH)
+        s0 = tune.sweep_count()
+        srv.warm(spec, "sirt", kw)
+        torch.cuda.synchronize()
+        warm_sweeps = tune.sweep_count() - s0
+        check(warm_sweeps > 0, "autotuned warm(): no sweep")
+        ys = serve_sinograms(torch, geom, 24)
+        before = warm_state(srv)
+        rids = [srv.submit(ReconRequest(spec=spec, sino=y, solver="sirt",
+                                        solver_kwargs=dict(kw))) for y in ys]
+        done = srv.drain()
+        check_warm(before, warm_state(srv), "autotuned server burst")
+        errs = [image_rel_l2(done[r].image, alone(torch, geom, "sirt", kw, y))
+                for r, y in zip(rids, ys)]
+        check(all(done[r].ok for r in rids) and max(errs) <= SERVE_TOL,
+              f"autotuned server: max rel L2 vs alone {max(errs):.3g}")
+    finally:
+        os.environ[tune.AUTOTUNE_ENV] = "0"
+    out["server"] = {"warm_sweeps": warm_sweeps, "burst_sweeps": 0,
+                     "requests": len(rids), "max_rel_l2": max(errs),
+                     "size_classes": [rec["size_class"] for rec in srv.dispatch_log]}
+    log(f"autotune server (main, SIRT-5, max_batch {SERVE_MAX_BATCH}): {warm_sweeps} "
+        f"sweeps in warm(), 0 in a burst of {len(rids)} (size classes "
+        f"{out['server']['size_classes']}); max rel L2 vs alone {max(errs):.3g}")
+    results["autotune"] = out
+    results["phase_s"]["autotune"] = time.perf_counter() - t_phase
+
+
 def run_path(torch, results, name: str, kernels, fn) -> dict:
     """Run one path with every launch count set to 0 just before it and read
     just after; fail if a kernel of the path was not launched.  Returns the
@@ -2728,6 +3185,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--train-breakdown"]:
         return train_breakdown_child(torch, pathlib.Path(sys.argv[2]))
+    # A tune cache of this run's own, and the heuristics everywhere but in
+    # the autotune phase: a measured configuration must change no kernel
+    # time or bit of this run's earlier phases or of a later run.
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    atexit.register(shutil.rmtree, tune_dir, True)
+    os.environ["REPRO_TORCH_TUNE_CACHE_PATH"] = os.path.join(tune_dir, "tune.json")
+    os.environ["REPRO_TORCH_AUTOTUNE"] = "0"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -2738,11 +3202,13 @@ def main() -> int:
                "kernels": [], "phase_s": {}}
     t_start = time.perf_counter()
 
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, tune
 
-    only = None
+    only = phases = None
     if len(sys.argv) > 2 and sys.argv[1] == "--cells":
         only = sys.argv[2].split(",")
+    if len(sys.argv) > 2 and sys.argv[1] == "--phases":
+        phases = sys.argv[2].split(",")
     t = time.perf_counter()
     if only is None:
         build.build_all(extra=[("fp_cone", "phases"), ("fp_modular", "phases")])
@@ -2756,6 +3222,15 @@ def main() -> int:
     par_build_report(results)
     fan_build_report(results)
     fan_division_check(torch, results)
+    if phases is not None:
+        for name in phases:
+            {"serve": serve_phase, "autotune": autotune_phase}[name](torch, results)
+        tune.clear()
+        outdir = ROOT / "chiprun_out"
+        outdir.mkdir(exist_ok=True)
+        (outdir / "chip_smoke_phases.json").write_text(
+            json.dumps(results, indent=1, default=str))
+        return 0
     if only is None:
         fp_division_check(torch, results)
 
@@ -2776,6 +3251,10 @@ def main() -> int:
     t = time.perf_counter()
     line_launches = nemotron_attn_layer(torch, results)
     results["phase_s"]["nemotron_attn_layer"] = time.perf_counter() - t
+    # last: a configuration measured here must reach no earlier phase
+    serve_phase(torch, results)
+    autotune_phase(torch, results)
+    tune.clear()
 
     # each kernel at its own path's cell and dtype: the projectors' main
     # cells in f32, the attention kernels at Qwen3's shapes in its bf16

@@ -30,7 +30,7 @@ import subprocess
 import threading
 from typing import Dict, Iterable, List, Tuple
 
-__all__ = ["build_all", "library", "parse_ptxas", "ptxas_report",
+__all__ = ["build_all", "library", "loaded", "parse_ptxas", "ptxas_report",
            "BUILD_DIR", "CSRC"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -263,6 +263,12 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
     """:func:`parse_ptxas` of library ``name``'s build log."""
     library(name)
     return parse_ptxas(_target(name).with_suffix(".log").read_text())
+
+
+def loaded() -> List[Tuple[str, str]]:
+    """The (library, variant) pairs loaded in this process, sorted: a warm
+    server builds and loads none on its request path."""
+    return sorted(_LIBS)
 
 
 def library(name: str, variant: str = "") -> ctypes.CDLL:

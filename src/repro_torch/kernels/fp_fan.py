@@ -22,9 +22,10 @@ The plain versions are ``fp_par``'s lane-level ones
 :func:`bp_lanes` count their launches in :data:`LAUNCHES`.
 
 **The kernels' layouts** are derived here from the
-:class:`~repro_torch.kernels.tune.KernelConfig` (heuristic
-``tune.heuristic_config``): the FP's tile of ``bu`` columns and ``8 lg``
-lanes (8 or 16 a thread), walked in pieces of ``vcap`` voxels chosen to
+:class:`~repro_torch.kernels.tune.KernelConfig` (``tune.resolve_config``:
+a pin, a measured one, or the heuristic ``tune.heuristic_config``): the
+FP's tile of ``bu`` columns and ``8 lg`` lanes (8 or 16 a thread), walked
+in pieces of ``vcap`` voxels chosen to
 fill :data:`FP_SMEM_BUDGET` (:meth:`FanPlan.fp_layout`); the BP's block of
 ``bg`` voxels (``fp_par.bp_block``).  Both bound the columns one voxel can
 meet by :meth:`FanPlan.ku`; the FP's voxel window of a tile and line is
@@ -349,9 +350,11 @@ def fp_fan_sf(f: torch.Tensor, plan: FanPlan,
     batched f: (batch, nx, ny, nz) -> (batch, n_angles, n_rows, n_cols).
     ``compute_dtype`` selects the tile dtype (None = follow ``f.dtype``);
     accumulation is f32 and the result comes back in ``f.dtype``."""
-    cfg = tune.resolve_config(plan.geom, fp_par._batch(f, "volume"), config)
-    return fp_par.fp_packed(f, plan, precision.resolve(compute_dtype, f.dtype),
-                            lambda g: fp_lanes(g, plan, cfg))
+    cdt = precision.resolve(compute_dtype, f.dtype)
+    cfg = tune.resolve_config(plan.geom, fp_par._batch(f, "volume"), config,
+                              dtype=cdt, packed=isinstance(plan, ConePackedPlan),
+                              device=f.device)
+    return fp_par.fp_packed(f, plan, cdt, lambda g: fp_lanes(g, plan, cfg))
 
 
 def bp_fan_sf(sino: torch.Tensor, plan: FanPlan,
@@ -360,11 +363,12 @@ def bp_fan_sf(sino: torch.Tensor, plan: FanPlan,
     """sino: (n_angles, n_rows, n_cols) -> volume (nx, ny, nz), or batched
     (batch, ...) -> (batch, nx, ny, nz).  Exact transpose of
     :func:`fp_fan_sf`."""
+    cdt = precision.resolve(compute_dtype, sino.dtype)
     cfg = tune.resolve_config(plan.geom, fp_par._batch(sino, "sinogram"),
-                              config)
-    return fp_par.bp_packed(sino, plan,
-                            precision.resolve(compute_dtype, sino.dtype),
-                            lambda q: bp_lanes(q, plan, cfg))
+                              config, dtype=cdt,
+                              packed=isinstance(plan, ConePackedPlan),
+                              device=sino.device)
+    return fp_par.bp_packed(sino, plan, cdt, lambda q: bp_lanes(q, plan, cfg))
 
 
 def register() -> None:

@@ -754,10 +754,10 @@ def fp_parallel_sf(f: torch.Tensor, plan: ParallelPlan,
     batched f: (batch, nx, ny, nz) -> (batch, n_angles, n_rows, n_cols).
     ``compute_dtype`` selects the tile dtype (None = follow ``f.dtype``);
     accumulation is f32 and the result comes back in ``f.dtype``."""
+    cdt = precision.resolve(compute_dtype, f.dtype)
     cfg = tune.resolve_config(plan.geom, _batch(f, "volume"), config,
-                              tune.parallel_config)
-    return fp_packed(f, plan, precision.resolve(compute_dtype, f.dtype),
-                     lambda g: fp_lanes(g, plan, cfg))
+                              tune.parallel_config, cdt, device=f.device)
+    return fp_packed(f, plan, cdt, lambda g: fp_lanes(g, plan, cfg))
 
 
 def bp_parallel_sf(sino: torch.Tensor, plan: ParallelPlan,
@@ -766,10 +766,10 @@ def bp_parallel_sf(sino: torch.Tensor, plan: ParallelPlan,
     """sino: (n_angles, n_rows, n_cols) -> volume (nx, ny, nz), or batched
     (batch, ...) -> (batch, nx, ny, nz).  Exact transpose of
     :func:`fp_parallel_sf`."""
+    cdt = precision.resolve(compute_dtype, sino.dtype)
     cfg = tune.resolve_config(plan.geom, _batch(sino, "sinogram"), config,
-                              tune.parallel_config)
-    return bp_packed(sino, plan, precision.resolve(compute_dtype, sino.dtype),
-                     lambda q: bp_lanes(q, plan, cfg))
+                              tune.parallel_config, cdt, device=sino.device)
+    return bp_packed(sino, plan, cdt, lambda q: bp_lanes(q, plan, cfg))
 
 
 def register() -> None:

@@ -28,6 +28,14 @@ from repro_torch.kernels.fp_par import ParallelPlan
 
 pytestmark = pytest.mark.cuda
 
+
+@pytest.fixture(autouse=True)
+def _isolated_tune_cache(tmp_path, monkeypatch):
+    """The port's tune cache in this test's own directory: a configuration
+    measured by one test (or found in the user's cache) changes no other
+    test's kernels."""
+    monkeypatch.setenv(tune.CACHE_PATH_ENV, str(tmp_path / "tune.json"))
+
 SHAPES = [
     (16, 16, 4, 6, 4, 24, 1),      # nx, ny, nz, na, nv, nu, batch
     (24, 24, 2, 5, 2, 40, 3),      # ragged lanes (6) and columns
@@ -1158,3 +1166,163 @@ def test_ct_trainer_checkpoint_resume_on_the_card(tmp_path):
         assert done.fit(log_every=0) == []
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+# --------------------------------------------------------------------------- #
+# The autotuner and CT serving on the card
+# --------------------------------------------------------------------------- #
+SWEEP_GEOMS = {
+    "parallel": lambda: (parallel_beam(40, 2, 96, VolumeGeometry(48, 40, 2)),
+                         False),
+    "fan": lambda: (fan_beam(36, 1, 120, VolumeGeometry(64, 64, 1), sod=120.0,
+                             sdd=240.0), False),
+    "cone-packed": lambda: (cone_beam(24, 4, 64, VolumeGeometry(32, 32, 4),
+                                      sod=400.0, sdd=600.0), True),
+}
+
+
+@pytest.mark.parametrize("name", list(SWEEP_GEOMS))
+def test_sweep_picks_a_measured_config_matching_plain(name):
+    """A sweep times every candidate the layouts accept, keeps the fastest
+    pair (in this process and on disk), and that configuration's kernels
+    match their plain versions at 2e-4."""
+    requires_cuda()
+    g, packed = SWEEP_GEOMS[name]()
+    batch = 3
+    tune.clear()
+    try:
+        n0 = tune.sweep_count()
+        cfg = tune.autotune(g, batch, packed=packed, device="cuda")
+        assert tune.sweep_count() == n0 + 1
+        rec = tune.last_sweep()
+        key = tune.shape_class(g, batch, torch.float32, packed)
+        assert rec["key"] == key and rec["tuned"] == cfg
+        assert (cfg.lg, cfg.bu) in rec["fp_ms"] and (cfg.lg, cfg.bg) in rec["bp_ms"]
+        assert rec["tuned_ms"] <= rec["heuristic_ms"]
+        assert len(rec["fp_ms"]) >= 3 and len(rec["bp_ms"]) >= 3
+        plan = {"parallel": ParallelPlan, "fan": FanPlan,
+                "cone-packed": fp_fan.ConePackedPlan}[name](g)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        lanes = batch * g.n_rows
+        vol = torch.randn((g.vol.nx, g.vol.ny, lanes), generator=gen,
+                          device="cuda")
+        sino = torch.randn((g.n_angles, g.n_cols, lanes), generator=gen,
+                           device="cuda")
+        for run, plain, x in ((fp_par.fp_lanes, fp_par.fp_lanes_plain, vol),
+                              (fp_par.bp_lanes, fp_par.bp_lanes_plain, sino)):
+            got = run(x, plan, cfg)
+            want = plain(x, plan)
+            rel = float((got - want).abs().max() / want.abs().max())
+            assert rel <= 2e-4, rel
+        # read back from disk in a fresh registry, with no sweep
+        tune.clear()
+        assert tune.get_config(g, batch, packed=packed, device="cuda") == cfg
+        assert tune.sweep_count() == n0 + 1
+    finally:
+        tune.clear()
+
+
+def test_exact_cone_autotune_sweeps_nothing():
+    """The exact cone and modular kernels take no configuration: autotune
+    counts the call and returns without timing or writing to disk."""
+    requires_cuda()
+    g = cone_beam(12, 4, 40, VolumeGeometry(16, 16, 4), sod=80.0, sdd=160.0)
+    tune.clear()
+    try:
+        n0 = tune.sweep_count()
+        assert tune.autotune(g, 2, device="cuda") == tune.heuristic_config(g, 2)
+        assert tune.sweep_count() == n0 + 1 and not tune.cache_path().exists()
+    finally:
+        tune.clear()
+
+
+def _rel_l2(a, b):
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / torch.linalg.vector_norm(b.double()))
+
+
+@pytest.mark.parametrize("autotuned", [False, True])
+def test_warm_server_on_the_card_answers_a_burst(autotuned, monkeypatch):
+    """A warmed CTServer on the card answers a burst of four buckets with
+    no sweep, op-cache miss or entry, new executor or library load, and
+    launches the parallel and fan kernels.  Each answer is bit-equal to the
+    solver on its own packed batch; against the request alone, SIRT and
+    FISTA-TV are bit-equal (the kernels give a lane the same bits at any
+    lane count), FBP within 2e-4 (its view chunks follow the batch), and
+    CGLS, whose inner products reduce one sample at a time, within 2e-4 in
+    the image and the residual history.  With autotuning on, the sweeps
+    happen inside warm()."""
+    requires_cuda()
+    from repro_torch.launch.ct_serve import CTServer, ReconRequest
+    from repro_torch.kernels import build, ops
+    from repro_torch.recon import cgls, fista_tv, power_iteration, sirt
+    monkeypatch.setenv(tune.AUTOTUNE_ENV, "1" if autotuned else "0")
+    tune.clear()
+    try:
+        vol = VolumeGeometry(48, 48, 1)
+        s_par = ProjectorSpec(parallel_beam(60, 1, 72, vol))
+        s_fan = ProjectorSpec(fan_beam(60, 1, 96, vol, sod=100.0, sdd=200.0))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.rand((10,) + vol.shape, generator=gen, device="cuda")
+        y_par = Projector(s_par)(x).cpu().numpy()
+        y_fan = Projector(s_fan)(x).cpu().numpy()
+        L = float(power_iteration(Projector(s_par))) * 1.05
+        solvers = {"sirt": sirt, "fista_tv": fista_tv, "cgls": cgls}
+        buckets = [(s_par, y_par, "fbp", {}), (s_par, y_par, "sirt", {"n_iters": 8}),
+                   (s_par, y_par, "fista_tv", {"n_iters": 5}),
+                   (s_fan, y_fan, "cgls", {"n_iters": 6})]
+
+        def solve(spec, solver, kw, y):
+            y = torch.from_numpy(y).cuda()
+            if solver == "fbp":
+                return Projector(spec).fbp(y).cpu(), None
+            kw = dict(kw, L=L) if solver == "fista_tv" else kw
+            res = solvers[solver](Projector(spec), y, **kw)
+            return res.image.cpu(), res.residual_history.cpu()
+
+        srv = CTServer(max_batch=4)
+        sweeps = tune.sweep_count()
+        for spec, _, solver, kw in buckets:
+            srv.warm(spec, solver, kw)
+        assert (tune.sweep_count() > sweeps) == autotuned
+        sweeps0, stats0 = tune.sweep_count(), ops.cache_stats()
+        executors0, loaded0 = set(srv._executors), build.loaded()
+        assert loaded0
+        K.reset_launches()
+        sent = {}
+        for i in range(10):
+            for b in buckets[: 4 if i < 6 else 2]:
+                sent[srv.submit(ReconRequest(spec=b[0], sino=b[1][i], solver=b[2],
+                                             solver_kwargs=dict(b[3])))] = (b, i)
+        done = srv.drain()
+        launches = K.launches()
+        assert tune.sweep_count() == sweeps0
+        assert ops.cache_stats()["size"] == stats0["size"]
+        assert ops.cache_stats()["misses"] == stats0["misses"]
+        assert set(srv._executors) == executors0 and build.loaded() == loaded0
+        for k in ("fp_par_sf", "bp_par_sf", "fp_fan_sf", "bp_fan_sf"):
+            assert launches[k] > 0, k
+        tiers = [rec["tier"] for rec in srv.dispatch_log]
+        assert tiers == sorted(tiers)              # interactive < quality
+        for rec in srv.dispatch_log:
+            (spec, y, solver, kw), _ = sent[rec["rids"][0]]
+            pack = np.zeros((rec["size_class"],) + y.shape[1:], np.float32)
+            for j, rid in enumerate(rec["rids"]):
+                assert sent[rid][0][2] == solver
+                pack[j] = y[sent[rid][1]]
+            img, _ = solve(spec, solver, kw, pack)
+            for j, rid in enumerate(rec["rids"]):
+                assert done[rid].ok, done[rid].error
+                assert torch.equal(done[rid].image, img[j]), (solver, j)
+        for rid, ((spec, y, solver, kw), i) in sent.items():
+            resp = done[rid]
+            img, hist = solve(spec, solver, kw, y[i])
+            if solver in ("sirt", "fista_tv"):
+                assert torch.equal(resp.image, img), (solver, i)
+            elif solver == "fbp":
+                assert _rel_l2(resp.image, img) <= 2e-4, i
+            else:
+                rel = (resp.result.residual_history - hist).abs() / hist
+                assert float(rel.max()) <= 2e-4 and _rel_l2(resp.image, img) <= 2e-4, i
+    finally:
+        tune.clear()

@@ -33,7 +33,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_is_lazy():
     code = ("import sys, repro_torch, repro_torch.kernels, repro_torch.recon, "
-            "repro_torch.launch.ct_train, repro_torch.nn, repro_torch.optim; "
+            "repro_torch.launch.ct_train, repro_torch.launch.ct_serve, "
+            "repro_torch.nn, repro_torch.optim; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'repro')]; "
             "from repro_torch.kernels import build; "
