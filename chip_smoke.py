@@ -45,7 +45,7 @@ path through the public API at the paper's sizes:
   and FISTA-TV-30 with their PSNRs, and data-consistency refinement on a
   few-view mask of half the views.  Its kernels are held against the plain
   versions on the whole cell at batch 8 in f32 (the plain versions on its
-  first 2 samples; 6.2e9 nonzeros: no library matrix), and on 90 of its
+  first sample; 6.2e9 nonzeros: no library matrix), and on 90 of its
   views at batch 8 in f32 and bf16 (the first and last, both sides of each
   turn's 45 and 135 degree view-group edges, and evenly spaced others; all
   8 samples, with the library time).  Batch 1 is timed on both
@@ -107,6 +107,27 @@ path through the public API at the paper's sizes:
   1e-6 of the uninterrupted run's).  TF32 stays off, so card and host
   compare in f32.
 
+* sharded — sharded recon on torch.distributed (``core/distributed.py``,
+  ``launch/mesh.py``), in worlds of spawned ranks that load the kernels
+  built here and check their own launches: sharded_main_11, the main cell
+  at batch 8 on a (1, 1) mesh of one NCCL rank with one all-reduce (FP,
+  BP and SIRT-50 bit-equal to the single-device Projector); in one gloo
+  world of 4 ranks sharing the card, sharded_3d (the 3D cell on a (2, 2)
+  mesh: 90 views, 256 slices and 256 rows a rank, halo 0), sharded_cone
+  (the cone cell on (2, 2), halo 1 from ``suggest_halo``, 256-row blocks;
+  halo 0 refused) and helical_long (512x512x64, 8 turns of 8 mm pitch in
+  3072 views, the helical cell's detector, on (1, 4): the sliding-z
+  pipeline, halo 7, a 30-slice slab a rank), each with FP and BP against
+  the single-device kernel pair (2e-5; BP atol 2e-5 max|BP|), the dot
+  test (< 1e-6), the overlap schedule against one all-reduce (1e-5, atol
+  scaled by max|BP|), per-rank times and peak memory, and on
+  helical_long SIRT-12 (within 1e-4 of one device, residual below 0.25
+  of its first) and CGLS-10 (relative L2 1e-4); dp_train, a gloo world of
+  2 ranks: ``CTTrainer(data_parallel=True)`` at n = 512 (TrainConfig
+  defaults, batch 4) for 3 steps against one device (DP_HALVES_TOL,
+  DP_BATCH_TOL) and ``make_ct_dp_train_step``'s loss falling over 5 steps
+  against one device.  Ranks sharing one card over gloo show each rank's
+  kernel work and host-staged collectives, not multi-card speed.
 * serve — CT serving (``launch/ct_serve.py``): a scanner-farm burst of
   176 requests in five buckets at full width, submitted interleaved to one
   ``CTServer(max_batch=16)`` warmed at every size class, then drained:
@@ -194,7 +215,8 @@ dropped thread-views, columns and terms.
 
 runs only the build and the named cells of the projector kernel phase,
 for comparing kernel sources on one card, and prints no ok line;
-``--phases serve,autotune`` runs only the build and those phases.
+``--phases serve,autotune`` (or ``sharded``) runs only the build and those
+phases.
 ``--train-breakdown FILE`` is the child process the full run starts for
 the training step's breakdown.
 
@@ -532,7 +554,9 @@ class Cell:
     """A kernel-phase cell: the kernel family, the geometry, the batch, a
     maker of the FP's f32 input at the kernel's interface, the plain
     version's timing repeats (0: time its comparison call alone, where it is
-    slow), a note, and the tile dtypes to hold."""
+    slow), a note, the tile dtypes to hold, and the samples the plain
+    version runs on (0: all; n: the first n of a cone-family batch, whose
+    kernel outputs of those samples it is held against)."""
     family: str
     geom: object
     batch: int
@@ -540,6 +564,7 @@ class Cell:
     plain_reps: int = 3
     note: str = ""
     dtypes: tuple = ("float32", "bfloat16")
+    plain_samples: int = 0
 
 
 def families():
@@ -595,6 +620,9 @@ def kernel_phase(torch, cells, results):
         F = fams[fam]
         plan = F["plan"](geom)
         lane = fam in ("par", "fan", "cone_packed")
+        n_plain = c.plain_samples or batch       # batch-major: the first n
+        check(not lane or n_plain == batch, f"{cell}: a lane family's plain "
+                                            f"version runs on the whole batch")
         # the parallel pair's or the fan pair's heuristic, as their paths use
         # them; the cone and modular launches derive their block from the
         # shapes
@@ -626,14 +654,17 @@ def kernel_phase(torch, cells, results):
                     (F["names"][0], F["fp"], F["fp_plain"], x),
                     (F["names"][1], F["bp"], F["bp_plain"], q)):
                 k_out, first_ms = event_ms(torch, lambda: run(inp, *args))
+                p_in, k_cmp = ((inp, k_out) if n_plain == batch
+                               else (inp[:n_plain], k_out[:n_plain]))
                 if plain_reps:
-                    p_out = plain(inp, plan)
-                    plain_ms = cuda_ms(torch, lambda: plain(inp, plan),
+                    p_out = plain(p_in, plan)
+                    plain_ms = cuda_ms(torch, lambda: plain(p_in, plan),
                                        reps=plain_reps, warmup=1)
                 else:                      # time the comparison call itself
-                    p_out, plain_ms = event_ms(torch, lambda: plain(inp, plan))
-                err = rel_err(k_out, p_out)
-                abs_err = float((k_out - p_out).abs().max())
+                    p_out, plain_ms = event_ms(torch, lambda: plain(p_in, plan))
+                err = rel_err(k_cmp, p_out)
+                abs_err = float((k_cmp - p_out).abs().max())
+                del p_in, k_cmp
                 check(bool(torch.isfinite(k_out).all()), f"{kname} {cell} {name}: non-finite")
                 check(err <= tol, f"{kname} {cell} {name}: |kernel-plain|/|plain| "
                                   f"= {err:.3g} > {tol:.3g}")
@@ -668,7 +699,7 @@ def kernel_phase(torch, cells, results):
                        "config": dataclasses.asdict(cfg) if lane else None,
                        "rel_err": err, "max_abs_err": abs_err, "tol": tol,
                        "ms": ms, "reps": reps, "plain_ms": plain_ms,
-                       "library_ms": lib_ms,
+                       "plain_samples": n_plain, "library_ms": lib_ms,
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                        "bytes": nbytes, "ops": ops, "nnz": nnz,
@@ -684,7 +715,9 @@ def kernel_phase(torch, cells, results):
                     row["ms_parent"] = FAN_PARENT_MS.get((kname, cell, name))
                 results["kernels"].append(row)
                 log(f"kernel {kname:10s} {cell:10s} {name:8s} rel_err {err:.3g} "
-                    f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms} "
+                    f"ms {ms:.4f} plain_ms {plain_ms:.4f}"
+                    + (f" ({n_plain} of {batch} samples)" if n_plain < batch else "")
+                    + f" library_ms {lib_ms} "
                     f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})"
                     + (f" 15I_ms {row['ms_15I']}" if row.get("ms_15I") else "")
                     + (f" parent_ms {row['ms_parent']}" if row.get("ms_parent") else ""))
@@ -2414,7 +2447,8 @@ def projector_phases(torch, results, only=None) -> dict:
     cells.update({
         "helical": Cell("modular", helical, 8,
                         lambda: helical_phantoms(torch, helical.vol), 0,
-                        "the whole cell at the path's batch; f32", ("float32",)),
+                        "the whole cell at the path's batch, the plain versions "
+                        "on its first sample; f32", ("float32",), 1),
         "helical_cut": Cell("modular", helical.subset(helical_views()), 8,
                             lambda: helical_phantoms(torch, helical.vol), 0,
                             "90 of the 768 views (the ends, both sides of the 45 "
@@ -3150,6 +3184,480 @@ def autotune_phase(torch, results) -> None:
     results["phase_s"]["autotune"] = time.perf_counter() - t_phase
 
 
+# -- sharded recon (core/distributed.py) on torch.distributed --------------- #
+# The reference's tests/test_distributed_ct.py tolerances: the sharded pair
+# against one device (FP rtol/atol; BP atol of this times max|BP|, :68-78),
+# the conditioning-aware dot test (:53-65), overlap against psum (:351-362;
+# its atol, as the pair's BP, times max|BP|: at 512^3 a backprojection of
+# random views reaches ~100 and cancels to near 0, where f32 sums in two
+# orders differ by more than 1e-5 absolute) and SIRT-12 against one device
+# (:332-348); CGLS-10 against one device in relative L2.
+SHARD_PAIR_TOL = 2e-5
+SHARD_DOT_TOL = 1e-6
+SHARD_OVERLAP_TOL = 1e-5
+SHARD_SIRT_TOL = 1e-4
+SHARD_CGLS_TOL = 1e-4
+SHARD_KERNELS = {"sharded_main_11": ("fp_par_sf", "bp_par_sf"),
+                 "sharded_3d": ("fp_par_sf", "bp_par_sf"),
+                 "sharded_cone": ("fp_cone_sf", "bp_cone_sf"),
+                 "helical_long": ("fp_modular_sf", "bp_modular_sf"),
+                 "dp_train": ("fp_par_sf", "bp_par_sf")}
+# dp_train: CTTrainer(data_parallel=True) on 2 ranks against one device.
+# The first batch's loss and gradients (relative; L2 over all gradients)
+# against the mean of one device's on the same two halves, which run the
+# same batch-2 convolutions: DP_HALVES_TOL, for the order of the two-term
+# sum and the FBP's scatter, whose atomic adds land in any order.  Against
+# one device on the whole batch: DP_BATCH_TOL for the first loss, its
+# gradients and the 3 losses, since cuDNN picks other algorithms at batch 4
+# than at batch 2 (f32 FFT convolutions round differently; the script logs
+# one device's own halves against its batch 4 beside it); each parameter
+# within 2 x steps x lr, AdamW's bound on how far two runs can drift apart
+# (the convolution biases in front of a group norm have gradients that are
+# rounding noise, which AdamW scales up to steps of lr).
+# make_ct_dp_train_step's SGD is linear in its gradient: its losses and
+# parameters within DP_STEP_TOL (relative, L2 for the parameters).
+DP_TRAIN_STEPS = 3
+DP_HALVES_TOL = 1e-5
+DP_BATCH_TOL = 1e-3
+DP_STEP_TOL = 1e-5
+
+
+def helical_long_geometry():
+    """The helical cell's widths over a long object: 512x512x64 voxels of 1
+    mm, 8 turns of 8 mm pitch in 3072 views (384 a turn), 6 rows of 2 mm x
+    1126 columns of 1 mm, sod 1024, sdd 1536."""
+    from repro_torch import VolumeGeometry, helical_beam
+    return helical_beam(n_turns=8.0, pitch=8.0, n_angles=3072, n_rows=6,
+                        n_cols=1126, vol=VolumeGeometry(512, 512, 64),
+                        sod=1024.0, sdd=1536.0, pixel_width=1.0, pixel_height=2.0)
+
+
+def wall_ms(torch, fn, reps: int = 2) -> float:
+    """Median wall time of one call in ms after one warm call (host clock
+    around a synchronize): a sharded call's collectives run on the host."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def rank_setup(torch) -> None:
+    """A rank computes as the parent does: no TF32 (main() turns it off
+    there; a spawned rank starts from torch's defaults, where cuDNN's
+    convolutions take TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def rank_launches(torch, cell: str) -> dict:
+    """This rank's launches of its cell's kernels since the last reset; fails
+    if one was not launched."""
+    from repro_torch import kernels as K
+    launches = K.launches()
+    for k in SHARD_KERNELS[cell]:
+        check(launches[k] > 0, f"{cell}: kernel {k} was not launched on rank "
+                               f"{torch.distributed.get_rank()}")
+    return {k: launches[k] for k in SHARD_KERNELS[cell]}
+
+
+def close(torch, got, want, tol: float, bp: bool, what: str) -> float:
+    """``got`` (on the host) against ``want`` at the reference's
+    ``_vs_local`` tolerance, on ``want``'s device; returns max |got - want|."""
+    got = got.to(want.device)
+    atol = tol * float(want.abs().max()) if bp else tol
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=tol, atol=atol),
+          f"{what}: max |sharded - one device| {err:.3g} (rtol {tol}, atol {atol:.3g})")
+    return err
+
+
+def shard_cell(torch, rank: int, cell: str, mesh, geom) -> dict:
+    """One 4-rank projector cell on every rank: the sharded pair on seeded
+    inputs (times, dot test, overlap against psum; on helical_long SIRT-12
+    and CGLS-10), counted; then rank 0 holds the gathered results against
+    the single-device kernel pair.  Returns this rank's numbers."""
+    from repro_torch import Projector, ProjectorSpec
+    from repro_torch import kernels as K
+    from repro_torch.core.distributed import distribute
+    from repro_torch.recon import cgls, sirt
+    dev = torch.device("cuda")
+    spec = ProjectorSpec(geom)
+    out = {"rank": rank}
+
+    def inputs():
+        gen = torch.Generator(device=dev).manual_seed(11)
+        x = torch.randn(geom.vol.shape, generator=gen, device=dev)
+        y = torch.randn(geom.sino_shape, generator=gen, device=dev)
+        return x, y, torch.abs(torch.randn(geom.vol.shape, generator=gen, device=dev))
+
+    torch.distributed.barrier()            # rank 0 may still be checking a cell
+    t_cell = time.perf_counter()
+    dp = distribute(spec, mesh, z_axis="model")     # halo: suggest_halo; psum
+    ovl = distribute(spec, mesh, z_axis="model", comm="overlap")
+    lay = dp._layout
+    out.update(halo=dp.shard.halo, comm_blocks=len(ovl._layout.bp_specs),
+               mode=lay.fp_spec.resolved_mode, vol_local=lay.vol_local,
+               sino_local=lay.sino_local)
+    x, y, f = inputs()
+    xs, ys, fs = dp.shard_volume(x), dp.shard_sino(y), dp.shard_volume(f)
+    del x, y, f
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    ax = dp(xs)
+    aty = dp.T(ys)
+    out["fp_ms"] = wall_ms(torch, lambda: dp(xs))
+    out["bp_ms"] = wall_ms(torch, lambda: dp.T(ys))
+    lhs = dp.reduce_partial(torch.sum(ax.double() * ys.double()), "sino")
+    rhs = dp.reduce_partial(torch.sum(xs.double() * aty.double()), "vol")
+    mass = dp.reduce_partial(torch.sum(torch.abs(ax.double() * ys.double())), "sino")
+    out["dot"] = float(abs(lhs - rhs) / (mass + 1e-12))
+    check(out["dot"] < SHARD_DOT_TOL, f"{cell}: dot test {out['dot']:.3g}")
+    aty_ovl = ovl.T(ys)
+    out["bp_overlap_ms"] = wall_ms(torch, lambda: ovl.T(ys))
+    out["overlap_vs_psum"] = float((aty_ovl - aty).abs().max())
+    scale = float(aty.abs().max())
+    check(torch.allclose(aty_ovl, aty, rtol=SHARD_OVERLAP_TOL,
+                         atol=SHARD_OVERLAP_TOL * scale),
+          f"{cell}: overlap vs psum max abs {out['overlap_vs_psum']:.3g} "
+          f"(max |BP| {scale:.3g})")
+    del aty_ovl
+    if cell == "helical_long":
+        yh = dp(fs)
+        res, out["sirt12_s"] = host_s(torch, lambda: sirt(dp, yh, n_iters=12))
+        cg, out["cgls10_s"] = host_s(torch, lambda: cgls(dp, yh, n_iters=10))
+        hist = res.residual_history
+        out["sirt_residual_ratio"] = float(hist[-1] / hist[0])
+        check(out["sirt_residual_ratio"] < 0.25,
+              f"{cell}: SIRT-12 residual ratio {out['sirt_residual_ratio']:.3g}")
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["launches"] = rank_launches(torch, cell)
+    out["path_s"] = time.perf_counter() - t_cell
+    # the global tensors, on the host of rank 0
+    got = {"fp": dp.gather_sino(ax), "bp": dp.gather_volume(aty)}
+    if cell == "helical_long":
+        got.update(y=dp.gather_sino(yh), sirt=dp.gather_volume(res.image),
+                   cgls=dp.gather_volume(cg.image))
+        out["sirt_hist"] = res.residual_history.cpu().tolist()
+        del yh, res, cg
+    got = {k: v.cpu() for k, v in got.items()} if rank == 0 else {}
+    del ax, aty, xs, ys, fs, dp, ovl
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return out
+
+    x, y, f = inputs()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    proj = Projector(spec)
+    fp1, bp1 = proj(x), proj.T(y)
+    out["single_fp_ms"] = wall_ms(torch, lambda: proj(x))
+    out["single_bp_ms"] = wall_ms(torch, lambda: proj.T(y))
+    if cell == "helical_long":
+        yg = got["y"].to(dev)
+        ref, ref_cg = sirt(proj, yg, n_iters=12), cgls(proj, yg, n_iters=10).image
+        del yg
+    torch.cuda.synchronize()
+    out["single_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["fp_max_abs_err"] = close(torch, got["fp"], fp1, SHARD_PAIR_TOL, False,
+                                  f"{cell} FP")
+    out["bp_max_abs_err"] = close(torch, got["bp"], bp1, SHARD_PAIR_TOL, True,
+                                  f"{cell} BP")
+    if cell == "helical_long":
+        out["sirt_max_abs_err"] = close(torch, got["sirt"], ref.image,
+                                        SHARD_SIRT_TOL, False, f"{cell} SIRT-12")
+        hist = ref.residual_history.cpu().numpy()
+        out["sirt_hist_rel_err"] = float(np.max(np.abs(np.asarray(out["sirt_hist"])
+                                                       - hist) / hist))
+        check(out["sirt_hist_rel_err"] < SHARD_SIRT_TOL,
+              f"{cell}: SIRT-12 history rel {out['sirt_hist_rel_err']:.3g}")
+        got_cg = got["cgls"].to(dev)
+        out["cgls_rel_l2"] = float(torch.linalg.vector_norm(got_cg - ref_cg)
+                                   / torch.linalg.vector_norm(ref_cg))
+        check(out["cgls_rel_l2"] < SHARD_CGLS_TOL,
+              f"{cell}: CGLS-10 rel L2 {out['cgls_rel_l2']:.3g}")
+        del ref, ref_cg, got_cg
+    del x, y, f, proj, got, fp1, bp1
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_world4(rank: int, world: int) -> dict:
+    """The three 4-rank projector cells, on every rank of a gloo world of
+    ranks sharing the card: sharded_3d and sharded_cone on a (2, 2) mesh,
+    helical_long on a (1, 4) mesh."""
+    import torch
+    rank_setup(torch)
+    from repro_torch.core.distributed import distribute
+    from repro_torch import ProjectorSpec
+    from repro_torch.launch.mesh import Mesh
+    mesh22, mesh14 = Mesh((2, 2)), Mesh((1, 4))
+    out = {"backend": torch.distributed.get_backend()}
+    for cell, mesh, geom in (("sharded_3d", mesh22, table1("parallel_512_180")),
+                             ("sharded_cone", mesh22, table1("cone_512_180")),
+                             ("helical_long", mesh14, helical_long_geometry())):
+        out[cell] = shard_cell(torch, rank, cell, mesh, geom)
+        if cell == "sharded_cone":
+            try:
+                distribute(ProjectorSpec(geom), mesh, z_axis="model", halo=0)
+            except ValueError as e:
+                out[cell]["halo0_refused"] = str(e)
+            check("halo0_refused" in out[cell], "sharded_cone: halo=0 was accepted")
+    return out
+
+
+def sharded_main_world(rank: int, world: int) -> dict:
+    """sharded_main_11: the main cell (batch 8) on a (1, 1) mesh of one NCCL
+    rank with one all-reduce: FP, BP and SIRT-50 bit-equal to the
+    single-device Projector (tests/test_distributed_ct.py:213-230)."""
+    import torch
+    rank_setup(torch)
+    from repro_torch import Projector, ProjectorSpec
+    from repro_torch import kernels as K
+    from repro_torch.core.distributed import distribute
+    from repro_torch.data.phantoms import random_ellipse_phantom
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.recon import sirt
+    cell = "sharded_main_11"
+    geom = main_geometry()
+    spec = ProjectorSpec(geom)
+    x = torch.from_numpy(np.stack([random_ellipse_phantom(s, geom.vol)[0]
+                                   for s in range(8)])[..., None]).cuda()
+    out = {"backend": torch.distributed.get_backend()}
+    t = time.perf_counter()
+    K.reset_launches()
+    dp = distribute(spec, Mesh((1, 1)), z_axis="model", comm="psum")
+    sino = dp(dp.shard_volume(x))
+    back = dp.T(dp.shard_sino(sino))
+    res = sirt(dp, sino, n_iters=50)
+    out["fp_ms"] = wall_ms(torch, lambda: dp(x))
+    out["bp_ms"] = wall_ms(torch, lambda: dp.T(sino))
+    out["launches"] = rank_launches(torch, cell)
+    out["path_s"] = time.perf_counter() - t
+    proj = Projector(spec)
+    one = sirt(proj, sino, n_iters=50)
+    out["single_fp_ms"] = wall_ms(torch, lambda: proj(x))
+    out["single_bp_ms"] = wall_ms(torch, lambda: proj.T(sino))
+    for name, a, b in (("fp", sino, proj(x)), ("bp", back, proj.T(sino)),
+                       ("sirt50", res.image, one.image),
+                       ("sirt50_history", res.residual_history, one.residual_history)):
+        out[f"{name}_bit_equal"] = bool(torch.equal(a, b))
+        check(out[f"{name}_bit_equal"], f"{cell}: {name} is not bit-equal to one device")
+    return out
+
+
+def dp_train_world(rank: int, world: int) -> dict:
+    """dp_train on every rank of a 2-rank gloo world: CTTrainer(data_parallel=
+    True) at n = 512 (TrainConfig defaults, batch 4: 2 a rank), the first
+    batch's averaged loss and gradients and 3 steps; then
+    make_ct_dp_train_step on the trainer's geometry, 5 steps.  Rank 0 runs
+    the step on one device on the whole batch."""
+    import torch
+    rank_setup(torch)
+    from repro_torch import Projector, ProjectorSpec
+    from repro_torch import kernels as K
+    from repro_torch.data.phantoms import random_ellipse_phantom
+    from repro_torch.launch.ct_train import CTTrainer, TrainConfig
+    from repro_torch.launch.mesh import pmean
+    from repro_torch.launch.train import make_ct_dp_train_step
+    cell = "dp_train"
+    t = time.perf_counter()
+    K.reset_launches()
+    cfg = TrainConfig(geometry="limited_angle", n=TRAIN_N, steps=DP_TRAIN_STEPS,
+                      data_parallel=True)
+    trainer = CTTrainer(cfg)
+    loss0, grads0 = pmean(trainer._mesh, "data",
+                          *trainer.grad_fn(trainer.params, *trainer.data(0)))
+    events = []
+
+    def on_step(i, loss):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append(e)
+
+    losses = trainer.fit(log_every=0, on_step=on_step)
+    torch.cuda.synchronize()
+    out = {"backend": torch.distributed.get_backend(), "loss0": float(loss0),
+           "grads0": {k: v.cpu().numpy() for k, v in grads0.items()},
+           "losses": losses,
+           "params": {k: v.cpu().numpy() for k, v in trainer.params.items()},
+           "step_ms": [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])],
+           "lr": cfg.lr}
+    geom = trainer.geom
+    spec = ProjectorSpec(geom)
+
+    def apply_fn(params, y):
+        return params["vol"].expand((y.shape[0],) + geom.vol.shape)
+
+    truth = torch.from_numpy(random_ellipse_phantom(3, geom.vol)[0][..., None]).cuda()
+    yb = Projector(spec)(truth).expand((cfg.batch,) + geom.sino_shape).contiguous()
+
+    def run(mesh):
+        step = make_ct_dp_train_step(spec, mesh, apply_fn, lr=0.1)
+        params, step_losses = {"vol": torch.zeros(geom.vol.shape, device="cuda")}, []
+        for _ in range(5):
+            params, loss = step(params, yb)
+            step_losses.append(float(loss))
+        return step_losses, params["vol"]
+
+    step_losses, vol = run(trainer._mesh)
+    out["step_losses"] = step_losses
+    check(all(b < a for a, b in zip(step_losses, step_losses[1:])),
+          f"{cell}: make_ct_dp_train_step's loss did not fall: {step_losses}")
+    out["launches"] = rank_launches(torch, cell)
+    out["path_s"] = time.perf_counter() - t
+    if rank == 0:
+        one_losses, one_vol = run(None)
+        out["step_one_device"] = one_losses
+        out["step_loss_rel_err"] = float(np.max(np.abs(np.subtract(step_losses, one_losses))
+                                                / np.abs(one_losses)))
+        out["step_vol_rel_l2"] = float(torch.linalg.vector_norm(vol - one_vol)
+                                       / torch.linalg.vector_norm(one_vol))
+        check(out["step_loss_rel_err"] < DP_STEP_TOL and out["step_vol_rel_l2"] < DP_STEP_TOL,
+              f"{cell}: make_ct_dp_train_step on 2 ranks vs one device: losses "
+              f"{out['step_loss_rel_err']:.3g}, parameters {out['step_vol_rel_l2']:.3g}")
+    return out
+
+
+def dp_train_compare(torch, ranks: list) -> dict:
+    """The 2-rank CTTrainer against CTTrainer on one device, here: the first
+    batch's loss and gradients against the mean of one device's on the
+    ranks' halves of it (the same batch-2 convolutions: DP_HALVES_TOL) and
+    on the whole batch (batch 4: DP_BATCH_TOL), and 3 steps."""
+    from repro_torch.launch.ct_train import CTTrainer, TrainConfig
+    cfg = TrainConfig(geometry="limited_angle", n=TRAIN_N, steps=DP_TRAIN_STEPS)
+    trainer = CTTrainer(cfg)
+    batch = trainer.data(0)
+    loss0, grads0 = trainer.grad_fn(trainer.params, *batch)
+    per = cfg.batch // len(ranks)
+    halves = [trainer.grad_fn(trainer.params, *(t[k * per:(k + 1) * per] for t in batch))
+              for k in range(len(ranks))]
+    loss_h = sum(h[0] for h in halves) / len(ranks)
+    grads_h = {k: sum(h[1][k] for h in halves) / len(ranks) for k in grads0}
+    losses = trainer.fit(log_every=0)
+
+    def flat(g):
+        return np.concatenate([np.asarray(g[k].cpu() if torch.is_tensor(g[k]) else g[k])
+                               .ravel() for k in grads0])
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    want_g, want_h = flat(grads0), flat(grads_h)
+    bound = 2 * DP_TRAIN_STEPS * cfg.lr
+    out = {"one_device_losses": losses,
+           "halves_vs_batch_grads_rel_l2": rel(want_h, want_g)}
+    for r in ranks:
+        got_g = flat(r["grads0"])
+        out.setdefault("loss0_vs_halves_rel", []).append(abs(r["loss0"] / float(loss_h) - 1))
+        out.setdefault("grads0_vs_halves_rel_l2", []).append(rel(got_g, want_h))
+        out.setdefault("loss0_rel_err", []).append(abs(r["loss0"] / float(loss0) - 1))
+        out.setdefault("grads0_rel_l2", []).append(rel(got_g, want_g))
+        out.setdefault("losses_rel_err", []).append(
+            float(np.max(np.abs(np.subtract(r["losses"], losses)) / np.abs(losses))))
+        out.setdefault("params_max_abs_err", []).append(max(
+            float(np.max(np.abs(r["params"][k] - v.cpu().numpy())))
+            for k, v in trainer.params.items()))
+    check(max(out["loss0_vs_halves_rel"]) < DP_HALVES_TOL
+          and max(out["grads0_vs_halves_rel_l2"]) < DP_HALVES_TOL,
+          f"dp_train: first loss {out['loss0_vs_halves_rel']}, gradients "
+          f"{out['grads0_vs_halves_rel_l2']} against one device on the same halves")
+    check(max(out["loss0_rel_err"]) < DP_BATCH_TOL
+          and max(out["grads0_rel_l2"]) < DP_BATCH_TOL
+          and max(out["losses_rel_err"]) < DP_BATCH_TOL
+          and max(out["params_max_abs_err"]) <= bound,
+          f"dp_train: first loss {out['loss0_rel_err']}, gradients "
+          f"{out['grads0_rel_l2']}, losses {out['losses_rel_err']}, parameters "
+          f"{out['params_max_abs_err']} (bound {bound}) against one device at batch 4 "
+          f"(one device's halves vs its batch 4: {out['halves_vs_batch_grads_rel_l2']:.3g})")
+    a, b = (r["params"] for r in ranks)
+    out["ranks_bit_equal"] = all(np.array_equal(a[k], b[k]) for k in a)
+    check(out["ranks_bit_equal"], "dp_train: the ranks' parameters differ")
+    return out
+
+
+def log_shard_cell(cell: str, rs: list, device: str) -> None:
+    r0 = rs[0]
+    log(f"{cell}: halo {r0['halo']}, mode "
+        f"{r0['mode']}, local vol {r0['vol_local']} sino {r0['sino_local']}; per rank "
+        f"FP ms {[round(r['fp_ms'], 2) for r in rs]}, BP ms "
+        f"{[round(r['bp_ms'], 2) for r in rs]} (overlap, {r0['comm_blocks']} blocks "
+        f"{[round(r['bp_overlap_ms'], 2) for r in rs]}), peak GiB "
+        f"{[round(r['peak_gib'], 3) for r in rs]}, launches "
+        f"{[r['launches'] for r in rs]}; one device FP {r0['single_fp_ms']:.2f} ms "
+        f"BP {r0['single_bp_ms']:.2f} ms, peak {r0['single_peak_gib']:.3f} GiB; "
+        f"max abs err FP {r0['fp_max_abs_err']:.3g} BP {r0['bp_max_abs_err']:.3g}; "
+        f"dot {max(r['dot'] for r in rs):.3g}; overlap vs psum max abs "
+        f"{max(r['overlap_vs_psum'] for r in rs):.3g}; path s "
+        f"{[round(r['path_s'], 1) for r in rs]} [{device}]")
+    if cell == "helical_long":
+        log(f"helical_long: SIRT-12 {r0['sirt12_s']:.2f} s (residual ratio "
+            f"{r0['sirt_residual_ratio']:.3g}, vs one device max abs "
+            f"{r0['sirt_max_abs_err']:.3g}, history {r0['sirt_hist_rel_err']:.3g}), "
+            f"CGLS-10 {r0['cgls10_s']:.2f} s (rel L2 {r0['cgls_rel_l2']:.3g})")
+
+
+def sharded_phase(torch, results) -> None:
+    """Sharded recon on torch.distributed: sharded_main_11 on one NCCL rank,
+    the three 4-rank cells and dp_train on gloo worlds of ranks that share
+    the card (NCCL takes one rank a card).  The kernels are built here,
+    before the ranks start; each rank loads them, counts its own launches
+    and fails the run if its path's kernels did not run."""
+    from repro_torch.launch.mesh import run_world
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = results["sharded"] = {}
+    for name, fn, n, backend, timeout in (
+            ("sharded_main_11", sharded_main_world, 1, "nccl", 300),
+            ("sharded_4", sharded_world4, 4, "gloo", 600),
+            ("dp_train", dp_train_world, 2, "gloo", 400)):
+        log(f"sharded: {name}: a world of {n} rank(s), backend {backend}")
+        t = time.perf_counter()
+        ranks = run_world(fn, n, backend=backend, timeout=timeout)
+        results["phase_s"][f"world {name}"] = time.perf_counter() - t
+        for r, res in enumerate(ranks):
+            check(res["backend"] == backend, f"{name}: rank {r} ran {res['backend']}")
+        cells = (("sharded_3d", "sharded_cone", "helical_long")
+                 if name == "sharded_4" else (name,))
+        for cell in cells:
+            out[cell] = [res[cell] for res in ranks] if name == "sharded_4" else ranks
+            for r, res in enumerate(out[cell]):
+                results.setdefault("path_launches", {})[f"{cell} rank {r}"] = \
+                    res["launches"]
+            if name == "sharded_4":
+                log_shard_cell(cell, out[cell], results["device"])
+        if name == "sharded_main_11":
+            m = ranks[0]
+            log(f"sharded_main_11: FP {m['fp_ms']:.3f} ms BP {m['bp_ms']:.3f} ms (one "
+                f"device {m['single_fp_ms']:.3f} / {m['single_bp_ms']:.3f}); FP, BP, "
+                f"SIRT-50 and its history bit-equal; launches {m['launches']} "
+                f"[{results['device']}]")
+    d = out["dp_train"]
+    c = out["dp_train_vs_one_device"] = dp_train_compare(torch, d)
+    log(f"dp_train: losses {[r['losses'] for r in d]} (one device "
+        f"{c['one_device_losses']}); against one device on the same halves: first "
+        f"loss rel {max(c['loss0_vs_halves_rel']):.3g}, gradients rel L2 "
+        f"{max(c['grads0_vs_halves_rel_l2']):.3g}; against its batch 4 (its halves "
+        f"vs its batch 4: {c['halves_vs_batch_grads_rel_l2']:.3g}): first loss rel "
+        f"{max(c['loss0_rel_err']):.3g}, "
+        f"gradients rel L2 {max(c['grads0_rel_l2']):.3g}, losses rel "
+        f"{max(c['losses_rel_err']):.3g}, parameters max abs "
+        f"{max(c['params_max_abs_err']):.3g}; step ms per rank "
+        f"{[np.round(r['step_ms'], 1).tolist() for r in d]}; make_ct_dp_train_step "
+        f"losses {d[0]['step_losses']} (one device rel {d[0]['step_loss_rel_err']:.3g}, "
+        f"parameters {d[0]['step_vol_rel_l2']:.3g}); launches {[r['launches'] for r in d]} "
+        f"[{results['device']}]")
+    for r in d:
+        r.pop("grads0"), r.pop("params")
+    results["phase_s"]["sharded"] = time.perf_counter() - t_phase
+
+
 def run_path(torch, results, name: str, kernels, fn) -> dict:
     """Run one path with every launch count set to 0 just before it and read
     just after; fail if a kernel of the path was not launched.  Returns the
@@ -3224,7 +3732,8 @@ def main() -> int:
     fan_division_check(torch, results)
     if phases is not None:
         for name in phases:
-            {"serve": serve_phase, "autotune": autotune_phase}[name](torch, results)
+            {"serve": serve_phase, "autotune": autotune_phase,
+             "sharded": sharded_phase}[name](torch, results)
         tune.clear()
         outdir = ROOT / "chiprun_out"
         outdir.mkdir(exist_ok=True)
@@ -3251,6 +3760,7 @@ def main() -> int:
     t = time.perf_counter()
     line_launches = nemotron_attn_layer(torch, results)
     results["phase_s"]["nemotron_attn_layer"] = time.perf_counter() - t
+    sharded_phase(torch, results)
     # last: a configuration measured here must reach no earlier phase
     serve_phase(torch, results)
     autotune_phase(torch, results)
@@ -3290,7 +3800,7 @@ def main() -> int:
     log(f"wall {results['wall_s']:.1f} s")
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
-    (outdir / "chip_smoke.json").write_text(json.dumps(results, indent=1))
+    (outdir / "chip_smoke.json").write_text(json.dumps(results, indent=1, default=str))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

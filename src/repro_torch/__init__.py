@@ -12,12 +12,12 @@ GPU toolchain: kernels are built with ``nvcc`` on first use.
 from repro_torch.core.geometry import (CTGeometry, VolumeGeometry, cone_beam,
                                        fan_beam, from_config, helical_beam,
                                        modular_beam, parallel_beam)
-from repro_torch.core.spec import ProjectorSpec
+from repro_torch.core.spec import ProjectorSpec, ShardSpec
 from repro_torch.core.projector import Projector
 from repro_torch.kernels.ops import back_project, forward_project, resolve_mode
 
 __all__ = [
     "CTGeometry", "VolumeGeometry", "parallel_beam", "fan_beam", "cone_beam",
-    "modular_beam", "helical_beam", "from_config", "ProjectorSpec",
+    "modular_beam", "helical_beam", "from_config", "ProjectorSpec", "ShardSpec",
     "Projector", "forward_project", "back_project", "resolve_mode",
 ]

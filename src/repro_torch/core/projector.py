@@ -126,6 +126,19 @@ class Projector:
     def vol_shape(self):
         return self.geom.vol.shape
 
+    # The solvers' view of the operator, shared with
+    # ``core.distributed.DistributedProjector``: the shapes of the pieces this
+    # process holds, and the sum of partial sums over every process's pieces.
+    # On one device the pieces are the whole tensors and the sum is the
+    # partial itself.
+    local_sino_shape = sino_shape
+    local_vol_shape = vol_shape
+
+    def reduce_partial(self, t: torch.Tensor, space: str) -> torch.Tensor:
+        """``t`` unchanged: one device holds every term of a sum over the
+        sinogram (``space="sino"``) or the volume (``"vol"``)."""
+        return t
+
     def __repr__(self):
         g = self.geom
         mode = f", mode={self.mode}" if self.mode != "auto" else ""

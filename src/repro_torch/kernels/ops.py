@@ -216,6 +216,12 @@ _STATS = {"hits": 0, "misses": 0}
 
 
 def _get_bundle(spec: ProjectorSpec, in_dtype: Optional[torch.dtype] = None) -> Ops:
+    if spec.shard is not None:
+        raise ValueError(
+            "spec carries a ShardSpec — the local op cache cannot realize "
+            "a sharded layout; build DistributedProjector(spec, mesh) "
+            "(repro_torch.core.distributed), or drop the shard with "
+            "spec.replace(shard=None) for single-device ops")
     idt = None if in_dtype is None else str(in_dtype).removeprefix("torch.")
     # keyed on the resolved mode: "auto" and an explicit equivalent share one
     # bundle

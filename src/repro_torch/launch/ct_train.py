@@ -46,6 +46,7 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
@@ -56,6 +57,7 @@ from repro_torch.core.spec import ProjectorSpec
 from repro_torch.data.metrics import psnr, ssim
 from repro_torch.data.pipeline import CTDataPipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import dp_size, make_local_mesh, pmean
 from repro_torch.nn import CTNet, UNet
 from repro_torch.optim import (AdamWState, EmaState, adamw, apply_updates,
                                ema_init, ema_params, ema_update,
@@ -98,7 +100,11 @@ class TrainConfig:
     Infrastructure:
         compute_dtype: kernel tile precision for the in-loop projector
                        ("bfloat16" | "float32" | None = follow input).
-        data_parallel: shard the batch over devices (one device: unsharded).
+        data_parallel: in a ``torch.distributed`` world of more than one
+                       rank, each rank takes its contiguous slice of every
+                       batch and the gradients and loss are averaged over
+                       the ranks before the update; one rank runs
+                       unsharded.
         ckpt_dir/ckpt_every: checkpoint location and cadence (None = off).
         refine_iters/refine_beta: CG data-consistency refinement used by
                        :meth:`CTTrainer.evaluate`.
@@ -211,19 +217,26 @@ class CTTrainer:
     """Projector-in-the-loop trainer: ``fit`` / ``evaluate`` / ``resume``.
 
     ``device=None`` means ``cuda`` and raises without it; ``device="cpu"``
-    runs on the host."""
+    runs on the host.  With ``cfg.data_parallel`` in a world of more than
+    one rank, every rank builds its trainer (the mesh's process groups are
+    made collectively) and every step is a collective."""
 
     def __init__(self, cfg: TrainConfig,
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg = cfg
         self.device = resolve_device(device, "CTTrainer")
-        if (cfg.data_parallel and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                "data_parallel over more than one device needs the sharded "
-                "recon and data parallelism on torch.distributed, which are "
-                "not ported yet (ROADMAP.md, queue 1, item 4); one device "
-                "runs unsharded")
+        self._mesh = None
+        if (cfg.data_parallel and dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            self._mesh = make_local_mesh()
+            if cfg.batch % dp_size(self._mesh):
+                raise ValueError(
+                    f"batch={cfg.batch} must divide over the "
+                    f"{dp_size(self._mesh)}-way data axis")
+        # each rank draws its contiguous slice of every global batch
+        shards = ({} if self._mesh is None else
+                  {"shard_index": self._mesh.coord("data"),
+                   "shard_count": dp_size(self._mesh)})
         self.geom = build_geometry(cfg)
         self.proj = Projector(ProjectorSpec(self.geom,
                                             compute_dtype=cfg.compute_dtype),
@@ -232,7 +245,7 @@ class CTTrainer:
         self.pipe = CTDataPipeline(self.geom, batch_size=cfg.batch,
                                    seed=cfg.seed, mode=cfg.mask_mode,
                                    available_deg=cfg.available_deg,
-                                   n_views_few=n_few)
+                                   n_views_few=n_few, **shards)
         self.params = self._init_params(
             torch.Generator().manual_seed(cfg.seed))
         self.opt = adamw(warmup_cosine(cfg.lr, cfg.warmup, cfg.steps))
@@ -321,6 +334,8 @@ class CTTrainer:
     def train_step(self, sino, mask, gt_vol) -> torch.Tensor:
         """One AdamW step and EMA update; returns the loss (on the device)."""
         loss, grads = self.grad_fn(self.params, sino, mask, gt_vol)
+        if self._mesh is not None:
+            loss, grads = pmean(self._mesh, "data", loss, grads)
         updates, self.opt_state = self.opt.update(grads, self.opt_state,
                                                   self.params)
         self.params = apply_updates(self.params, updates)
@@ -330,7 +345,8 @@ class CTTrainer:
         return loss
 
     def data(self, step: int):
-        """Batch ``step`` on the device: (sinogram, mask, volume)."""
+        """Batch ``step`` on the device: (sinogram, mask, volume); under data
+        parallelism this rank's contiguous slice of it."""
         imgs, masks = self.pipe.batch(step)
         gt_vol = self._as_volume(imgs)
         with torch.no_grad():
@@ -377,8 +393,11 @@ class CTTrainer:
         per-step loss list.  ``on_step(i, loss)`` is an optional callback."""
         cfg = self.cfg
         start = self.resume()
+        # under data parallelism every rank holds the same state: rank 0
+        # writes it
+        writer = self._mesh is None or dist.get_rank() == 0
         ckpt = (CKPT.AsyncCheckpointer(cfg.ckpt_dir)
-                if cfg.ckpt_dir else None)
+                if cfg.ckpt_dir and writer else None)
         losses = []
         t0 = time.time()
         try:

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.recon.result import as_projector
+from repro_torch.recon.result import as_local_projector
 
 
 def data_consistency_refine(spec_or_projector, x_net: torch.Tensor,
@@ -27,7 +27,7 @@ def data_consistency_refine(spec_or_projector, x_net: torch.Tensor,
                             beta: float = 0.1) -> torch.Tensor:
     """CG on  (A^T M A + beta I) x = A^T M y + beta x_net.  A spec runs on
     ``y``'s device."""
-    projector = as_projector(spec_or_projector, y.device)
+    projector = as_local_projector(spec_or_projector, "data_consistency_refine", y.device)
 
     def op(x):
         return projector.T(mask * projector(x)) + beta * x
@@ -52,7 +52,7 @@ def complete_and_refine(spec_or_projector, x_net: torch.Tensor,
                         y: torch.Tensor, mask, n_iters: int = 20,
                         beta: float = 0.1):
     """The full inference pipeline.  Returns (x_refined, completed_sino)."""
-    projector = as_projector(spec_or_projector, y.device)
+    projector = as_local_projector(spec_or_projector, "complete_and_refine", y.device)
     x = data_consistency_refine(projector, x_net, y, mask, n_iters, beta)
     completed = mask * y + (1.0 - mask) * projector(x)
     return x, completed
@@ -63,7 +63,7 @@ def projection_residual(spec_or_projector, x: torch.Tensor, y: torch.Tensor,
     """Relative projection-consistency residual ``||M (A x - y)|| / ||M y||``:
     0 means the reconstruction explains every measured view exactly, 1 that
     it explains nothing — comparable across geometries and phantom scales."""
-    projector = as_projector(spec_or_projector, y.device)
+    projector = as_local_projector(spec_or_projector, "projection_residual", y.device)
     r = projector(x) - y
     if mask is not None:
         r = r * mask

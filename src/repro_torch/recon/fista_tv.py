@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.recon.result import ReconResult, as_projector
+from repro_torch.recon.result import ReconResult, as_local_projector
 
 _IMG_AXES = (-3, -2, -1)
 
@@ -71,7 +71,7 @@ def power_iteration(spec_or_projector, n_iters: int = 10, seed: int = 0,
     device seeded with ``seed``).  The reference package draws its start
     with ``jax.random``, so the two agree only as estimates of one
     eigenvalue, not bit for bit."""
-    projector = as_projector(spec_or_projector)
+    projector = as_local_projector(spec_or_projector, "power_iteration")
     dev = projector.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
@@ -91,7 +91,7 @@ def fista_tv(spec_or_projector, y: torch.Tensor, n_iters: int = 50,
     """Reconstruct from sinogram ``y``.  ``L`` is the Lipschitz constant of
     A^T A (None: 1.05 x :func:`power_iteration`).  A spec runs on ``y``'s
     device."""
-    projector = as_projector(spec_or_projector, y.device)
+    projector = as_local_projector(spec_or_projector, "fista_tv", y.device)
     if L is None:
         # The Lipschitz constant of A^T A is a property of the operator, not
         # the data — one unbatched power iteration covers a packed batch.

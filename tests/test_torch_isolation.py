@@ -34,11 +34,17 @@ def test_no_jax_or_reference_imports(path):
 def test_import_is_lazy():
     code = ("import sys, repro_torch, repro_torch.kernels, repro_torch.recon, "
             "repro_torch.launch.ct_train, repro_torch.launch.ct_serve, "
+            "repro_torch.core.distributed, repro_torch.launch.mesh, "
+            "repro_torch.launch.train, "
             "repro_torch.nn, repro_torch.optim; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'repro')]; "
             "from repro_torch.kernels import build; "
             "assert not build._LIBS, 'kernel library loaded on import'; "
+            "import torch.distributed as dist; "
+            "assert not dist.is_initialized(), 'process group started on import'; "
+            "import multiprocessing as mp; "
+            "assert not mp.active_children(), 'process started on import'; "
             "print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

@@ -1,0 +1,339 @@
+"""Rank functions of the port's ``torch.distributed`` tests
+(``tests/test_torch_distributed.py``, ``tests/test_torch_dp_train.py``).
+
+Each runs on every rank of a gloo world that
+``repro_torch.launch.mesh.run_world`` starts on the CPU, does every check of
+its world in one spawn, and returns plain numpy arrays, numbers and error
+strings; the test process compares them with the reference package.  This
+module imports no JAX, so the ranks start quickly.  The geometries are
+built from the argument tuples in ``GEOMS``, which the tests also hand to
+the reference package.
+"""
+import warnings
+
+import numpy as np
+import torch
+
+from repro_torch import Projector, ProjectorSpec, ShardSpec
+import repro_torch.core.geometry as tgeo
+from repro_torch.core.distributed import (DistributedProjector, distribute,
+                                          halo_exchange_z, halo_reduce_z,
+                                          make_distributed_projector)
+from repro_torch.core.spec import reset_legacy_warnings
+from repro_torch.launch.mesh import (Mesh, data_axes, dp_size,
+                                     make_local_mesh, pmean, tp_size)
+from repro_torch.recon import (cgls, complete_and_refine,
+                               data_consistency_refine, fista_tv,
+                               power_iteration, projection_residual, sirt)
+from repro_torch.recon.result import as_projector
+
+# name: (kind, (n_angles, n_rows, n_cols), volume, keyword arguments); the
+# reference tests' geometries (tests/test_distributed_ct.py)
+GEOMS = {
+    "par_pair": ("parallel", (4, 4, 24), (16, 16, 4), {}),
+    "par_legacy": ("parallel", (8, 4, 36), (24, 24, 4), {}),
+    "par_sirt": ("parallel", (8, 4, 24), (16, 16, 4), {}),
+    "cone_small": ("cone", (4, 4, 24), (16, 16, 4), dict(sod=60.0, sdd=80.0)),
+    "par": ("parallel", (16, 8, 32), (24, 24, 8), {}),
+    "cone": ("cone", (16, 8, 32), (24, 24, 8), dict(sod=60.0, sdd=80.0)),
+    "helical": ("helical", (32, 6, 32), (24, 24, 32),
+                dict(n_turns=4, pitch=8.0, sod=60.0, sdd=80.0)),
+}
+
+
+def make_geom(geo, name: str):
+    """The geometry ``name`` in the package ``geo`` (the port's or the
+    reference's ``core.geometry``)."""
+    kind, (na, nv, nu), vshape, kw = GEOMS[name]
+    vol = geo.VolumeGeometry(*vshape)
+    if kind == "helical":
+        return geo.helical_beam(n_angles=na, n_rows=nv, n_cols=nu, vol=vol,
+                                **kw)
+    ctor = {"parallel": geo.parallel_beam, "cone": geo.cone_beam}[kind]
+    return ctor(na, nv, nu, vol, **kw)
+
+
+def data(shape, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def _err(fn):
+    """``(exception type name, message)`` of what ``fn()`` raises, or None."""
+    try:
+        fn()
+    except Exception as e:                      # noqa: BLE001 - returned to the test
+        return type(e).__name__, str(e)
+    return None
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _dot_rel(dp, geom, seed=0) -> float:
+    """Conditioning-aware adjointness error over the global tensors:
+    ``|<Ax,y> - <x,A^T y>|`` over the term mass ``sum|Ax*y|``, every sum
+    over every rank's pieces in float64."""
+    x = _t(data(geom.vol.shape, seed))
+    y = _t(data(geom.sino_shape, seed + 1))
+    xs, ys = dp.shard_volume(x), dp.shard_sino(y)
+    ax, aty = dp(xs).double(), dp.T(ys).double()
+    lhs = dp.reduce_partial(torch.sum(ax * ys.double()), "sino")
+    rhs = dp.reduce_partial(torch.sum(xs.double() * aty), "vol")
+    mass = dp.reduce_partial(torch.sum(torch.abs(ax * ys.double())), "sino")
+    return float(abs(lhs - rhs) / (mass + 1e-12))
+
+
+def _pair(dp, geom, seed=0) -> dict:
+    """The sharded FP and BP of seeded inputs, gathered to global tensors."""
+    x = _t(data(geom.vol.shape, seed))
+    y = _t(data(geom.sino_shape, seed + 1))
+    return {"fp": _np(dp.gather_sino(dp(dp.shard_volume(x)))),
+            "bp": _np(dp.gather_volume(dp.T(dp.shard_sino(y))))}
+
+
+# --------------------------------------------------------------------------- #
+# A world of one rank: a (1, 1) mesh
+# --------------------------------------------------------------------------- #
+def world_11(rank, world):
+    mesh = Mesh((1, 1))
+    out = {}
+    g = make_geom(tgeo, "par_pair")
+    dp = distribute(ProjectorSpec(g), mesh, z_axis="model", device="cpu")
+    out["pair"] = _pair(dp, g)
+    out["pair_dot"] = _dot_rel(dp, g)
+    out["pair_repr"] = repr(dp)
+    out["as_projector_passes"] = as_projector(dp) is dp
+
+    # the legacy factory: the single-device pair, and one warning
+    gl = make_geom(tgeo, "par_legacy")
+    reset_legacy_warnings()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fp, bp, shard_v, shard_s = make_distributed_projector(
+            gl, mesh, angle_axis="data", z_axis="model", device="cpu")
+        make_distributed_projector(gl, mesh, device="cpu")
+    out["legacy_warnings"] = [str(w.category.__name__) for w in caught]
+    proj = Projector(ProjectorSpec(gl), "cpu")
+    f, y = _t(data(gl.vol.shape, 0)), _t(data(gl.sino_shape, 1))
+    out["legacy_fp"] = (_np(fp(shard_v(f))), _np(proj(f)))
+    out["legacy_bp"] = (_np(bp(shard_s(y))), _np(proj.T(y)))
+    out["legacy_cone_z"] = _err(lambda: make_distributed_projector(
+        make_geom(tgeo, "cone_small"), mesh, z_axis="model", device="cpu"))
+
+    # validation (tests/test_distributed_ct.py:172-194)
+    gp = make_geom(tgeo, "par_pair")
+    out["errors"] = {
+        "not_a_spec": _err(lambda: DistributedProjector(gp, mesh, "cpu")),
+        "no_shard": _err(lambda: DistributedProjector(ProjectorSpec(gp), mesh,
+                                                      "cpu")),
+        "mesh_axis": _err(lambda: DistributedProjector(ProjectorSpec(
+            gp, shard=ShardSpec(("data", None), angle_shards=4)), mesh, "cpu")),
+        "no_axis": _err(lambda: DistributedProjector(ProjectorSpec(
+            gp, shard=ShardSpec(("rows", None))), mesh, "cpu")),
+        "not_both": _err(lambda: distribute(ProjectorSpec(
+            gp, shard=ShardSpec(("data", None))), mesh, z_axis="model",
+            device="cpu")),
+        "not_divisible": _err(lambda: distribute(ProjectorSpec(
+            gp.subset(np.arange(3))), mesh, device="cpu", comm_blocks=2)),
+        "cpu_tensor_on_cuda_default": _err(
+            lambda: DistributedProjector(ProjectorSpec(
+                gp, shard=ShardSpec(("data", None))), mesh)),
+    }
+
+    # SIRT and CGLS on the synchronous schedule: the same cached local ops,
+    # bit for bit
+    gq = make_geom(tgeo, "par_sirt")
+    spec = ProjectorSpec(gq)
+    dps = distribute(spec, mesh, comm="psum", device="cpu")
+    f = torch.abs(_t(data(gq.vol.shape, 0)))
+    y = Projector(spec, "cpu")(f)
+    for name, solver, kw in (("sirt", sirt, {}), ("cgls", cgls, {"damp": 0.1})):
+        a = solver(dps, y, n_iters=4, **kw)
+        b = solver(spec, y, n_iters=4, **kw)
+        out[f"{name}_bit_equal"] = (
+            torch.equal(a.image, b.image)
+            and torch.equal(a.residual_history, b.residual_history))
+    out["dc"] = (float(dps.data_consistency(f, y + 0.1)),
+                 float(Projector(spec, "cpu").data_consistency(f, y + 0.1)))
+    out["local_only"] = {
+        "fista_tv": _err(lambda: fista_tv(dps, y, n_iters=1)),
+        "power_iteration": _err(lambda: power_iteration(dps)),
+        "data_consistency_refine": _err(
+            lambda: data_consistency_refine(dps, f, y, 1.0, n_iters=1)),
+        "complete_and_refine": _err(
+            lambda: complete_and_refine(dps, f, y, 1.0, n_iters=1)),
+        "projection_residual": _err(lambda: projection_residual(dps, f, y)),
+    }
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# A world of four ranks: (2, 2) and (1, 4) meshes
+# --------------------------------------------------------------------------- #
+def world_4(rank, world, par_in):
+    mesh22 = Mesh((2, 2))
+    mesh14 = Mesh((1, 4))
+    out = {"mesh": {
+        "coords22": (mesh22.coord("data"), mesh22.coord("model")),
+        "coords14": (mesh14.coord("data"), mesh14.coord("model")),
+        "dp_tp22": (dp_size(mesh22), tp_size(mesh22)),
+        "data_axes": data_axes(mesh22),
+        "local": make_local_mesh(2).shape,
+        "bad_shape": _err(lambda: Mesh((3, 1))),
+    }}
+
+    # halo exchange against the numpy oracle; reduce as its adjoint
+    nz, halo = 16, 2
+    k = mesh14.coord("model")
+    f = _t(data((6, 6, nz), 0))
+    ext = halo_exchange_z(f[..., k * 4:(k + 1) * 4], mesh14, "model", halo)
+    parts = [torch.empty_like(ext) for _ in range(4)]
+    torch.distributed.all_gather(parts, ext.contiguous())
+    out["halo_exchange"] = _np(torch.cat(parts, dim=-1))
+    x = _t(data((5, 5, nz), 1))[..., k * 4:(k + 1) * 4]
+    yl = _t(data((5, 5, nz + 2 * halo * 4), 2))[..., k * 8:(k + 1) * 8]
+    ex = halo_exchange_z(x, mesh14, "model", halo)
+    etx = halo_reduce_z(yl, mesh14, "model", halo)
+    sums = torch.stack([torch.sum(ex.double() * yl.double()),
+                        torch.sum(x.double() * etx.double())])
+    torch.distributed.all_reduce(sums)
+    out["halo_adjoint"] = (float(sums[0]), float(sums[1]))
+
+    # parallel (2, 2): against the reference's own sharded pair
+    g = make_geom(tgeo, "par")
+    dp = distribute(ProjectorSpec(g), mesh22, z_axis="model", device="cpu")
+    ovl = distribute(ProjectorSpec(g), mesh22, z_axis="model", comm="overlap",
+                     device="cpu")
+    xp, yp = _t(par_in["x"]), _t(par_in["y"])
+    out["par"] = {"halo": dp.shard.halo,
+                  "fp": _np(dp.gather_sino(dp(dp.shard_volume(xp)))),
+                  "bp": _np(dp.gather_volume(dp.T(dp.shard_sino(yp)))),
+                  "dot": _dot_rel(dp, g),
+                  "comm_blocks": len(ovl._layout.bp_specs),
+                  "overlap": _np(ovl.gather_volume(ovl.T(ovl.shard_sino(yp))))}
+    out["par"]["psum"] = out["par"]["bp"]
+    out["par_errors"] = {
+        "halo_on_parallel": _err(lambda: distribute(
+            ProjectorSpec(g), mesh22, z_axis="model", halo=1, device="cpu")),
+    }
+
+    # cone (2, 2): row blocks paired with halo-extended slabs
+    g = make_geom(tgeo, "cone")
+    dp = distribute(ProjectorSpec(g), mesh22, z_axis="model", device="cpu")
+    out["cone"] = dict(_pair(dp, g), halo=dp.shard.halo, dot=_dot_rel(dp, g),
+                       undersized=_err(lambda: distribute(
+                           ProjectorSpec(g), mesh22, z_axis="model", halo=0,
+                           device="cpu")))
+    # the gradient of 0.5 ||Ax - y||^2 through the sharded pair, and double
+    # backward
+    xs = dp.shard_volume(_t(data(g.vol.shape, 3))).requires_grad_()
+    ys = dp.shard_sino(_t(data(g.sino_shape, 4)))
+    loss = 0.5 * dp.reduce_partial(torch.sum((dp(xs) - ys) ** 2), "sino")
+    (grad,) = torch.autograd.grad(loss, xs, create_graph=True)
+    want = dp.T(dp(xs.detach()) - ys)
+    v = dp.shard_volume(_t(data(g.vol.shape, 5)))
+    (hv,) = torch.autograd.grad(dp.reduce_partial(torch.sum(grad * v), "vol"),
+                                xs)
+    hv_want = dp.T(dp(v))
+    grad = grad.detach()
+    out["cone_grad"] = {
+        "grad_max_err": float((grad - want).abs().max()),
+        "grad_scale": float(want.abs().max()),
+        "hv_max_err": float((hv - hv_want).abs().max()),
+        "hv_scale": float(hv_want.abs().max())}
+
+    # helical (1, 4): the sliding-z pipeline
+    g = make_geom(tgeo, "helical")
+    spec = ProjectorSpec(g)
+    dp = distribute(spec, mesh14, z_axis="model", device="cpu")
+    ovl = distribute(spec, mesh14, z_axis="model", comm="overlap", device="cpu")
+    y = _t(data(g.sino_shape, 6))
+    out["helical"] = dict(
+        _pair(dp, g), halo=dp.shard.halo, dot=_dot_rel(dp, g),
+        local_vol=dp.local_vol_shape(), comm_blocks=len(ovl._layout.bp_specs),
+        overlap=_np(ovl.gather_volume(ovl.T(ovl.shard_sino(y)))),
+        psum=_np(dp.gather_volume(dp.T(dp.shard_sino(y)))))
+    fh = torch.abs(_t(data(g.vol.shape, 7)))
+    yh = dp(dp.shard_volume(fh))
+    res = sirt(dp, yh, n_iters=12)
+    cg = cgls(dp, yh, n_iters=10)
+    out["helical_solve"] = {
+        "y": _np(dp.gather_sino(yh)),
+        "sirt": _np(dp.gather_volume(res.image)),
+        "sirt_hist": _np(res.residual_history),
+        "cgls": _np(dp.gather_volume(cg.image)),
+        "cgls_hist": _np(cg.residual_history)}
+    return out if rank == 0 else {"mesh": out["mesh"],
+                                  "cone_grad": out["cone_grad"],
+                                  "helical_solve": {
+                                      "sirt_hist": out["helical_solve"]["sirt_hist"]}}
+
+
+# --------------------------------------------------------------------------- #
+# Data-parallel training on two ranks
+# --------------------------------------------------------------------------- #
+DP_GEOM = ("parallel", (16, 8, 24), (16, 16, 8), {})   # test_distributed_ct.py:368
+
+
+def dp_geom():
+    kind, (na, nv, nu), vshape, _ = DP_GEOM
+    return tgeo.parallel_beam(na, nv, nu, tgeo.VolumeGeometry(*vshape))
+
+
+def dp_step_run(mesh, steps: int = 5, batch: int = 8):
+    """``make_ct_dp_train_step`` from zero parameters on a batch of copies
+    of one projection (tests/test_distributed_ct.py:364-387): the losses and
+    the final parameters."""
+    from repro_torch.launch.train import make_ct_dp_train_step
+    g = dp_geom()
+    spec = ProjectorSpec(g)
+
+    def apply_fn(params, y):
+        return params["vol"].expand((y.shape[0],) + g.vol.shape)
+
+    step = make_ct_dp_train_step(spec, mesh, apply_fn, lr=5e-3, device="cpu")
+    truth = torch.abs(_t(data(g.vol.shape, 0)))
+    yb = Projector(spec, "cpu")(truth).expand((batch,) + g.sino_shape)
+    params = {"vol": torch.zeros(g.vol.shape)}
+    losses = []
+    for _ in range(steps):
+        params, loss = step(params, yb)
+        losses.append(float(loss))
+    return losses, _np(params["vol"])
+
+
+def trainer_run(cfg_kw: dict):
+    """``CTTrainer`` at ``smoke_config(**cfg_kw)`` on the CPU: the first
+    batch's loss and gradients (averaged over the data axis under data
+    parallelism), ``fit``'s losses and the final parameters."""
+    from repro_torch.launch.ct_train import CTTrainer, smoke_config
+    trainer = CTTrainer(smoke_config(**cfg_kw), "cpu")
+    loss0, grads0 = trainer.grad_fn(trainer.params, *trainer.data(0))
+    if trainer._mesh is not None:
+        loss0, grads0 = pmean(trainer._mesh, "data", loss0, grads0)
+    losses = trainer.fit(log_every=0)
+    return {"loss0": float(loss0),
+            "grads0": {k: _np(v) for k, v in grads0.items()},
+            "losses": losses,
+            "params": {k: _np(v) for k, v in trainer.params.items()}}
+
+
+def world_dp(rank, world, cfg_kw: dict):
+    mesh = make_local_mesh()
+    out = {"step": dp_step_run(mesh),
+           "trainer": trainer_run(dict(cfg_kw, data_parallel=True)),
+           "indivisible": _err(lambda: trainer_run(
+               dict(cfg_kw, data_parallel=True, batch=3)))}
+    return out
+
+
+def raise_on_rank_1(rank, world):
+    if rank == 1:
+        raise ArithmeticError("rank one fails on purpose")
+    torch.distributed.barrier()
+    return rank
