@@ -205,7 +205,9 @@ fan pair's at the fan cells), and holds the fan kernels' division
 the thread-per-output FP's time of run 15I (``FP_15I_MS``) beside its
 own, each cone-family BP row the time of the BP before its redesign
 (``BP_PARENT_MS``), each parallel and fan row the pair's time before its
-redesign (``PAR_PARENT_MS``, ``FAN_PARENT_MS``).  After the kernel phase it builds the FP and
+redesign (``PAR_PARENT_MS``, ``FAN_PARENT_MS``), and the bf16 flash
+backward rows at nemotron_attn the hd-192 kernels' time before theirs
+(``FLASH_HD192_PARENT_MS``).  After the kernel phase it builds the FP and
 BP with their phase profiles compiled in (``-DSF_FP_PHASES
 -DSF_BP_PHASES``) and prints, per cell, each phase's share of the cycles
 and the FP's passes, survivors and (survivor, slice) pairs and the BP's
@@ -364,6 +366,13 @@ FAN_PARENT_MS = {
     ("fp_fan_sf", "fan_rows", "bfloat16"): 200.88652801513672,
     ("bp_fan_sf", "fan_rows", "bfloat16"): 69.66128158569336,
 }
+
+# The hd-192 bf16 backward before its redesign (dQ in three column parts,
+# each recomputing S and dP; dK/dV with both warpgroups forming S^T and dP^T
+# on 32-query halves), as this script measured it on an NVIDIA H100 80GB
+# HBM3 at 700.00 W (run 17N in PERF.md): ms by kernel at nemotron_attn in
+# bf16, printed beside this run's.
+FLASH_HD192_PARENT_MS = {"flash_bwd_dq": 8.7824, "flash_bwd_dkv": 9.4892}
 
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
 FLASH_REPLACES = {"flash_fwd": "src/repro/kernels/flash.py:55",
@@ -2022,11 +2031,14 @@ def flash_phase(torch, results):
                        else "scaled_dot_product_attention backward (dq, dk, dv together)",
                        "plain_note": "flash_attention_plain forward, chunk 1024" if products == 2
                        else "flash_bwd_plain (dq, dk, dv together) on the kernels' lse and delta"}
+                if hd == 192 and name == "bfloat16":
+                    row["ms_parent"] = FLASH_HD192_PARENT_MS.get(kname)
                 results["kernels"].append(row)
                 log(f"kernel {kname:15s} {cell:17s} {name:8s} rel_err {err:.3g} mismatch "
                     f"{worst:.3g} ms {ms:.4f} "
                     f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
-                    f"{row['bound_ms']:.4f} ({row['bound_by']})")
+                    f"{row['bound_ms']:.4f} ({row['bound_by']})"
+                    + (f" parent_ms {row['ms_parent']}" if row.get("ms_parent") else ""))
             del runs, q, k, v, do, o, lse, delta, p_o, p_lse, p_grads
             torch.cuda.empty_cache()
         results["phase_s"][f"kernels {cell}"] = time.perf_counter() - t_cell

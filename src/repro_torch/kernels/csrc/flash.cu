@@ -30,8 +30,8 @@
 // first key is at or before the tile's last query.  Window w (keys kp with
 // qp - w < kp <= qp): iff also its last key is after the first query's
 // window start.  The loops run from the first needed tile to the last.  The
-// bf16 dK/dV also skips a 32-query half of a q tile that none of its keys
-// sees (its products would add exact zeros).
+// bf16 dK/dV up to hd 128 also skips a 32-query half of a q tile that none
+// of its keys sees (its products would add exact zeros).
 //
 // The finite mask value.  Scores outside the mask are NEG_INF = -1e30, as in
 // the reference.  A processed kv tile in which a row is fully masked (the
@@ -105,18 +105,27 @@
 //   bf16 backward: S = Q K^T and dP = dO V^T (dK/dV: S^T = K Q^T, dP^T =
 //     V dO^T, so that P^T and dS^T come out with rows = keys, the rows of
 //     dV and dK); p and dS split into bf16 hi and lo for the three later
-//     products.  dQ does a 64 x 64 tile a step, dK/dV a 64 x 32 half of
-//     one, so that the two f32 accumulators (hd/2 each a thread) fit
-//     beside S and dP.  At hd 192 dQ splits its columns over three blocks
-//     and puts two warpgroups in a block, and dK/dV gives dV and dK a
-//     warpgroup each (see the kernels).
+//     products.  Up to hd 128 one warpgroup a block: dQ does a 64 x 64
+//     tile a step, dK/dV a 64 x 32 half of one, so that the two f32
+//     accumulators (hd/2 each a thread) fit beside S and dP.  At hd 192,
+//     where one 64 x 192 f32 accumulator takes 96 registers a thread, two
+//     warpgroups split every step and form each product once: one forms
+//     S (S^T), the other dP (dP^T); they swap what the other needs through
+//     16 KB of f32 in shared memory; dQ's warpgroups each add dS K over
+//     half of the tile's keys into a partial dQ of their own (the two added
+//     once at the end), dK/dV's add dV and dK over a whole 64-query tile.
+//     The steps are pipelined one deep (the score product of step j + 1,
+//     then the products of step j, and p and dS of step j + 1 on the CUDA
+//     cores under them) through a three-stage ring.  Work a causal pair:
+//     dQ 4 hd multiply-adds against the bound's 3 hd, dK/dV 6 hd against
+//     4 hd, at every head dim (see the kernels).
 //   Per instance, as ptxas and the card reported them on an H100
 //   (chip_smoke.py prints them; registers, spills, shared bytes, blocks
 //   per SM; the forward with lse within two registers of these):
 //                    hd 64              hd 128              hd 192
 //     forward   152 0 58,368 3     238 0 115,712 2     254 0 197,632 1
-//     dQ        168 0 50,176 3     245 0  99,328 2     203 0 197,632 1
-//     dK/dV     162 0 51,200 3     254 0 100,352 2     193 0 149,504 1
+//     dQ        166 0 50,176 3     245 0  99,328 2     241 0 214,016 1
+//     dK/dV     162 0 51,200 3     254 0 100,352 2     248 0 215,552 1
 //   Registers bound every kernel to few warpgroups an SM; the tensor cores
 //   idle while a warpgroup forms p (and dS).  In the forward, a
 //   timing-only build with the copies, P V, exp and the barrier all taken
@@ -1079,15 +1088,22 @@ __global__ void __launch_bounds__(NTC * fwd_wgs(HD))
         lse[((long long)b * H + h) * S + qr[i]] = m[i] / LOG2E + logf(den[i]);
 }
 
-// dQ for bf16: one block per (q tile, dq column part, query head, batch),
-// walking the kv tiles: S = Q K^T and dP = dO V^T (64 x 64, A and B from
-// shared memory), dS, then dQ += dS K (A = dS hi and lo from registers, B =
-// K MN-major).  A part is dq_cols(HD) columns of dq: all of them, or at hd
-// 192 a third, since a 64 x 192 f32 accumulator beside S, dP and the hi and
-// lo operands would pass 255 registers; each of the three blocks of a q
-// tile recomputes S and dP (twice the products of one block).  At hd 192 a
-// block is dq_wgs(HD) = 2 warpgroups on two q tiles, sharing the K/V ring,
-// so that an SM, which has room for one such block, holds 8 warps.
+// Warpgroups of a bf16 backward block (dQ and dK/dV): one up to hd 128; at
+// hd 192, where a 64 x 192 f32 accumulator (96 registers a thread) leaves
+// no room beside the score products and the hi and lo operands, two that
+// split each tile's products between them (see the hd-192 bodies).
+__host__ __device__ constexpr int bwd_wgs(int hd) { return hd > 128 ? 2 : 1; }
+constexpr int WSTAGES = 3;          // the streamed tiles' ring at hd 192
+__host__ __device__ constexpr int bwd_stages(int hd) {
+  return bwd_wgs(hd) > 1 ? WSTAGES : STAGES;
+}
+
+// dQ for bf16 up to hd 128: one block of one warpgroup per (q tile, query
+// head, batch), walking the kv tiles: S = Q K^T and dP = dO V^T (64 x 64,
+// A and B from shared memory), dS, then dQ += dS K (A = dS hi and lo from
+// registers, B = K MN-major).  Work a causal (query, key) pair, in
+// multiply-adds: hd (S) + hd (dP) + 2 hd (dQ, hi and lo) = 4 hd, against
+// the bound's 3 hd.
 //
 // Rows with one kept key (the first query; every row under a one-key
 // window) have dS = p (dP - delta) scale = 0 in exact arithmetic: their dq
@@ -1097,57 +1113,42 @@ __global__ void __launch_bounds__(NTC * fwd_wgs(HD))
 // chain over hd; the tensor cores sum in another order.  So for such a row
 // the kernel forms dP with that chain on the CUDA cores (one dot product of
 // hd a row).
-__host__ __device__ constexpr int dq_cols(int hd) { return hd > 128 ? 64 : hd; }
-__host__ __device__ constexpr int dq_wgs(int hd) { return hd > 128 ? 2 : 1; }
-
 template <int HD>
-__global__ void __launch_bounds__(NTC * dq_wgs(HD))
-    flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v,
-                           const bf16* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           bf16* __restrict__ dq, Strides qs, Strides ks,
-                           Strides vs, Strides dos, Strides dqs, int H, int KV,
-                           int S, int window, float scale) {
-  constexpr int TILE = BQ * HD, NOUT = dq_cols(HD), PARTS = HD / NOUT;
-  constexpr int WGS = dq_wgs(HD), NTH = NTC * WGS;
+__device__ __forceinline__ void dq_tc(const bf16* __restrict__ q,
+                                      const bf16* __restrict__ k,
+                                      const bf16* __restrict__ v,
+                                      const bf16* __restrict__ dout,
+                                      const float* __restrict__ lse,
+                                      const float* __restrict__ delta,
+                                      bf16* __restrict__ dq, Strides qs,
+                                      Strides ks, Strides vs, Strides dos,
+                                      Strides dqs, int H, int KV, int S,
+                                      int window, float scale) {
+  constexpr int TILE = BQ * HD;
   extern __shared__ unsigned char smem_bwd[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_1k(smem_bwd));  // warpgroup w's at w TILE
-  bf16* dOs = Qs + WGS * TILE;      // the same
-  bf16* ring = dOs + WGS * TILE;    // stage st: K at 2 st TILE, V after it
+  bf16* Qs = reinterpret_cast<bf16*>(smem_1k(smem_bwd));
+  bf16* dOs = Qs + TILE;
+  bf16* ring = dOs + TILE;          // stage st: K at 2 st TILE, V after it
 
-  const int nq = (S + WGS * BQ - 1) / (WGS * BQ);
-  const int qt = nq - 1 - (int)blockIdx.x / PARTS;   // most kv tiles first
-  const int c0 = (int)blockIdx.x % PARTS * NOUT;     // the part's first column
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt = nq - 1 - (int)blockIdx.x;   // most kv tiles first
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / KV);
-  const int q0 = qt * WGS * BQ;
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int q0 = qt * BQ;
+  const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + BQ * wg;      // the warpgroup's first row
   const bf16* kb = k + b * ks.b + kvh * ks.h;
   const bf16* vb = v + b * vs.b + kvh * vs.h;
   const int kt_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
-  const int kt_last = (min(q0 + WGS * BQ, S) - 1) / BK;
+  const int kt_last = (min(q0 + BQ, S) - 1) / BK;
   const int nkt = kt_last - kt_first + 1;
 
-#pragma unroll
-  for (int w = 0; w < WGS; ++w) {
-    load_tile_async<HD, NTH>(Qs + w * TILE, q + b * qs.b + h * qs.h, qs.s,
-                             q0 + BQ * w, S);
-    load_tile_async<HD, NTH>(dOs + w * TILE, dout + b * dos.b + h * dos.h,
-                             dos.s, q0 + BQ * w, S);
-  }
-  load_tile_async<HD, NTH>(ring, kb, ks.s, kt_first * BK, S);
-  load_tile_async<HD, NTH>(ring + TILE, vb, vs.s, kt_first * BK, S);
+  load_tile_async<HD>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
+  load_tile_async<HD>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, S);
+  load_tile_async<HD>(ring, kb, ks.s, kt_first * BK, S);
+  load_tile_async<HD>(ring + TILE, vb, vs.s, kt_first * BK, S);
   cp_async_commit();
 
-  // Every warpgroup walks the block's kv tiles (wgmma stays off
-  // warpgroup-dependent branches); a tile none of its rows sees has p = 0.
-  const bf16* Qw = Qs + wg * TILE;
-  const bf16* dOw = dOs + wg * TILE;
-  const int qr[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+  const int qr[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
   const long long row0 = ((long long)b * H + h) * S;
   float lse_r[2], delta_r[2];
 #pragma unroll
@@ -1155,16 +1156,16 @@ __global__ void __launch_bounds__(NTC * dq_wgs(HD))
     lse_r[i] = qr[i] < S ? lse[row0 + qr[i]] : 0.0f;
     delta_r[i] = qr[i] < S ? delta[row0 + qr[i]] : 0.0f;
   }
-  float acc[NOUT / 2];
+  float acc[HD / 2];
 #pragma unroll
-  for (int i = 0; i < NOUT / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
 
   for (int it = 0; it < nkt; ++it) {
     const int k0 = (kt_first + it) * BK;
     if (it + 1 < nkt) {             // the next kv tile into the other stage
       bf16* nxt = ring + 2 * ((it + 1) % STAGES) * TILE;
-      load_tile_async<HD, NTH>(nxt, kb, ks.s, k0 + BK, S);
-      load_tile_async<HD, NTH>(nxt + TILE, vb, vs.s, k0 + BK, S);
+      load_tile_async<HD>(nxt, kb, ks.s, k0 + BK, S);
+      load_tile_async<HD>(nxt + TILE, vb, vs.s, k0 + BK, S);
     }
     cp_async_commit();
     cp_async_wait<1>();             // this tile's copies are done
@@ -1175,11 +1176,11 @@ __global__ void __launch_bounds__(NTC * dq_wgs(HD))
     wg_fence();
 #pragma unroll
     for (int d = 0; d < HD / 16; ++d)
-      wgmma_ss_n64(s, desc_k(Qw, 0, d), desc_k(Ks, 0, d), d);
+      wgmma_ss_n64(s, desc_k(Qs, 0, d), desc_k(Ks, 0, d), d);
     wg_commit();
 #pragma unroll
     for (int d = 0; d < HD / 16; ++d)
-      wgmma_ss_n64(dp, desc_k(dOw, 0, d), desc_k(Vs, 0, d), d);
+      wgmma_ss_n64(dp, desc_k(dOs, 0, d), desc_k(Vs, 0, d), d);
     wg_commit();
     wg_wait<0>();
     fence_regs(s);
@@ -1192,7 +1193,7 @@ __global__ void __launch_bounds__(NTC * dq_wgs(HD))
         const int col = qr[i] - k0;
         has[i] = qr[i] < S && (qr[i] == 0 || window == 1) && col >= 0 &&
                  col < BK && ((col >> 1) & 3) == t;
-        one[i] = has[i] ? dot_ascending<HD>(dOw, qr[i] - r0, Vs, col) : 0.0f;
+        one[i] = has[i] ? dot_ascending<HD>(dOs, qr[i] - q0, Vs, col) : 0.0f;
       }
 #pragma unroll
       for (int x = 0; x < 32; ++x) {
@@ -1213,9 +1214,9 @@ __global__ void __launch_bounds__(NTC * dq_wgs(HD))
     for (int st = 0; st < BK / 16; ++st) split_a(s + 8 * st, hi[st], lo[st]);
     wg_fence();
 #pragma unroll
-    for (int st = 0; st < BK / 16; ++st) {   // K's columns [c0, c0 + NOUT)
-      wgmma_rs<NOUT>(acc, hi[st], Ks + c0 * BQ, st);
-      wgmma_rs<NOUT>(acc, lo[st], Ks + c0 * BQ, st);
+    for (int st = 0; st < BK / 16; ++st) {
+      wgmma_rs<HD>(acc, hi[st], Ks, st);
+      wgmma_rs<HD>(acc, lo[st], Ks, st);
     }
     wg_commit();
     wg_wait<0>();
@@ -1225,35 +1226,266 @@ __global__ void __launch_bounds__(NTC * dq_wgs(HD))
 
   bf16* out = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
-  for (int n = 0; n < NOUT / 8; ++n)
-    store_c(out, dqs.s, qr[0], c0 + 8 * n + 2 * t, acc + 4 * n, S);
+  for (int n = 0; n < HD / 8; ++n)
+    store_c(out, dqs.s, qr[0], 8 * n + 2 * t, acc + 4 * n, S);
 }
 
-// dK, dV for bf16: one block per (kv tile, kv head, batch), walking the G
-// query heads of the kv head and their q tiles, each in two 32-query
-// halves, transposed: S^T = K Q^T and dP^T = V dO^T (64 keys x 32 queries),
-// then dV += P^T dO and dK += dS^T Q (A = P^T, dS^T hi and lo from
-// registers, B = dO, Q MN-major).  Up to hd 128 one warpgroup does all of
-// it; at hd 192, where two 64 x 192 f32 accumulators would take 192
-// registers a thread by themselves, dkv_wgs(HD) = 2 warpgroups share the
-// tiles: both form S^T and dP^T, warpgroup 0 owns dV, warpgroup 1 dK (S^T
-// and dP^T are formed twice: 8 product-equivalents a step against 6).
-__host__ __device__ constexpr int dkv_wgs(int hd) { return hd > 128 ? 2 : 1; }
+// dQ for bf16 at hd 192: one block of two warpgroups per (q tile, query
+// head, batch), walking the kv tiles, every product formed once a (q tile,
+// kv tile j):
+//   warpgroup 0 forms S = Q K_j^T and warpgroup 1 dP = dO V_j^T (64 x 64 at
+//   depth 192, A and B from shared memory: one straight line of products
+//   on selected descriptors);
+//   the two swap halves through 16 KB of shared memory, so that warpgroup
+//   0 holds S and dP of keys 0-31 of the tile and warpgroup 1 of keys
+//   32-63, and each forms p and dS on its 32 keys;
+//   each adds dS K_j over its 32 keys (A = dS hi and lo from registers, B
+//   = K_j's rows of those keys MN-major, 64 x 192) into a 64 x 192 f32
+//   partial dQ of its own, 96 registers a thread.
+// The steps are pipelined one tile deep: step j issues the score product
+// of tile j + 1, then the dQ products of tile j, and forms p and dS of
+// tile j + 1 on the CUDA cores while the tensor cores do those products.
+// K and V stream through a ring of WSTAGES stages (tile j + 2 loads while
+// tiles j and j + 1 are read).  A tile that crosses no row's diagonal,
+// window edge or end is not masked.  Blocks go q tile by q tile, the most
+// kv tiles first, across every head.  After the last tile warpgroup 1
+// hands its partial to warpgroup 0 through shared memory, which adds the
+// two and rounds once: every dq element is one fixed-order f32 sum.  Work a
+// causal (query, key) pair, in multiply-adds: 192 (S) + 192 (dP) + 2 x 192
+// (dQ, hi and lo) = 768, against the bound's 3 x 192 = 576 (the lo
+// products are the 1.33x).  The one-key rows' dP (see dq_tc) is formed by
+// warpgroup 1, before the swap.
+template <int HD>
+__device__ __forceinline__ void dq_tc_wide(const bf16* __restrict__ q,
+                                           const bf16* __restrict__ k,
+                                           const bf16* __restrict__ v,
+                                           const bf16* __restrict__ dout,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           bf16* __restrict__ dq, Strides qs,
+                                           Strides ks, Strides vs, Strides dos,
+                                           Strides dqs, int H, int KV, int S,
+                                           int window, float scale) {
+  constexpr int TILE = BQ * HD, NTH = NTC * bwd_wgs(HD);
+  extern __shared__ unsigned char smem_bwd[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_1k(smem_bwd));
+  bf16* dOs = Qs + TILE;
+  bf16* ring = dOs + TILE;          // stage st: K at 2 st TILE, V after it
+  float* xch = reinterpret_cast<float*>(ring + 2 * WSTAGES * TILE);
+                                    // the swap: (16, NTH) f32
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt = nq - 1 - (int)blockIdx.z;   // most kv tiles first
+  const int h = blockIdx.x, b = blockIdx.y, kvh = h / (H / KV);
+  const int q0 = qt * BQ;
+  // the warpgroup, broadcast from lane 0 so that ptxas sees it uniform and
+  // forms the selected descriptors in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+  const int kt_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int kt_last = (min(q0 + BQ, S) - 1) / BK;
+  const int nkt = kt_last - kt_first + 1;
+  auto load_kv = [&](int it) {      // kv tile kt_first + it into its stage
+    bf16* dst = ring + 2 * (it % WSTAGES) * TILE;
+    const int k0 = (kt_first + it) * BK;
+    load_tile_async<HD, NTH>(dst, kb, ks.s, k0, S);
+    load_tile_async<HD, NTH>(dst + TILE, vb, vs.s, k0, S);
+  };
+
+  load_tile_async<HD, NTH>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, S);
+  load_tile_async<HD, NTH>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, S);
+  load_kv(0);
+  cp_async_commit();
+  if (nkt > 1) load_kv(1);
+  cp_async_commit();
+
+  // Both warpgroups hold the tile's 64 rows: warp w rows 16 w .. 16 w + 16.
+  const int qr[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  const long long row0 = ((long long)b * H + h) * S;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse_r[i] = qr[i] < S ? lse[row0 + qr[i]] : 0.0f;
+    delta_r[i] = qr[i] < S ? delta[row0 + qr[i]] : 0.0f;
+  }
+  float acc[HD / 2];                // the warpgroup's partial dQ
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  const bf16* As = wg ? dOs : Qs;   // A of the score product: Q, or dO
+  const int other = threadIdx.x ^ NTC;   // this thread's twin in the other
+  float sc[32];                     // S (warpgroup 0) or dP (1) of a tile
+  float ds[16];                     // dS of a tile on the warpgroup's keys
+
+  // the score product of tile it into sc, issued (after a wg_fence)
+  auto score = [&](int it) {
+    const bf16* Bs = ring + (2 * (it % WSTAGES) + wg) * TILE;   // K, or V
+#pragma unroll
+    for (int d = 0; d < HD / 16; ++d)
+      wgmma_ss_n64(sc, desc_k(As, 0, d), desc_k(Bs, 0, d), d);
+    wg_commit();
+  };
+  // p and dS of tile it into ds, from sc (its product done) and the swap
+  auto probs = [&](int it) {
+    const int k0 = (kt_first + it) * BK;
+    if (k0 == 0 || window == 1) {   // a row with one kept key may be here
+      const bf16* Vs = ring + (2 * (it % WSTAGES) + 1) * TILE;
+      float one[2];
+      bool has[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {   // its key is its diagonal's column
+        const int col = qr[i] - k0;
+        has[i] = wg == 1 && qr[i] < S && (qr[i] == 0 || window == 1) &&
+                 col >= 0 && col < BK && ((col >> 1) & 3) == t;
+        one[i] = has[i] ? dot_ascending<HD>(dOs, qr[i] - q0, Vs, col) : 0.0f;
+      }
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int i = (x >> 1) & 1, kp = k0 + 8 * (x >> 2) + 2 * t + (x & 1);
+        sc[x] = has[i] && kp == qr[i] ? one[i] : sc[x];
+      }
+    }
+    // The swap: accumulator elements 0-15 are keys 0-31 of the tile, 16-31
+    // keys 32-63.  Warpgroup 0 hands over S of keys 32-63, warpgroup 1 dP
+    // of keys 0-31 (each thread to its twin, 32 neighbouring words a warp).
+#pragma unroll
+    for (int j = 0; j < 16; ++j) xch[j * NTH + threadIdx.x] = wg ? sc[j] : sc[16 + j];
+    __syncthreads();
+    auto form = [&](auto masked) {  // selects, not branches, per element
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float mine = wg ? sc[16 + j] : sc[j];
+        const float theirs = xch[j * NTH + other];
+        const float s = wg ? theirs : mine, dp = wg ? mine : theirs;
+        const int i = (j >> 1) & 1;
+        const int kp = k0 + 32 * wg + 8 * (j >> 2) + 2 * t + (j & 1);
+        const bool kept = !decltype(masked)::value ||
+                          ((kp <= qr[i]) & ((window <= 0) | (kp > qr[i] - window)) &
+                           (qr[i] < S));
+        const float p = kept ? expf(s * scale - lse_r[i]) : 0.0f;
+        ds[j] = p * (dp - delta_r[i]) * scale;
+      }
+    };
+    if (k0 + BK - 1 > q0 || (window > 0 && k0 <= q0 + BQ - 1 - window) ||
+        q0 + BQ > S)
+      form(std::true_type{});
+    else
+      form(std::false_type{});
+  };
+
+  // dS of the tile the products take next split into its A operands, and
+  // the copies of the tile after it in (everyone's, visible to wgmma): tile
+  // it - 1's stage is free
+  unsigned dh[2][4], dl[2][4];      // dS hi and lo of the warpgroup's keys
+  auto hand_over = [&]() {
+#pragma unroll
+    for (int st = 0; st < 2; ++st) split_a(ds + 8 * st, dh[st], dl[st]);
+    cp_async_wait<0>();
+    __syncthreads();
+  };
+  // dQ += dS K of tile it, issued: K's rows of the warpgroup's keys
+  auto products = [&](int it) {
+    const bf16* Ks = ring + 2 * (it % WSTAGES) * TILE;
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      wgmma_rs<HD>(acc, dh[st], Ks, 2 * wg + st);
+      wgmma_rs<HD>(acc, dl[st], Ks, 2 * wg + st);
+    }
+    wg_commit();
+  };
+
+  cp_async_wait<1>();               // tile 0 is in
+  __syncthreads();
+  wg_fence();
+  score(0);
+  wg_wait<0>();
+  fence_regs(sc);
+  probs(0);
+  // Step it: the score product of tile it + 1, then tile it's products;
+  // p and dS of tile it + 1 under them.  The last tile's products are
+  // peeled off, so that every wait and every read of sc sits on the one
+  // straight line of products (ptxas serializes every wgmma of a kernel
+  // where it cannot place an accumulator read after its wait).
+  for (int it = 0; it + 1 < nkt; ++it) {
+    hand_over();
+    if (it + 2 < nkt) load_kv(it + 2);
+    cp_async_commit();
+    wg_fence();
+    score(it + 1);
+    products(it);
+    wg_wait<1>();                   // the score product of tile it + 1 is in
+    fence_regs(sc);
+    probs(it + 1);
+    wg_wait<0>();
+    fence_regs(acc);
+  }
+  hand_over();
+  wg_fence();
+  products(nkt - 1);
+  wg_wait<0>();
+  fence_regs(acc);
+
+  // Warpgroup 1's partial through the ring, once every product has read it.
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(ring);     // (HD / 2, NTC) f32
+  const int tid = threadIdx.x & (NTC - 1);
+  if (wg == 1)
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) part[x * NTC + tid] = acc[x];
+  __syncthreads();
+  if (wg == 0) {
+    bf16* out = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      float vals[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vals[e] = acc[4 * n + e] + part[(4 * n + e) * NTC + tid];
+      store_c(out, dqs.s, qr[0], 8 * n + 2 * t, vals, S);
+    }
+  }
+}
 
 template <int HD>
-__global__ void __launch_bounds__(NTC * dkv_wgs(HD))
-    flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const bf16* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            bf16* __restrict__ dk, bf16* __restrict__ dv,
-                            Strides qs, Strides ks, Strides vs, Strides dos,
-                            Strides dks, Strides dvs, int H, int KV, int S,
-                            int window, float scale) {
-  constexpr int TILE = BQ * HD, WGS = dkv_wgs(HD), NTH = NTC * WGS;
-  constexpr int NACC = 3 - WGS;     // accumulators a thread: dV, dK or one
+__global__ void __launch_bounds__(NTC * bwd_wgs(HD))
+    flash_bwd_dq_tc_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dq, Strides qs, Strides ks,
+                           Strides vs, Strides dos, Strides dqs, int H, int KV,
+                           int S, int window, float scale) {
+  if constexpr (bwd_wgs(HD) > 1)
+    dq_tc_wide<HD>(q, k, v, dout, lse, delta, dq, qs, ks, vs, dos, dqs, H, KV,
+                   S, window, scale);
+  else
+    dq_tc<HD>(q, k, v, dout, lse, delta, dq, qs, ks, vs, dos, dqs, H, KV, S,
+              window, scale);
+}
+
+// dK, dV for bf16 up to hd 128: one block of one warpgroup per (kv tile, kv
+// head, batch), walking the G query heads of the kv head and their q tiles,
+// each in two 32-query halves, transposed: S^T = K Q^T and dP^T = V dO^T
+// (64 keys x 32 queries), then dV += P^T dO and dK += dS^T Q (A = P^T, dS^T
+// hi and lo from registers, B = dO, Q MN-major).  Work a causal (query,
+// key) pair, in multiply-adds: hd (S^T) + hd (dP^T) + 2 hd (dV) + 2 hd (dK)
+// = 6 hd, against the bound's 4 hd.
+template <int HD>
+__device__ __forceinline__ void dkv_tc(const bf16* __restrict__ q,
+                                       const bf16* __restrict__ k,
+                                       const bf16* __restrict__ v,
+                                       const bf16* __restrict__ dout,
+                                       const float* __restrict__ lse,
+                                       const float* __restrict__ delta,
+                                       bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                       Strides qs, Strides ks, Strides vs,
+                                       Strides dos, Strides dks, Strides dvs,
+                                       int H, int KV, int S, int window,
+                                       float scale) {
+  constexpr int TILE = BQ * HD;
   extern __shared__ unsigned char smem_bwd[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_1k(smem_bwd));
   bf16* Vs = Ks + TILE;
@@ -1264,7 +1496,7 @@ __global__ void __launch_bounds__(NTC * dkv_wgs(HD))
   const int kt = blockIdx.x;        // the first kv tiles see the most q tiles
   const int kvh = blockIdx.y, b = blockIdx.z, G = H / KV;
   const int k0 = kt * BK;
-  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int nq = (S + BQ - 1) / BQ;
   const int qt_first = k0 / BQ;
@@ -1279,23 +1511,19 @@ __global__ void __launch_bounds__(NTC * dkv_wgs(HD))
   auto load_stage = [&](int i, int st) {
     const int gi = i / nqt, q0 = (qt_first + i % nqt) * BQ;
     bf16* dst = ring + 2 * st * TILE;
-    load_tile_async<HD, NTH>(dst, qb + gi * qs.h, qs.s, q0, S);
-    load_tile_async<HD, NTH>(dst + TILE, dob + gi * dos.h, dos.s, q0, S);
+    load_tile_async<HD>(dst, qb + gi * qs.h, qs.s, q0, S);
+    load_tile_async<HD>(dst + TILE, dob + gi * dos.h, dos.s, q0, S);
     load_stats_async(stats + 2 * st * BQ, lse, delta, rows + gi * S, q0, S);
   };
-  load_tile_async<HD, NTH>(Ks, k + b * ks.b + kvh * ks.h, ks.s, k0, S);
-  load_tile_async<HD, NTH>(Vs, v + b * vs.b + kvh * vs.h, vs.s, k0, S);
+  load_tile_async<HD>(Ks, k + b * ks.b + kvh * ks.h, ks.s, k0, S);
+  load_tile_async<HD>(Vs, v + b * vs.b + kvh * vs.h, vs.s, k0, S);
   load_stage(0, 0);
   cp_async_commit();
 
   const int kr[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
-  float acc[NACC][HD / 2];          // dV in acc[0], dK in acc[NACC - 1]
+  float dv_acc[HD / 2], dk_acc[HD / 2];
 #pragma unroll
-  for (int a = 0; a < NACC; ++a)
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[a][i] = 0.0f;
-  float (&dv_acc)[HD / 2] = acc[0];
-  float (&dk_acc)[HD / 2] = acc[NACC - 1];
+  for (int i = 0; i < HD / 2; ++i) dv_acc[i] = dk_acc[i] = 0.0f;
 
   for (int it = 0; it < nit; ++it) {
     const int q0 = (qt_first + it % nqt) * BQ;
@@ -1332,61 +1560,36 @@ __global__ void __launch_bounds__(NTC * dkv_wgs(HD))
                           (qp < S);
         s[x] = kept ? expf(s[x] * scale - lse_s[col]) : 0.0f;  // P^T
       }
-      if constexpr (WGS == 1) {
-        unsigned ph[2][4], pl[2][4];
-        split_a(s, ph[0], pl[0]);
-        split_a(s + 8, ph[1], pl[1]);
-        wg_fence();
+      unsigned ph[2][4], pl[2][4];
+      split_a(s, ph[0], pl[0]);
+      split_a(s + 8, ph[1], pl[1]);
+      wg_fence();
 #pragma unroll
-        for (int st = 0; st < 2; ++st) {                      // dV += P^T dO
-          wgmma_rs<HD>(dv_acc, ph[st], dOs, 2 * half + st);
-          wgmma_rs<HD>(dv_acc, pl[st], dOs, 2 * half + st);
-        }
-        wg_commit();
-        wg_wait<1>();               // dP^T is in
-        fence_regs(dp);
-#pragma unroll
-        for (int x = 0; x < 16; ++x) {
-          const int col = 32 * half + 8 * (x >> 2) + 2 * t + (x & 1);
-          s[x] = s[x] * (dp[x] - delta_s[col]) * scale;     // dS^T
-        }
-        unsigned dh[2][4], dl[2][4];
-        split_a(s, dh[0], dl[0]);
-        split_a(s + 8, dh[1], dl[1]);
-        wg_fence();
-#pragma unroll
-        for (int st = 0; st < 2; ++st) {                      // dK += dS^T Q
-          wgmma_rs<HD>(dk_acc, dh[st], Qs, 2 * half + st);
-          wgmma_rs<HD>(dk_acc, dl[st], Qs, 2 * half + st);
-        }
-        wg_commit();
-      } else {
-        // one product a warpgroup, on the same straight line (wgmma under a
-        // warpgroup-dependent branch is serialized by ptxas): warpgroup 0
-        // dV += P^T dO, warpgroup 1 dK += dS^T Q (both formed dP^T above)
-        wg_wait<0>();               // dP^T is in
-        fence_regs(dp);
-#pragma unroll
-        for (int x = 0; x < 16; ++x) {
-          const int col = 32 * half + 8 * (x >> 2) + 2 * t + (x & 1);
-          const float ds = s[x] * (dp[x] - delta_s[col]) * scale;
-          s[x] = wg ? ds : s[x];
-        }
-        unsigned hi[2][4], lo[2][4];
-        split_a(s, hi[0], lo[0]);
-        split_a(s + 8, hi[1], lo[1]);
-        const bf16* Bs = wg ? Qs : dOs;
-        wg_fence();
-#pragma unroll
-        for (int st = 0; st < 2; ++st) {
-          wgmma_rs<HD>(acc[0], hi[st], Bs, 2 * half + st);
-          wgmma_rs<HD>(acc[0], lo[st], Bs, 2 * half + st);
-        }
-        wg_commit();
+      for (int st = 0; st < 2; ++st) {                      // dV += P^T dO
+        wgmma_rs<HD>(dv_acc, ph[st], dOs, 2 * half + st);
+        wgmma_rs<HD>(dv_acc, pl[st], dOs, 2 * half + st);
       }
-      wg_wait<0>();
+      wg_commit();
+      wg_wait<1>();               // dP^T is in
+      fence_regs(dp);
 #pragma unroll
-      for (int a = 0; a < NACC; ++a) fence_regs(acc[a]);
+      for (int x = 0; x < 16; ++x) {
+        const int col = 32 * half + 8 * (x >> 2) + 2 * t + (x & 1);
+        s[x] = s[x] * (dp[x] - delta_s[col]) * scale;     // dS^T
+      }
+      unsigned dh[2][4], dl[2][4];
+      split_a(s, dh[0], dl[0]);
+      split_a(s + 8, dh[1], dl[1]);
+      wg_fence();
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {                      // dK += dS^T Q
+        wgmma_rs<HD>(dk_acc, dh[st], Qs, 2 * half + st);
+        wgmma_rs<HD>(dk_acc, dl[st], Qs, 2 * half + st);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
     }
     __syncthreads();
   }
@@ -1395,20 +1598,219 @@ __global__ void __launch_bounds__(NTC * dkv_wgs(HD))
   bf16* vd = dv + b * dvs.b + kvh * dvs.h;
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
-    if (WGS == 1 || wg == 1)
-      store_c(kd, dks.s, kr[0], 8 * n + 2 * t, dk_acc + 4 * n, S);
-    if (WGS == 1 || wg == 0)
-      store_c(vd, dvs.s, kr[0], 8 * n + 2 * t, dv_acc + 4 * n, S);
+    store_c(kd, dks.s, kr[0], 8 * n + 2 * t, dk_acc + 4 * n, S);
+    store_c(vd, dvs.s, kr[0], 8 * n + 2 * t, dv_acc + 4 * n, S);
   }
+}
+
+// dK, dV for bf16 at hd 192: one block of two warpgroups per (kv tile, kv
+// head, batch), walking the G query heads of the kv head and their q tiles
+// in ascending order, a whole 64-query tile a step, transposed:
+//   warpgroup 0 forms S^T = K Q^T and warpgroup 1 dP^T = V dO^T (64 keys x
+//   64 queries at depth 192, one straight line of products on selected
+//   descriptors);
+//   warpgroup 0 hands S^T to warpgroup 1 through 16 KB of shared memory;
+//   both form P^T from it (the same f32 operations on the same values),
+//   warpgroup 1 then dS^T;
+//   warpgroup 0 adds dV += P^T dO, warpgroup 1 dK += dS^T Q (A = P^T or
+//   dS^T, hi and lo, from registers; B = dO or Q MN-major, selected), each
+//   into one 64 x 192 f32 accumulator of its own, 96 registers a thread.
+// The steps are pipelined one deep, as in dq_tc_wide: step j issues the
+// score product of step j + 1, then the dV or dK products of step j, and
+// forms P^T and dS^T of step j + 1 under those products; Q, dO, lse and
+// delta stream through a ring of WSTAGES stages.  A step that crosses no
+// pair's diagonal, window edge or end is not masked.  Blocks go kv tile by
+// kv tile, the most q tiles first, across every kv head.  Each dK and dV
+// element is summed in the order of the hd-128 kernel: head by head, q tile
+// by q tile, its 64 queries in four k16 steps, hi then lo.  Work a causal
+// (query, key) pair, in multiply-adds: 192 (S^T) + 192 (dP^T) + 2 x 192
+// (dV) + 2 x 192 (dK) = 1152, against the bound's 4 x 192 = 768 (the lo
+// products are the 1.5x).
+template <int HD>
+__device__ __forceinline__ void dkv_tc_wide(const bf16* __restrict__ q,
+                                            const bf16* __restrict__ k,
+                                            const bf16* __restrict__ v,
+                                            const bf16* __restrict__ dout,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta,
+                                            bf16* __restrict__ dk,
+                                            bf16* __restrict__ dv, Strides qs,
+                                            Strides ks, Strides vs, Strides dos,
+                                            Strides dks, Strides dvs, int H,
+                                            int KV, int S, int window,
+                                            float scale) {
+  constexpr int TILE = BQ * HD, NTH = NTC * bwd_wgs(HD);
+  extern __shared__ unsigned char smem_bwd[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_1k(smem_bwd));
+  bf16* Vs = Ks + TILE;
+  bf16* ring = Vs + TILE;           // stage st: Q at 2 st TILE, dO after it
+  float* stats = reinterpret_cast<float*>(ring + 2 * WSTAGES * TILE);
+                                    // stage st: lse, delta at 2 st BQ
+  float* xch = stats + 2 * WSTAGES * BQ;   // S^T: (32, NTC) f32
+
+  const int kt = blockIdx.z;        // the first kv tiles see the most q tiles
+  const int kvh = blockIdx.x, b = blockIdx.y, G = H / KV;
+  const int k0 = kt * BK;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);   // uniform
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x & (NTC - 1);
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt_first = k0 / BQ;
+  const int qt_last =
+      window > 0 ? min(nq - 1, (k0 + BK + window - 2) / BQ) : nq - 1;
+  const int nqt = qt_last - qt_first + 1, nit = G * nqt;
+  const bf16* qb = q + b * qs.b + kvh * G * qs.h;
+  const bf16* dob = dout + b * dos.b + kvh * G * dos.h;
+  const long long rows = ((long long)b * H + kvh * G) * S;  // lse row of g 0
+
+  // (head g, q tile qt) of step i into its stage
+  auto load_stage = [&](int i) {
+    const int gi = i / nqt, q0 = (qt_first + i % nqt) * BQ, st = i % WSTAGES;
+    bf16* dst = ring + 2 * st * TILE;
+    load_tile_async<HD, NTH>(dst, qb + gi * qs.h, qs.s, q0, S);
+    load_tile_async<HD, NTH>(dst + TILE, dob + gi * dos.h, dos.s, q0, S);
+    load_stats_async(stats + 2 * st * BQ, lse, delta, rows + gi * S, q0, S);
+  };
+  load_tile_async<HD, NTH>(Ks, k + b * ks.b + kvh * ks.h, ks.s, k0, S);
+  load_tile_async<HD, NTH>(Vs, v + b * vs.b + kvh * vs.h, vs.s, k0, S);
+  load_stage(0);
+  cp_async_commit();
+  if (nit > 1) load_stage(1);
+  cp_async_commit();
+
+  // Both warpgroups hold the tile's 64 keys: warp w rows 16 w .. 16 w + 16.
+  const int kr[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
+  float acc[HD / 2];                // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  const bf16* As = wg ? Vs : Ks;    // A of the score product: K, or V
+  float sc[32];                     // S^T (warpgroup 0) or dP^T (1) of a step
+
+  // the score product of step it into sc, issued (after a wg_fence)
+  auto score = [&](int it) {
+    const bf16* Bs = ring + (2 * (it % WSTAGES) + wg) * TILE;   // Q, or dO
+#pragma unroll
+    for (int d = 0; d < HD / 16; ++d)
+      wgmma_ss_n64(sc, desc_k(As, 0, d), desc_k(Bs, 0, d), d);
+    wg_commit();
+  };
+  // P^T (warpgroup 0) or dS^T (warpgroup 1) of step it into sc, from sc
+  // (its product done) and warpgroup 0's S^T
+  auto probs = [&](int it) {
+    const int q0 = (qt_first + it % nqt) * BQ;
+    const float* lse_s = stats + 2 * (it % WSTAGES) * BQ;
+    const float* delta_s = lse_s + BQ;
+    if (wg == 0)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) xch[x * NTC + tid] = sc[x];
+    __syncthreads();
+    auto form = [&](auto masked) {  // selects, not branches, per element
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int col = 8 * (x >> 2) + 2 * t + (x & 1);
+        const int qp = q0 + col, kp = kr[(x >> 1) & 1];
+        const bool kept = !decltype(masked)::value ||
+                          ((kp <= qp) & ((window <= 0) | (kp > qp - window)) &
+                           (qp < S));
+        const float s = wg ? xch[x * NTC + tid] : sc[x];
+        const float p = kept ? expf(s * scale - lse_s[col]) : 0.0f;   // P^T
+        sc[x] = wg ? p * (sc[x] - delta_s[col]) * scale : p;          // dS^T
+      }
+    };
+    if (q0 < k0 + BK - 1 || (window > 0 && k0 <= q0 + BQ - 1 - window) ||
+        q0 + BQ > S)
+      form(std::true_type{});
+    else
+      form(std::false_type{});
+  };
+
+  // P^T (warpgroup 0) or dS^T (1) of the step the products take next split
+  // into its A operands, and the copies of the step after it in
+  // (everyone's, visible to wgmma): step it - 1's stage is free
+  unsigned hi[BQ / 16][4], lo[BQ / 16][4];
+  auto hand_over = [&]() {
+#pragma unroll
+    for (int st = 0; st < BQ / 16; ++st) split_a(sc + 8 * st, hi[st], lo[st]);
+    cp_async_wait<0>();
+    __syncthreads();
+  };
+  // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1) of step it, issued
+  auto products = [&](int it) {
+    const bf16* Bd = ring + (2 * (it % WSTAGES) + 1 - wg) * TILE;
+#pragma unroll
+    for (int st = 0; st < BQ / 16; ++st) {
+      wgmma_rs<HD>(acc, hi[st], Bd, st);
+      wgmma_rs<HD>(acc, lo[st], Bd, st);
+    }
+    wg_commit();
+  };
+
+  cp_async_wait<1>();               // K, V and step 0 are in
+  __syncthreads();
+  wg_fence();
+  score(0);
+  wg_wait<0>();
+  fence_regs(sc);
+  probs(0);
+  // As in dq_tc_wide: the score product of step it + 1, then step it's
+  // products, P^T and dS^T of step it + 1 under them; the last step's
+  // products peeled off.
+  for (int it = 0; it + 1 < nit; ++it) {
+    hand_over();
+    if (it + 2 < nit) load_stage(it + 2);
+    cp_async_commit();
+    wg_fence();
+    score(it + 1);
+    products(it);
+    wg_wait<1>();                   // the score product of step it + 1 is in
+    fence_regs(sc);
+    probs(it + 1);
+    wg_wait<0>();
+    fence_regs(acc);
+  }
+  hand_over();
+  wg_fence();
+  products(nit - 1);
+  wg_wait<0>();
+  fence_regs(acc);
+
+  bf16* out = wg ? dk + b * dks.b + kvh * dks.h : dv + b * dvs.b + kvh * dvs.h;
+  const long long ss = wg ? dks.s : dvs.s;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+    store_c(out, ss, kr[0], 8 * n + 2 * t, acc + 4 * n, S);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NTC * bwd_wgs(HD))
+    flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            Strides qs, Strides ks, Strides vs, Strides dos,
+                            Strides dks, Strides dvs, int H, int KV, int S,
+                            int window, float scale) {
+  if constexpr (bwd_wgs(HD) > 1)
+    dkv_tc_wide<HD>(q, k, v, dout, lse, delta, dk, dv, qs, ks, vs, dos, dks,
+                    dvs, H, KV, S, window, scale);
+  else
+    dkv_tc<HD>(q, k, v, dout, lse, delta, dk, dv, qs, ks, vs, dos, dks, dvs, H,
+               KV, S, window, scale);
 }
 
 // Dynamic shared memory a block, in bytes, of each instance: the counts the
 // launches ask for.  kernels/flash.py `smem_bytes` counts the same; the
 // wrappers check the two agree at an instance's first launch (flash_info).
 //   f32: padded (rows, hd + 1) tiles and (64, 65) score tiles, on the CUDA
-//   cores; bf16: swizzled (64, hd) tiles (resident ones, then 2 STAGES
-//   streamed ones), for dK/dV the lse and delta rows of each stage, and
-//   1 KB to align the tiles.
+//   cores; bf16: swizzled (64, hd) tiles (resident ones, then the stages
+//   of the streamed ones: 3 in the forward, 2 in the backward, 3 in the
+//   two-warpgroup backward at hd 192), for dK/dV the lse and delta rows of
+//   each stage, at hd 192 the warpgroups' 64 x 64 f32 swap, and 1 KB to
+//   align the tiles.
 constexpr size_t f32_tile(int rows, int hd) {
   return sizeof(float) * rows * (hd + 1);
 }
@@ -1416,13 +1818,17 @@ constexpr size_t fwd_bytes(bool tc, int hd) {
   return tc ? sizeof(bf16) * (fwd_wgs(hd) + 2 * FSTAGES) * BQ * hd + 1024
             : 2 * f32_tile(BQ, hd) + f32_tile(BQ, BK);
 }
+constexpr size_t swap_bytes(int hd) {
+  return bwd_wgs(hd) > 1 ? sizeof(float) * BQ * BK : 0;
+}
 constexpr size_t dq_bytes(bool tc, int hd) {
-  return tc ? sizeof(bf16) * (2 * dq_wgs(hd) + 2 * STAGES) * BQ * hd + 1024
+  return tc ? sizeof(bf16) * (2 + 2 * bwd_stages(hd)) * BQ * hd +
+                  swap_bytes(hd) + 1024
             : 3 * f32_tile(BQ, hd) + f32_tile(BQ, BK);
 }
 constexpr size_t dkv_bytes(bool tc, int hd) {
-  return tc ? sizeof(bf16) * (2 + 2 * STAGES) * BQ * hd +
-                  sizeof(float) * 2 * STAGES * BQ + 1024
+  return tc ? sizeof(bf16) * (2 + 2 * bwd_stages(hd)) * BQ * hd +
+                  sizeof(float) * 2 * bwd_stages(hd) * BQ + swap_bytes(hd) + 1024
             : 4 * f32_tile(BQ, hd) + 2 * f32_tile(BQ, BK) +
                   sizeof(float) * 2 * BQ;
 }
@@ -1475,7 +1881,7 @@ struct Instance {
   }
   static int threads(int kind) {
     if (!TC) return NT;
-    return NTC * (kind < 2 ? fwd_wgs(HD) : kind == 2 ? dq_wgs(HD) : dkv_wgs(HD));
+    return NTC * (kind < 2 ? fwd_wgs(HD) : bwd_wgs(HD));
   }
   static size_t smem(int kind) {
     return kind < 2 ? fwd_bytes(TC, HD)
@@ -1517,6 +1923,18 @@ int fwd(int stats, const void* q, const void* k, const void* v, void* o,
   }
 }
 
+// The grid of a backward kernel: one block per (tile, head, batch), tiles
+// being q tiles (dQ) or kv tiles (dK/dV), the first tile the one whose
+// block walks the most of the other axis.  The two-warpgroup bf16 bodies
+// (hd 192) put the tiles slowest, so that the longest blocks of every head
+// start first.
+template <typename T, int HD>
+dim3 bwd_grid(int tiles, int heads, int B) {
+  if (std::is_same<T, bf16>::value && bwd_wgs(HD) > 1)
+    return dim3(heads, B, tiles);
+  return dim3(tiles, heads, B);
+}
+
 // bf16 runs the tensor-core backward, f32 the CUDA-core one.
 template <typename T, int HD>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -1524,18 +1942,16 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            int B, int H, int KV, int S, int window, float scale,
            cudaStream_t s) {
   using I = Instance<T, HD>;
+  const dim3 grid = bwd_grid<T, HD>((S + BQ - 1) / BQ, H, B);
   if constexpr (I::TC) {
     if (!aligned16({q, k, v, dout, dq}, st, 15))
       return (int)cudaErrorMisalignedAddress;
-    const int rows = BQ * dq_wgs(HD);
-    const dim3 grid((S + rows - 1) / rows * (HD / dq_cols(HD)), H, B);
     return launch(flash_bwd_dq_tc_kernel<HD>, grid, I::threads(2), I::smem(2),
                   s, (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
                   (const float*)lse, (const float*)delta, (T*)dq,
                   strides(st, 0), strides(st, 1), strides(st, 2),
                   strides(st, 3), strides(st, 4), H, KV, S, window, scale);
   } else {
-    const dim3 grid((S + BQ - 1) / BQ, H, B);
     return launch(flash_bwd_dq_kernel<HD>, grid, NT, I::smem(2), s,
                   (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
                   (const float*)lse, (const float*)delta, (T*)dq,
@@ -1550,7 +1966,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const long long* st, int B, int H, int KV, int S, int window,
             float scale, cudaStream_t s) {
   using I = Instance<T, HD>;
-  const dim3 grid((S + BK - 1) / BK, KV, B);
+  const dim3 grid = bwd_grid<T, HD>((S + BK - 1) / BK, KV, B);
   if constexpr (I::TC) {
     if (!aligned16({q, k, v, dout, dk, dv}, st, 18))
       return (int)cudaErrorMisalignedAddress;

@@ -47,11 +47,15 @@ KERNEL_HEAD_DIMS = (64, 128, 192)
 # Shared memory a block may use on the H100 (227 KB), and what each kernel
 # instance takes (smem_bytes), as csrc/flash.cu counts it: a bf16 forward
 # block is fwd_warpgroups(hd) warpgroups on as many 64-row q tiles and
-# streams K and V through FWD_STAGES stages; the bf16 backward streams K
-# and V (dQ) or Q and dO (dK/dV) through STAGES stages.
+# streams K and V through FWD_STAGES stages; a bf16 backward block holds
+# one 64-row tile of two tensors (Q and dO for dQ, K and V for dK/dV),
+# streams the other two through bwd_stages(hd) stages and, with
+# bwd_warpgroups(hd) = 2, swaps halves of its 64 x 64 f32 scores between
+# the two warpgroups.
 SMEM_LIMIT = 232448
 FWD_STAGES = 3
 STAGES = 2
+WIDE_STAGES = 3
 KERNELS = ("flash_fwd", "flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")
 
 
@@ -60,9 +64,16 @@ def fwd_warpgroups(hd: int) -> int:
     return 2 if hd > 128 else 1
 
 
-def dq_warpgroups(hd: int) -> int:
-    """Warpgroups of a bf16 dQ block (csrc/flash.cu ``dq_wgs``)."""
+def bwd_warpgroups(hd: int) -> int:
+    """Warpgroups of a bf16 backward block, dQ and dK/dV (csrc/flash.cu
+    ``bwd_wgs``): at hd 192 two, which split each tile's products."""
     return 2 if hd > 128 else 1
+
+
+def bwd_stages(hd: int) -> int:
+    """Stages of a bf16 backward block's ring (csrc/flash.cu ``bwd_stages``):
+    three where two warpgroups pipeline the steps one deep (hd 192)."""
+    return WIDE_STAGES if bwd_warpgroups(hd) > 1 else STAGES
 
 
 def smem_bytes(kname: str, dtype: torch.dtype, hd: int) -> int:
@@ -77,9 +88,11 @@ def smem_bytes(kname: str, dtype: torch.dtype, hd: int) -> int:
     if dtype == torch.bfloat16:
         if kname.startswith("flash_fwd"):
             return 2 * (fwd_warpgroups(hd) + 2 * FWD_STAGES) * t * hd + 1024
-        if kname == "flash_bwd_dq":       # Q and dO of each warpgroup
-            return 2 * (2 * dq_warpgroups(hd) + 2 * STAGES) * t * hd + 1024
-        return 2 * (2 + 2 * STAGES) * t * hd + 4 * 2 * STAGES * t + 1024
+        tiles = 2 * (2 + 2 * bwd_stages(hd)) * t * hd + 1024
+        swap = 4 * t * t if bwd_warpgroups(hd) > 1 else 0   # f32 scores
+        if kname == "flash_bwd_dq":
+            return tiles + swap
+        return tiles + 4 * 2 * bwd_stages(hd) * t + swap   # and lse, delta
     if dtype != torch.float32:
         raise TypeError(f"the flash kernels take float32 or bfloat16, got "
                         f"{dtype}")

@@ -784,7 +784,15 @@ FLASH = {
     # Nemotron-4 340B's head dim and G = 12; ragged, with a window
     "hd192": (1, 24, 2, 512, 192, None),
     "hd192_ragged_window": (1, 12, 1, 200, 192, 64),
+    # at hd 192, 32 kv tiles for the last q tile and 12 x 32 (head, q tile)
+    # stages for the first kv tile: the two-warpgroup backward's ring wraps
+    # many times
+    "hd192_long_ring": (1, 24, 2, 2048, 192, None),
+    # the model's (B, S, H, hd) activations, handed over as strided views
+    "hd192_model_layout": (2, 24, 2, 384, 192, None),
 }
+# cells whose tensors are (B, S, heads, hd) transposed to (B, heads, S, hd)
+MODEL_LAYOUT = ("hd192_model_layout",)
 
 
 def _rel(got, want):
@@ -797,15 +805,23 @@ def test_flash_kernels_match_plain(name, dtype):
     """Rows 9-12 element by element against their plain versions: the
     forward (with lse) against the plain forward at the kernels' tile, dq
     and dk/dv against flash_bwd_plain on the kernels' lse and delta; the
-    autograd Function's gradients are those wrappers' outputs."""
+    autograd Function's gradients are those wrappers' outputs.  The
+    MODEL_LAYOUT cells hand the kernels transposed (B, S, heads, hd)
+    tensors, as the model does."""
     requires_cuda()
     B, H, KV, S, hd, window = FLASH[name]
     dt = getattr(torch, dtype)
     tol, f32 = flash.KERNEL_TOL[dt], flash.KERNEL_TOL[torch.float32]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn((B, n, S, hd), generator=gen, device="cuda").to(dt)
-               for n in (H, KV, KV))
-    do = torch.randn((B, H, S, hd), generator=gen, device="cuda").to(dt)
+
+    def rand(n):
+        if name in MODEL_LAYOUT:
+            x = torch.randn((B, S, n, hd), generator=gen, device="cuda").transpose(1, 2)
+            assert not x.is_contiguous()
+        else:
+            x = torch.randn((B, n, S, hd), generator=gen, device="cuda")
+        return x.to(dt)
+    q, k, v, do = (rand(n) for n in (H, KV, KV, H))
     flash.reset_launches()
     want, want_lse = flash.flash_attention_plain(
         q, k, v, window, chunk=flash.KERNEL_TILE, return_lse=True)

@@ -228,6 +228,24 @@ def test_every_instance_fits_a_block_of_shared_memory(kname, dtype):
         flash.smem_bytes(kname, torch.float16, 64)
 
 
+# The bf16 backward's shared memory a block: up to hd 128 one warpgroup's
+# tiles (unchanged since the kernels were written); at hd 192 two
+# warpgroups' (Q and dO, or K and V, three stages of the other two, lse and
+# delta rows for dK/dV, and the 64 x 64 f32 swap), under the 227 KB a block
+# may use.
+BWD_SMEM = [("flash_bwd_dq", 64, 50176), ("flash_bwd_dq", 128, 99328),
+            ("flash_bwd_dq", 192, 214016), ("flash_bwd_dkv", 64, 51200),
+            ("flash_bwd_dkv", 128, 100352), ("flash_bwd_dkv", 192, 215552)]
+
+
+@pytest.mark.parametrize("kname,hd,want", BWD_SMEM)
+def test_bf16_backward_shared_memory_is_pinned(kname, hd, want):
+    got = flash.smem_bytes(kname, torch.bfloat16, hd)
+    assert got == want <= flash.SMEM_LIMIT
+    assert flash.bwd_warpgroups(hd) == (2 if hd == 192 else 1)
+    assert flash.bwd_stages(hd) == (3 if hd == 192 else 2)
+
+
 def test_bwd_inputs_start_rows_on_16_bytes():
     """The bf16 backward copies rows in 16-byte pieces: the wrapper passes
     an aligned view as it is and copies one that is not."""
