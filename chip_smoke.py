@@ -206,10 +206,12 @@ the thread-per-output FP's time of run 15I (``FP_15I_MS``) beside its
 own, each cone-family BP row the time of the BP before its redesign
 (``BP_PARENT_MS``), each parallel and fan row the pair's time before its
 redesign (``PAR_PARENT_MS``, ``FAN_PARENT_MS``), and the bf16 flash
-backward rows at nemotron_attn the hd-192 kernels' time before theirs
-(``FLASH_HD192_PARENT_MS``).  After the kernel phase it builds the FP and
-BP with their phase profiles compiled in (``-DSF_FP_PHASES
--DSF_BP_PHASES``) and prints, per cell, each phase's share of the cycles
+rows at nemotron_attn the hd-192 kernels' time before theirs
+(``FLASH_HD192_PARENT_MS``); any coded ptxas note on a bf16 flash
+instance (a serialized wgmma, an ignored setmaxnreg) fails the run.
+After the kernel phase it builds the FP and BP with their phase profiles
+compiled in (``-DSF_FP_PHASES -DSF_BP_PHASES``) and prints, per cell,
+each phase's share of the cycles
 and the FP's passes, survivors and (survivor, slice) pairs and the BP's
 dropped thread-views, columns and terms.
 
@@ -367,12 +369,14 @@ FAN_PARENT_MS = {
     ("bp_fan_sf", "fan_rows", "bfloat16"): 69.66128158569336,
 }
 
-# The hd-192 bf16 backward before its redesign (dQ in three column parts,
-# each recomputing S and dP; dK/dV with both warpgroups forming S^T and dP^T
-# on 32-query halves), as this script measured it on an NVIDIA H100 80GB
-# HBM3 at 700.00 W (run 17N in PERF.md): ms by kernel at nemotron_attn in
-# bf16, printed beside this run's.
-FLASH_HD192_PARENT_MS = {"flash_bwd_dq": 8.7824, "flash_bwd_dkv": 9.4892}
+# The hd-192 bf16 kernels before their redesigns (the forward: two
+# warpgroups in lock step, copying their own tiles by cp.async; dQ in three
+# column parts, each recomputing S and dP; dK/dV with both warpgroups
+# forming S^T and dP^T on 32-query halves), as this script measured them on
+# an NVIDIA H100 80GB HBM3 at 700.00 W (run 17N in PERF.md): ms by kernel
+# at nemotron_attn in bf16, printed beside this run's.
+FLASH_HD192_PARENT_MS = {"flash_fwd": 1.7385, "flash_fwd_stats": 1.7352,
+                         "flash_bwd_dq": 8.7824, "flash_bwd_dkv": 9.4892}
 
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash.cu"
 FLASH_REPLACES = {"flash_fwd": "src/repro/kernels/flash.py:55",
@@ -1900,35 +1904,56 @@ def bp_phases(torch, cells, results) -> None:
 
 
 def flash_build_report(torch, results) -> None:
-    """ptxas's registers and spills of every flash kernel instance (from the
-    build's log) and, on this card, its dynamic shared memory (the kernel's
-    own count, which ``flash.kernel_info`` holds against the host's) and
-    resident blocks per SM."""
+    """ptxas's registers, spills and coded notes of every flash kernel
+    instance (from the build's log) and, on this card, its dynamic shared
+    memory (the kernel's own count, which ``flash.kernel_info`` holds
+    against the host's) and resident blocks per SM.  Fails on any ptxas
+    note (``build.parse_ptxas``) of a bf16 instance, such as a serialized
+    wgmma or an ignored setmaxnreg.  The warp-specialised forward's
+    registers are ptxas's count at entry; its setmaxnreg values are
+    printed beside them."""
     import re
     from repro_torch.kernels import build, flash
-    rows = {}
+    rows, stray = {}, []
     for mangled, rep in build.ptxas_report("flash").items():
-        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))(_tc)?_kernelIf?Li(\d+)E"
+        m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv))(_tc|_ws)?_kernelIf?Li(\d+)E"
                       r"(?:Lb([01])E)?", mangled)
         if m:
             kname = "flash_fwd_stats" if m.group(4) == "1" else m.group(1)
             dtype = "bfloat16" if m.group(2) else "float32"
             rows[(kname, dtype, int(m.group(3)))] = dict(rep)
+        elif rep.get("notes"):
+            stray += [f"{mangled or 'no kernel'}: {n}" for n in rep["notes"]]
     for kname in flash.KERNELS:
         for dtype in ("float32", "bfloat16"):
             for hd in flash.KERNEL_HEAD_DIMS:
-                rows.setdefault((kname, dtype, hd), {}).update(
-                    flash.kernel_info(kname, getattr(torch, dtype), hd))
+                row = rows.setdefault((kname, dtype, hd), {})
+                row.update(flash.kernel_info(kname, getattr(torch, dtype), hd))
+                if (dtype == "bfloat16" and kname.startswith("flash_fwd")
+                        and flash.fwd_specialised(hd)):
+                    row["setmaxnreg"] = {"producer": flash.FWD_PRODUCER_REGS,
+                                         "consumers": flash.FWD_CONSUMER_REGS}
     check(len(rows) == 2 * len(flash.KERNELS) * len(flash.KERNEL_HEAD_DIMS)
           and all("registers" in r for r in rows.values()),
           f"ptxas report of the flash kernels: {sorted(rows)}")
     results["flash_build"] = {f"{k} {dt} hd {hd}": v
                               for (k, dt, hd), v in sorted(rows.items())}
     for (k, dt, hd), r in sorted(rows.items()):
-        log(f"ptxas {k} {dt} hd {hd}: {r['registers']} registers, "
-            f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill "
-            f"loads, {r['stack']} bytes stack; {r['smem_bytes']} bytes dynamic "
+        regs = r.get("setmaxnreg")
+        log(f"ptxas {k} {dt} hd {hd}: {r['registers']} registers"
+            + (f" at entry (setmaxnreg: producer {regs['producer']}, consumers "
+               f"{regs['consumers']})" if regs else "")
+            + f", {r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes "
+            f"spill loads, {r['stack']} bytes stack; {r['smem_bytes']} bytes dynamic "
             f"shared a block, {r['blocks_per_sm']} blocks per SM")
+        for note in r.get("notes", []):
+            log(f"ptxas note {k} {dt} hd {hd}: {note}")
+    for note in stray:
+        log(f"ptxas note {note}")
+    noted = [f"{k} {dt} hd {hd}" for (k, dt, hd), r in sorted(rows.items())
+             if dt == "bfloat16" and r.get("notes")]
+    check(not noted and not stray,
+          f"ptxas notes on the bf16 flash instances {noted} {stray}")
 
 
 def flash_phase(torch, results):

@@ -28,7 +28,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List, Tuple
+from typing import Any, Dict, Iterable, List, Tuple
 
 __all__ = ["build_all", "library", "loaded", "parse_ptxas", "ptxas_report",
            "BUILD_DIR", "CSRC"]
@@ -232,17 +232,30 @@ def build_all(extra: Iterable[Tuple[str, str]] = ()) -> None:
             _LIBS[k] = _load(*k)
 
 
-def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+def parse_ptxas(log: str) -> Dict[str, Dict[str, Any]]:
     """ptxas's ``-v`` report on each kernel, by mangled name: ``registers``,
     ``stack`` (bytes a thread), ``spill_stores`` and ``spill_loads``
     (bytes), ``smem`` (static shared bytes; dynamic shared memory is set at
-    launch)."""
-    report: Dict[str, Dict[str, int]] = {}
+    launch), and, where ptxas gave any, ``notes``: its coded warnings, such
+    as ``"C7508 ..."`` (setmaxnreg ignored) or ``"C7510 ..."`` to
+    ``"C7520 ..."`` (wgmma serialized), each with its text.  A note belongs
+    to the kernel it names, else to the kernel being compiled, else to
+    ``""``."""
+    report: Dict[str, Dict[str, Any]] = {}
     cur = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             cur = report.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"\((C\d{4})\)\s*(.*)", line)
+        if m:
+            named = re.search(r"function '(\w+)'", line)
+            owner = (report.setdefault(named.group(1), {}) if named
+                     else cur if cur is not None
+                     else report.setdefault("", {}))
+            owner.setdefault("notes", []).append(
+                f"{m.group(1)} {m.group(2).strip()}")
             continue
         if cur is None:
             continue

@@ -48,7 +48,9 @@
 // floored at 1e-30; output in q's dtype, lse = m + log(l) in f32.  The
 // bf16 forward takes exp as exp2 of scores scaled by log2(e) (the f32 one
 // calls expf): each p is within a few f32 ulps of the reference's, which
-// moves its bf16 rounding only where p lies at a boundary.  The
+// moves its bf16 rounding only where p lies at a boundary.  At hd 192 the
+// exp2 is the MUFU's alone (exp2_ftz): exp2f's value wherever that is a
+// normal float, 0 where exp2f gives a subnormal (p < 2^-126).  The
 // backward recomputes p = expf(s * scale - lse) under the mask (0 outside),
 // dS = p (dP - delta) scale, all in f32, and multiplies p and dS, which the
 // reference keeps in f32, into dV = P^T dO, dK = dS^T Q and dQ = dS K.  The
@@ -101,7 +103,12 @@
 //     (in log2 units, exp2; the row max by quad shuffles, the row sums per
 //     thread until the end), and P V with p rounded to bf16, pipelined one
 //     kv tile deep through a three-stage ring (see flash_fwd_tc_kernel).
-//     One warpgroup a block up to hd 128 (two blocks an SM), two at 192.
+//     One warpgroup a block up to hd 128 (two blocks an SM).  At hd 192
+//     a persistent block an SM, warp-specialised (flash_fwd_ws_kernel): a
+//     producer warpgroup whose one thread copies the Q and the K and V
+//     tiles by TMA into an mbarrier ring, and two consumer warpgroups of
+//     64 rows each that take turns on the tensor cores, so that one's
+//     softmax runs under the other's products.
 //   bf16 backward: S = Q K^T and dP = dO V^T (dK/dV: S^T = K Q^T, dP^T =
 //     V dO^T, so that P^T and dS^T come out with rows = keys, the rows of
 //     dV and dK); p and dS split into bf16 hi and lo for the three later
@@ -121,28 +128,34 @@
 //     4 hd, at every head dim (see the kernels).
 //   Per instance, as ptxas and the card reported them on an H100
 //   (chip_smoke.py prints them; registers, spills, shared bytes, blocks
-//   per SM; the forward with lse within two registers of these):
+//   per SM; the forward with lse within two registers of these; the
+//   hd-192 forward's registers are ptxas's count at entry, its warpgroups
+//   then set FWD_PRODUCER_REGS and FWD_CONSUMER_REGS):
 //                    hd 64              hd 128              hd 192
-//     forward   152 0 58,368 3     238 0 115,712 2     254 0 197,632 1
+//     forward   152 0 58,368 3     238 0 115,712 2     168 0 197,696 1
 //     dQ        166 0 50,176 3     245 0  99,328 2     241 0 214,016 1
 //     dK/dV     162 0 51,200 3     254 0 100,352 2     248 0 215,552 1
 //   Registers bound every kernel to few warpgroups an SM; the tensor cores
 //   idle while a warpgroup forms p (and dS).  In the forward, a
 //   timing-only build with the copies, P V, exp and the barrier all taken
 //   out kept most of a qwen3_attn call's time: the latency of each tile
-//   step's S product and softmax, not one unit, holds it back.
+//   step's S product and softmax, not one unit, holds it back.  In the
+//   hd-192 forward each consumer's CUDA-core work a step (the row max,
+//   the exps, O's rescale), about twice the other's products, holds it
+//   back: a clock64 build saw its warps issue ~94 % of their cycles.
 //   f32: every kernel on the CUDA cores (64 x 64 tiles, each thread a 4 x 4
 //     register block of scores and a 4 x hd/16 block of the output, tiles
 //     staged in f32 shared memory with a padded row so that the 16 threads
 //     of a row group hit 16 banks).  The dK/dV at hd 192 (four (64, 193)
 //     tiles and two score tiles) takes 231,424 of the 232,448 bytes a block
 //     may use.
-// Later work: TMA copies and warp-specialised warpgroups (a producer warp
-// for the copies, consumer warpgroups taking turns on the tensor cores),
-// larger kv tiles in the forward.
+// Later work: the hd-192 forward's warp specialisation for hd 64 and 128
+// and for the backward, larger kv tiles in the forward.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <initializer_list>
 #include <type_traits>
@@ -641,6 +654,13 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(unsigned (&r)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
 
 // d (64 x 32 f32, 16 a thread) = (accumulate ? d : 0) + A B^T, A (64 x 16)
 // and B (32 x 16) K-major in shared memory
@@ -680,6 +700,31 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 f32, 32 a thread) = (accumulate ? d : 0) + A B^T, A (64 x 16)
+// from registers (a warp's 16 rows as an mma.m16n8k16 A fragment), B (64 x
+// 16) K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[32],
+                                               const unsigned (&a)[4],
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // d (64 x 64 f32) += A B, A (64 x 16) from registers (a warp's 16 rows as
@@ -872,28 +917,95 @@ __device__ __forceinline__ unsigned char* smem_1k(unsigned char* raw) {
 // once done with step j-1).  Every warpgroup walks all of the block's kv
 // tiles (the union of its warpgroups' own) and masks only the tiles that
 // cross its rows' diagonal or window edge.  Blocks are ordered by q tile,
-// most kv tiles first, across every head.  One warpgroup a block up to hd
-// 128; at hd 192 one would spill (a 64 x 192 f32 O is 96 registers a
-// thread), and two keep one block an SM at 8 warps.
+// most kv tiles first, across every head.  This body runs hd 64 and 128,
+// one warpgroup a block; hd 192 runs flash_fwd_ws_kernel, whose two
+// consumer warpgroups (a 64 x 192 f32 O is 96 registers a thread) run the
+// same per-row arithmetic.
+// fwd_wgs: the warpgroups a block that own 64 query rows each;
+// fwd_ws: whether the block is warp-specialised, with a producer
+// warpgroup besides them.
 __host__ __device__ constexpr int fwd_wgs(int hd) { return hd > 128 ? 2 : 1; }
+__host__ __device__ constexpr bool fwd_ws(int hd) { return hd > 128; }
+__host__ __device__ constexpr int fwd_threads(int hd) {
+  return NTC * (fwd_wgs(hd) + (fwd_ws(hd) ? 1 : 0));
+}
 constexpr int FSTAGES = 3;          // K/V stages of the forward's ring
 constexpr float LOG2E = 1.4426950408889634f;
 
 // The online softmax of one 64 x 64 score tile (s, the S accumulator) for
 // rows qr[0], qr[1] of a thread, in log2 units, in two halves.  row_max:
 // scale by scale * log2(e) (sl) and mask (mask: the tile crosses a row's
-// diagonal or window edge), update the running max m (over the row's quad
-// by two shuffles) and set corr = 2^(m_old - m_new).  row_exp: p = 2^(s -
-// m) into s, and the thread's share of the row sums into l (reduced over
-// the quad once, at the end).  A masked score is NEG_INF in these units
-// too, so a row with no kept key in the tile gets p = 1 until a kept key's
-// correction (0) wipes it, as in the reference.
+// diagonal or window edge; scale_scores), update the running max m (over
+// the row's quad by two shuffles) and set corr = 2^(m_old - m_new)
+// (quad_max).  row_exp: p = 2^(s - m) into s, and the thread's share of
+// the row sums into l (reduced over the quad once, at the end).  A masked
+// score is NEG_INF in these units too, so a row with no kept key in the
+// tile gets p = 1 until a kept key's correction (0) wipes it, as in the
+// reference.  Masking a tile that crosses none of the rows keeps every
+// score, so MASK may be set for more tiles than need it.
+// 2^x by the MUFU alone: exp2f's value wherever 2^x is a normal float (x
+// >= -126); 0 where exp2f gives a subnormal.  exp2f adds a test and two
+// predicated products a call for those.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <bool MASK>
+__device__ __forceinline__ void scale_scores(float (&s)[32], const int (&qr)[2],
+                                             int k0, int t, int window,
+                                             float sl) {
+  // selects, not branches, per element (short-circuit tests here compiled
+  // to a branch region per element)
+  if constexpr (MASK) {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int i = (x >> 1) & 1, kp = k0 + 8 * (x >> 2) + 2 * t + (x & 1);
+      const bool kept = (kp <= qr[i]) & ((window <= 0) | (kp > qr[i] - window));
+      s[x] = kept ? s[x] * sl : NEG_INF;
+    }
+  } else {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) s[x] *= sl;
+  }
+}
+
+// The running max of row_max, its thread's 16 scores a row taken as a tree
+// (a maximum is exact, so its order does not matter: four dependent steps
+// instead of sixteen), and corr by exp2_ftz.
+__device__ __forceinline__ void quad_max(const float (&s)[32], float (&m)[2],
+                                         float (&corr)[2]) {
+  float mx[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {     // row i: elements 4 j + 2 i + e
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]);
+#pragma unroll
+    for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+      for (int j = 0; j < w; ++j) v[j] = fmaxf(v[j], v[j + w]);
+    mx[i] = fmaxf(NEG_INF, v[0]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {     // a row's four threads are one quad
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    corr[i] = exp2_ftz(m[i] - m_new);
+    m[i] = m_new;
+  }
+}
+
+// row_max, for hd 64 and 128: the mask chosen at run time (one branch for
+// the tile), the maxima in one chain and corr by exp2f, as that forward
+// was compiled (splitting it gave ptxas other register counts there).  The
+// hd-192 forward calls scale_scores and quad_max.
 __device__ __forceinline__ void row_max(float (&s)[32], float (&m)[2],
                                         float (&corr)[2], const int (&qr)[2],
                                         int k0, int t, bool mask, int window,
                                         float sl) {
-  // one branch for the tile, and selects, not branches, per element
-  // (short-circuit tests here compiled to a branch region per element)
   if (mask) {
 #pragma unroll
     for (int x = 0; x < 32; ++x) {
@@ -918,6 +1030,7 @@ __device__ __forceinline__ void row_max(float (&s)[32], float (&m)[2],
   }
 }
 
+template <bool FTZ = false>
 __device__ __forceinline__ void row_exp(float (&s)[32], const float (&m)[2],
                                         float (&l)[2],
                                         const float (&corr)[2]) {
@@ -925,7 +1038,7 @@ __device__ __forceinline__ void row_exp(float (&s)[32], const float (&m)[2],
 #pragma unroll
   for (int x = 0; x < 32; ++x) {
     const int i = (x >> 1) & 1;
-    s[x] = exp2f(s[x] - m[i]);
+    s[x] = FTZ ? exp2_ftz(s[x] - m[i]) : exp2f(s[x] - m[i]);
     sum[i] += s[x];
   }
 #pragma unroll
@@ -941,6 +1054,7 @@ __global__ void __launch_bounds__(NTC * fwd_wgs(HD))
                         int window, float scale) {
   constexpr int TILE = BQ * HD, FWG = fwd_wgs(HD);
   constexpr int NTH = NTC * FWG, BQF = BQ * FWG;
+  static_assert(!fwd_ws(HD), "hd 192 runs flash_fwd_ws_kernel");
   extern __shared__ unsigned char smem_fwd[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_1k(smem_fwd));  // warpgroup w's at w TILE
   bf16* ring = Qs + FWG * TILE;     // stage st: K at 2 st TILE, V after it
@@ -1086,6 +1200,347 @@ __global__ void __launch_bounds__(NTC * fwd_wgs(HD))
     for (int i = 0; i < 2; ++i)
       if (qr[i] < S)
         lse[((long long)b * H + h) * S + qr[i]] = m[i] / LOG2E + logf(den[i]);
+}
+
+// Registers a thread of the hd-192 forward's producer warpgroup and of each
+// of its consumer warpgroups after setmaxnreg: 128 x 24 + 256 x 240 =
+// 64,512 of the SM's 65,536 (kernels/flash.py names the same two).
+constexpr int FWD_PRODUCER_REGS = 24;
+constexpr int FWD_CONSUMER_REGS = 240;
+static_assert(NTC * FWD_PRODUCER_REGS + 2 * NTC * FWD_CONSUMER_REGS <= 65536,
+              "the register file of an SM");
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// one arrival that also adds bytes the barrier's phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One (64 columns, 64 rows) box of a (hd, S, heads, batch) bf16 tensor map
+// into 8 KB of shared memory, completing on bar.  With the map's 128-byte
+// swizzle and a 1 KB aligned destination, the box lands in the layout of
+// swz: row r's 16-byte piece c at piece c ^ (r % 8).  Rows at or past S
+// arrive as zeros.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int col, int row,
+                                        int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+// rows [row0, row0 + 64) of one head into a (64, HD) swizzled tile: HD / 64
+// boxes, one a column block
+template <int HD>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row0, int head,
+                                         int batch) {
+#pragma unroll
+  for (int cb = 0; cb < HD / 64; ++cb)
+    tma_box(dst + cb * BQ * 64, map, bar, 64 * cb, row0, head, batch);
+}
+
+// The bf16 forward at hd 192 (rows 9b and 10b), warp-specialised and
+// persistent: a block of three warpgroups on each SM walks its share of
+// the work items, (128 query rows, query head, batch) each, taken in
+// flash_fwd_tc_kernel's order (most kv tiles first, across every head)
+// and dealt to the blocks in rounds, back and forth (block c takes item
+// r G + c in even rounds r and r G + G - 1 - c in odd ones, G blocks), so
+// that every block gets about the same number of tiles.
+//   Warpgroup 0, the producer, drops to FWD_PRODUCER_REGS registers; one
+//   of its threads copies, item after item, the two 64-row Q tiles (once
+//   the consumers have Q in registers: the "qempty" mbarrier) and then,
+//   tile after tile, K and V by TMA into a ring of FSTAGES stages, each
+//   with a "full" mbarrier (the copies' bytes) and an "empty" one (a
+//   consumer warp's arrival each once it no longer reads the stage).  So
+//   the next item's Q and first tiles load while the consumers finish an
+//   item.
+//   Warpgroups 1 and 2, the consumers, rise to FWD_CONSUMER_REGS and own
+//   an item's query rows [q0, q0 + 64) and [q0 + 64, q0 + 128).  Each
+//   runs flash_fwd_tc_kernel's per-row arithmetic in its order (the scaled
+//   and masked scores, the running max, corr, the exps and the thread's
+//   row sums, O rescaled by the last tile's correction before P V, P V in
+//   ascending tile order into one f32 accumulator, the row sums reduced at
+//   the end), pipelined one kv tile deep: step j issues S_j = Q K_j^T (Q
+//   from registers), then O += P_{j-1} V_{j-1}, and forms the row max and
+//   the exps of S_j while P V runs.  Three savings keep its values: the
+//   max as a tree (exact in any order), the exp2s by the MUFU alone
+//   (exp2_ftz), and O's rescale skipped where every row of a warp has
+//   corr 1 (a product by 1 leaves O as it is).
+//   The turns: a consumer issues a step's products only in its
+//   turn, handed over by two named barriers of 256 threads, so that the
+//   tensor cores run one consumer's products while the other forms its
+//   softmax on the CUDA cores.  Both walk every kv tile of an item (the
+//   union; consumer 0's last is masked whole, as in flash_fwd_tc_kernel),
+//   so each takes nkt + 1 turns an item; consumer 1 opens consumer 0's
+//   first turn and skips the hand-over after its very last, so every
+//   barrier's arrivals match its waits.
+// The warpgroup index is broadcast from lane 0 so that ptxas sees the role
+// branch uniform: a warpgroup-dependent branch around wgmma serializes
+// every product of the kernel.
+template <int HD, bool STATS>
+__global__ void __launch_bounds__(fwd_threads(HD), 1)
+    flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        bf16* __restrict__ o, float* __restrict__ lse,
+                        Strides os, int B, int H, int KV, int S, int window,
+                        float scale) {
+  constexpr int TILE = BQ * HD, CW = fwd_wgs(HD), BQF = BQ * CW;
+  constexpr unsigned TILE_BYTES = sizeof(bf16) * TILE;
+  static_assert(fwd_ws(HD) && CW == 2, "two consumers take turns");
+  extern __shared__ unsigned char smem_fwd[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_1k(smem_fwd));  // consumer c's at c TILE
+  bf16* ring = Qs + CW * TILE;      // stage st: K at 2 st TILE, V after it
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + 2 * FSTAGES * TILE);
+  uint64_t* empty = full + FSTAGES;
+  uint64_t* qfull = empty + FSTAGES;
+  uint64_t* qempty = qfull + 1;
+
+  const int nq = (S + BQF - 1) / BQF, hb = H * B, items = nq * hb;
+  const int G = gridDim.x, blk = blockIdx.x;
+  // the block's item of round r (at or past items: none)
+  auto item_of = [&](int r) { return r * G + (r & 1 ? G - 1 - blk : blk); };
+  // an item's first row, head, batch and kv tiles
+  struct Item {
+    int q0, h, b, kt_first, nkt;
+  };
+  auto item = [&](int i) {
+    Item it;
+    it.q0 = (nq - 1 - i / hb) * BQF;  // most kv tiles first
+    it.h = i % hb % H;
+    it.b = i % hb / H;
+    it.kt_first = window > 0 ? max(0, it.q0 - window + 1) / BK : 0;
+    it.nkt = (min(it.q0 + BQF, S) - 1) / BK - it.kt_first + 1;
+    return it;
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < FSTAGES; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, 4 * CW);
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, 4 * CW);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);   // uniform
+  if (wg == 0) {                    // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(FWD_PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      int g = 0;                    // tiles copied so far
+      for (int r = 0; item_of(r) < items; ++r) {
+        const Item w = item(item_of(r));
+        const int kvh = w.h / (H / KV);
+        if (r > 0) mbar_wait(qempty, (r - 1) & 1);
+        mbar_expect_tx(qfull, CW * TILE_BYTES);
+        for (int c = 0; c < CW; ++c)
+          tma_tile<HD>(Qs + c * TILE, &tq, qfull, w.q0 + BQ * c, w.h, w.b);
+        for (int it = 0; it < w.nkt; ++it, ++g) {
+          const int st = g % FSTAGES, k0 = (w.kt_first + it) * BK;
+          if (g >= FSTAGES) mbar_wait(empty + st, (g / FSTAGES - 1) & 1);
+          mbar_expect_tx(full + st, 2 * TILE_BYTES);
+          tma_tile<HD>(ring + 2 * st * TILE, &tk, full + st, k0, kvh, w.b);
+          tma_tile<HD>(ring + (2 * st + 1) * TILE, &tv, full + st, k0, kvh, w.b);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(FWD_CONSUMER_REGS));
+
+  const int c = wg - 1;             // the consumer
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g4 = lane >> 2, t = lane & 3;
+  const float sl = scale * LOG2E;
+  // the turns: consumer c's products wait on named barrier 1 + c, which the
+  // other consumer's hand-over completes (barrier 0 is __syncthreads')
+  auto take_turn = [&]() {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "n"(2 * NTC) : "memory");
+  };
+  auto pass_turn = [&]() {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - c), "n"(2 * NTC) : "memory");
+  };
+
+  float m[2], l[2], corr[2];
+  float acc[HD / 2];
+  unsigned pa[BK / 16][4];          // the last tile's p in bf16: the A of P V
+  unsigned qa[HD / 16][4];          // Q: the A of S, the k16 step d of the
+                                    // warp's 16 rows (see the note above wgmma_rs)
+  float s[32];                      // S, then p, of the current tile
+  // O rescaled by a tile's correction (skipped where every row of the warp
+  // has corr 1, which leaves O as it is) and its p rounded to bf16 into
+  // pa, both held before the products' fence (else nvcc sinks them past it
+  // and ptxas injects another)
+  auto rescale_and_pack = [&]() {
+    if (!__all_sync(0xffffffffu, (corr[0] == 1.0f) & (corr[1] == 1.0f)))
+#pragma unroll
+      for (int x = 0; x < HD / 2; ++x) acc[x] *= corr[(x >> 1) & 1];
+#pragma unroll
+    for (int st = 0; st < BK / 16; ++st)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[st][i] = bf16x2_bits(__floats2bfloat162_rn(s[8 * st + 2 * i],
+                                                      s[8 * st + 2 * i + 1]));
+    fence_regs(acc);
+    fence_regs(pa);
+  };
+  // S of the tile in stage Ks into s, issued (after a wg_fence)
+  auto score = [&](const bf16* Ks) {
+#pragma unroll
+    for (int d = 0; d < HD / 16; ++d)
+      wgmma_rs_n64_k(s, qa[d], desc_k(Ks, 0, d), d);
+    wg_commit();
+  };
+
+  if (c == 1) pass_turn();          // consumer 0 takes the first turn
+  int g = 0;                        // tiles of the ring read so far
+  for (int r = 0; item_of(r) < items; ++r) {
+    const Item w = item(item_of(r));
+    const bool last_item = item_of(r + 1) >= items;
+    const int r0 = w.q0 + BQ * c;   // the consumer's first row
+    const int qr[2] = {r0 + 16 * warp + g4, r0 + 16 * warp + g4 + 8};
+    // whether kv tile it crosses the diagonal or the window edge of a row
+    // of the item (of either consumer): one test for both, so that the
+    // loop's control flow is the item's
+    auto crosses = [&](int it) {
+      const int k0 = (w.kt_first + it) * BK;
+      return k0 + BK - 1 > w.q0 || (window > 0 && k0 <= w.q0 + BQF - 1 - window);
+    };
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[i] = NEG_INF;
+      l[i] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+
+    mbar_wait(qfull, r & 1);
+    {
+      const bf16* Qw = Qs + c * TILE;
+#pragma unroll
+      for (int d = 0; d < HD / 16; ++d)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qa[d][i] = *reinterpret_cast<const unsigned*>(
+              Qw + swz(16 * warp + g4 + 8 * (i & 1), 16 * d + 2 * t + 8 * (i >> 1)));
+    }
+    __syncwarp();                   // the warp's reads of Q are done:
+    if (lane == 0) mbar_arrive(qempty);   // the next item's Q may come in
+
+    {                               // tile 0: S only
+      const int st = g % FSTAGES;
+      mbar_wait(full + st, (g / FSTAGES) & 1);
+      take_turn();
+      wg_fence();
+      score(ring + 2 * st * TILE);
+      pass_turn();
+      wg_wait<0>();
+      fence_regs(s);
+      if (crosses(0))
+        scale_scores<true>(s, qr, w.kt_first * BK, t, window, sl);
+      else
+        scale_scores<false>(s, qr, w.kt_first * BK, t, window, sl);
+      quad_max(s, m, corr);
+      row_exp<true>(s, m, l, corr);
+    }
+    // Step it: O rescaled by tile it - 1's correction and its p packed; in
+    // the turn, S_it and then O += P_{it-1} V_{it-1} issued; the row max
+    // and the exps of tile it while P V runs; tile it - 1's stage
+    // released.  A step is compiled twice, masked and not, so that no
+    // branch sits between the issue of P V and its wait (ptxas put the
+    // wait at a branch's join, ahead of the shuffles and the exps).
+    auto step = [&](int it, auto masked) {
+      const int st = (g + it) % FSTAGES, sp = (g + it - 1) % FSTAGES;
+      rescale_and_pack();
+      mbar_wait(full + st, ((g + it) / FSTAGES) & 1);
+      take_turn();
+      wg_fence();
+      score(ring + 2 * st * TILE);
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k)
+        wgmma_rs<HD>(acc, pa[k], ring + (2 * sp + 1) * TILE, k);
+      wg_commit();
+      pass_turn();
+      wg_wait<1>();                 // S is in
+      fence_regs(s);
+      scale_scores<decltype(masked)::value>(s, qr, (w.kt_first + it) * BK, t,
+                                            window, sl);
+      quad_max(s, m, corr);
+      row_exp<true>(s, m, l, corr); // under P V
+      fence_regs(s);
+      wg_wait<0>();                 // P V is in
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty + sp);
+    };
+    for (int it = 1; it < w.nkt; ++it) {
+      if (crosses(it))
+        step(it, std::true_type{});
+      else
+        step(it, std::false_type{});
+    }
+    {                               // the last tile's P V
+      const int sp = (g + w.nkt - 1) % FSTAGES;
+      rescale_and_pack();
+      take_turn();
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k)
+        wgmma_rs<HD>(acc, pa[k], ring + (2 * sp + 1) * TILE, k);
+      wg_commit();
+      if (c == 0 || !last_item) pass_turn();   // consumer 1's very last: none
+      wg_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty + sp);
+    }
+    g += w.nkt;
+
+    float den[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {   // the row sums over the quad
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      den[i] = fmaxf(l[i], 1e-30f);
+    }
+    bf16* out = o + w.b * os.b + w.h * os.h;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const float vals[4] = {acc[4 * n] / den[0], acc[4 * n + 1] / den[0],
+                             acc[4 * n + 2] / den[1], acc[4 * n + 3] / den[1]};
+      store_c(out, os.s, qr[0], 8 * n + 2 * t, vals, S);
+    }
+    if (STATS && t == 0)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (qr[i] < S)
+          lse[((long long)w.b * H + w.h) * S + qr[i]] = m[i] / LOG2E + logf(den[i]);
+  }
 }
 
 // Warpgroups of a bf16 backward block (dQ and dK/dV): one up to hd 128; at
@@ -1809,13 +2264,15 @@ __global__ void __launch_bounds__(NTC * bwd_wgs(HD))
 //   cores; bf16: swizzled (64, hd) tiles (resident ones, then the stages
 //   of the streamed ones: 3 in the forward, 2 in the backward, 3 in the
 //   two-warpgroup backward at hd 192), for dK/dV the lse and delta rows of
-//   each stage, at hd 192 the warpgroups' 64 x 64 f32 swap, and 1 KB to
+//   each stage, at hd 192 the backward warpgroups' 64 x 64 f32 swap and
+//   the forward's mbarriers (full and empty a stage, and Q's), and 1 KB to
 //   align the tiles.
 constexpr size_t f32_tile(int rows, int hd) {
   return sizeof(float) * rows * (hd + 1);
 }
 constexpr size_t fwd_bytes(bool tc, int hd) {
-  return tc ? sizeof(bf16) * (fwd_wgs(hd) + 2 * FSTAGES) * BQ * hd + 1024
+  return tc ? sizeof(bf16) * (fwd_wgs(hd) + 2 * FSTAGES) * BQ * hd + 1024 +
+                  (fwd_ws(hd) ? sizeof(uint64_t) * (2 * FSTAGES + 2) : 0)
             : 2 * f32_tile(BQ, hd) + f32_tile(BQ, BK);
 }
 constexpr size_t swap_bytes(int hd) {
@@ -1868,8 +2325,13 @@ struct Instance {
   static constexpr bool TC = std::is_same<T, bf16>::value;
   static const void* kernel(int kind) {
     if constexpr (TC) {
-      if (kind == 0) return (const void*)flash_fwd_tc_kernel<HD, false>;
-      if (kind == 1) return (const void*)flash_fwd_tc_kernel<HD, true>;
+      if constexpr (fwd_ws(HD)) {
+        if (kind == 0) return (const void*)flash_fwd_ws_kernel<HD, false>;
+        if (kind == 1) return (const void*)flash_fwd_ws_kernel<HD, true>;
+      } else {
+        if (kind == 0) return (const void*)flash_fwd_tc_kernel<HD, false>;
+        if (kind == 1) return (const void*)flash_fwd_tc_kernel<HD, true>;
+      }
       if (kind == 2) return (const void*)flash_bwd_dq_tc_kernel<HD>;
       return (const void*)flash_bwd_dkv_tc_kernel<HD>;
     } else {
@@ -1881,7 +2343,7 @@ struct Instance {
   }
   static int threads(int kind) {
     if (!TC) return NT;
-    return NTC * (kind < 2 ? fwd_wgs(HD) : bwd_wgs(HD));
+    return kind < 2 ? fwd_threads(HD) : NTC * bwd_wgs(HD);
   }
   static size_t smem(int kind) {
     return kind < 2 ? fwd_bytes(TC, HD)
@@ -1889,7 +2351,59 @@ struct Instance {
   }
 };
 
-// bf16 runs the tensor-core forward, f32 the CUDA-core one.
+// Errors of the launch entry points beyond CUDA's own (flash_error_string
+// names them): libcuda has no cuTensorMapEncodeTiled, or it refused a
+// tensor map.
+constexpr int FLASH_NO_TMA_ENCODE = 10000;
+constexpr int FLASH_BAD_TENSOR_MAP = 10001;
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime so that the
+// library links no libcuda; null where libcuda lacks it.
+EncodeTiled encode_tiled() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+  return reinterpret_cast<EncodeTiled>(fn);
+}
+
+// The TMA map of a (B, heads, S, hd) bf16 tensor at p with (batch, head,
+// sequence) element strides st: dims (hd, S, heads, B), innermost first,
+// byte strides, (64, 64, 1, 1) boxes in the 128-byte swizzle of the
+// tiles; rows past S read as zeros.
+int tensor_map(CUtensorMap* map, const void* p, const long long* st, int hd,
+               int S, int heads, int B) {
+  static const EncodeTiled encode = encode_tiled();
+  if (!encode) return FLASH_NO_TMA_ENCODE;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {sizeof(bf16) * st[2], sizeof(bf16) * st[1],
+                                 sizeof(bf16) * st[0]};
+  const cuuint32_t box[4] = {64, (cuuint32_t)BK, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : FLASH_BAD_TENSOR_MAP;
+}
+
+// bf16 runs the tensor-core forward (warp-specialised on TMA maps at hd
+// 192), f32 the CUDA-core one.
 template <typename T, int HD>
 int fwd(int stats, const void* q, const void* k, const void* v, void* o,
         void* lse, const long long* st, int B, int H, int KV, int S,
@@ -1900,15 +2414,36 @@ int fwd(int stats, const void* q, const void* k, const void* v, void* o,
     // one block per (q tile, head, batch), q tiles in the slowest place
     const int rows = BQ * fwd_wgs(HD);
     const dim3 grid((S + rows - 1) / rows * H * B);
-    if (stats)
-      return launch(flash_fwd_tc_kernel<HD, true>, grid, I::threads(1), I::smem(1), s,
-                    (const T*)q, (const T*)k, (const T*)v, (T*)o,
-                    (float*)lse, strides(st, 0), strides(st, 1),
+    if constexpr (fwd_ws(HD)) {
+      CUtensorMap tq, tk, tv;
+      int err = tensor_map(&tq, q, st, HD, S, H, B);
+      if (!err) err = tensor_map(&tk, k, st + 3, HD, S, KV, B);
+      if (!err) err = tensor_map(&tv, v, st + 6, HD, S, KV, B);
+      // persistent: a block an SM, or one an item where there are fewer
+      int dev = 0, sms = 0;
+      if (!err) err = (int)cudaGetDevice(&dev);
+      if (!err)
+        err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err) return err;
+      const dim3 blocks(std::min<unsigned>(grid.x, (unsigned)sms));
+      if (stats)
+        return launch(flash_fwd_ws_kernel<HD, true>, blocks, I::threads(1),
+                      I::smem(1), s, tq, tk, tv, (T*)o, (float*)lse,
+                      strides(st, 3), B, H, KV, S, window, scale);
+      return launch(flash_fwd_ws_kernel<HD, false>, blocks, I::threads(0),
+                    I::smem(0), s, tq, tk, tv, (T*)o, (float*)lse,
+                    strides(st, 3), B, H, KV, S, window, scale);
+    } else {
+      if (stats)
+        return launch(flash_fwd_tc_kernel<HD, true>, grid, I::threads(1),
+                      I::smem(1), s, (const T*)q, (const T*)k, (const T*)v,
+                      (T*)o, (float*)lse, strides(st, 0), strides(st, 1),
+                      strides(st, 2), strides(st, 3), H, KV, S, window, scale);
+      return launch(flash_fwd_tc_kernel<HD, false>, grid, I::threads(0),
+                    I::smem(0), s, (const T*)q, (const T*)k, (const T*)v,
+                    (T*)o, (float*)lse, strides(st, 0), strides(st, 1),
                     strides(st, 2), strides(st, 3), H, KV, S, window, scale);
-    return launch(flash_fwd_tc_kernel<HD, false>, grid, I::threads(0), I::smem(0), s,
-                  (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
-                  strides(st, 0), strides(st, 1), strides(st, 2),
-                  strides(st, 3), H, KV, S, window, scale);
+    }
   } else {
     const dim3 grid((S + BQ - 1) / BQ, H, B);
     if (stats)
@@ -2037,6 +2572,10 @@ struct Info {
 }  // namespace
 
 extern "C" const char* flash_error_string(int err) {
+  if (err == FLASH_NO_TMA_ENCODE)
+    return "libcuda has no cuTensorMapEncodeTiled";
+  if (err == FLASH_BAD_TENSOR_MAP)
+    return "cuTensorMapEncodeTiled refused a tensor map of q, k or v";
   return cudaGetErrorString((cudaError_t)err);
 }
 

@@ -7,7 +7,11 @@ replace the TPU kernels of ``repro/kernels/flash.py`` (``_flash_kernel``,
 fully masked (q tile, kv tile) pair; in bf16 every tile product runs on
 the tensor cores as ``wgmma`` (the forward's softmax in registers between
 its two products, the backward's p and dS split into bf16 hi + lo pairs;
-see the note in ``flash.cu``).
+see the note in ``flash.cu``).  The bf16 forward at hd 192 is
+warp-specialised and persistent (a block an SM): a producer warpgroup
+copies the tiles by TMA (a tensor map of q, k and v each, encoded at
+every launch) and two consumer warpgroups take turns on the tensor
+cores.
 CPU tensors run the plain versions: :func:`flash_attention_plain`,
 the chunked online softmax of the reference's ``models/layers.py``
 ``_flash_attention`` in the kernels' layout and numerics, for the two
@@ -47,9 +51,10 @@ KERNEL_HEAD_DIMS = (64, 128, 192)
 # Shared memory a block may use on the H100 (227 KB), and what each kernel
 # instance takes (smem_bytes), as csrc/flash.cu counts it: a bf16 forward
 # block is fwd_warpgroups(hd) warpgroups on as many 64-row q tiles and
-# streams K and V through FWD_STAGES stages; a bf16 backward block holds
-# one 64-row tile of two tensors (Q and dO for dQ, K and V for dK/dV),
-# streams the other two through bwd_stages(hd) stages and, with
+# streams K and V through FWD_STAGES stages (at hd 192 with a full and an
+# empty mbarrier a stage and two for Q, 8 bytes each); a bf16 backward
+# block holds one 64-row tile of two tensors (Q and dO for dQ, K and V for
+# dK/dV), streams the other two through bwd_stages(hd) stages and, with
 # bwd_warpgroups(hd) = 2, swaps halves of its 64 x 64 f32 scores between
 # the two warpgroups.
 SMEM_LIMIT = 232448
@@ -57,11 +62,30 @@ FWD_STAGES = 3
 STAGES = 2
 WIDE_STAGES = 3
 KERNELS = ("flash_fwd", "flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")
+# Registers a thread of the warp-specialised bf16 forward's (hd 192)
+# producer warpgroup and of each consumer warpgroup, as its setmaxnreg sets
+# them (csrc/flash.cu names the same two constants); ptxas reports the
+# kernel's count at entry.
+FWD_PRODUCER_REGS = 24
+FWD_CONSUMER_REGS = 240
 
 
 def fwd_warpgroups(hd: int) -> int:
-    """Warpgroups of a bf16 forward block (csrc/flash.cu ``fwd_wgs``)."""
+    """Warpgroups of a bf16 forward block that own 64 query rows each
+    (csrc/flash.cu ``fwd_wgs``)."""
     return 2 if hd > 128 else 1
+
+
+def fwd_specialised(hd: int) -> bool:
+    """Whether the bf16 forward block at ``hd`` is warp-specialised, with
+    a producer warpgroup besides its fwd_warpgroups(hd) (csrc/flash.cu
+    ``fwd_ws``)."""
+    return hd > 128
+
+
+def fwd_threads(hd: int) -> int:
+    """Threads of a bf16 forward block (csrc/flash.cu ``fwd_threads``)."""
+    return 128 * (fwd_warpgroups(hd) + fwd_specialised(hd))
 
 
 def bwd_warpgroups(hd: int) -> int:
@@ -87,7 +111,9 @@ def smem_bytes(kname: str, dtype: torch.dtype, hd: int) -> int:
         raise ValueError(f"unknown flash kernel {kname!r}")
     if dtype == torch.bfloat16:
         if kname.startswith("flash_fwd"):
-            return 2 * (fwd_warpgroups(hd) + 2 * FWD_STAGES) * t * hd + 1024
+            bars = 8 * (2 * FWD_STAGES + 2) if fwd_specialised(hd) else 0
+            tiles = 2 * (fwd_warpgroups(hd) + 2 * FWD_STAGES) * t * hd
+            return tiles + 1024 + bars
         tiles = 2 * (2 + 2 * bwd_stages(hd)) * t * hd + 1024
         swap = 4 * t * t if bwd_warpgroups(hd) > 1 else 0   # f32 scores
         if kname == "flash_bwd_dq":

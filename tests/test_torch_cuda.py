@@ -790,6 +790,11 @@ FLASH = {
     "hd192_long_ring": (1, 24, 2, 2048, 192, None),
     # the model's (B, S, H, hd) activations, handed over as strided views
     "hd192_model_layout": (2, 24, 2, 384, 192, None),
+    # the hd-192 forward's 128-row blocks: the last block's second consumer
+    # has no row inside S (its Q tile arrives as zeros), and S shorter than
+    # one tile
+    "hd192_last_block_half": (1, 12, 1, 320, 192, None),
+    "hd192_short": (1, 12, 1, 40, 192, None),
 }
 # cells whose tensors are (B, S, heads, hd) transposed to (B, heads, S, hd)
 MODEL_LAYOUT = ("hd192_model_layout",)

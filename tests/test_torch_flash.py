@@ -2,6 +2,8 @@
 chunked online softmax, and the dense oracle) against the reference
 package's Pallas kernels in interpret mode, its oracle and its model's
 chunked attention."""
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -246,6 +248,38 @@ def test_bf16_backward_shared_memory_is_pinned(kname, hd, want):
     assert flash.bwd_stages(hd) == (3 if hd == 192 else 2)
 
 
+# The bf16 forward's shared memory a block: up to hd 128 one warpgroup's Q
+# tile and three K/V stages (unchanged since the kernels were written); at
+# hd 192 two consumers' Q tiles, three K/V stages and the warp-specialised
+# block's eight mbarriers (full and empty a stage, and Q's two).
+FWD_SMEM = [(64, 58368), (128, 115712), (192, 197696)]
+
+
+@pytest.mark.parametrize("hd,want", FWD_SMEM)
+def test_bf16_forward_shared_memory_is_pinned(hd, want):
+    for kname in ("flash_fwd", "flash_fwd_stats"):
+        assert flash.smem_bytes(kname, torch.bfloat16, hd) == want
+    assert want <= flash.SMEM_LIMIT
+    assert flash.fwd_warpgroups(hd) == (2 if hd == 192 else 1)
+    assert flash.fwd_specialised(hd) == (hd == 192)
+    assert flash.fwd_threads(hd) == (384 if hd == 192 else 128)
+
+
+def test_forward_register_split_is_the_kernels():
+    """The warp-specialised forward's setmaxnreg values: the host's
+    constants are the ones csrc/flash.cu names, multiples of 8 in [24, 256]
+    (setmaxnreg's rule), and the producer warpgroup and the two consumers
+    fit in the SM's 65,536 registers together."""
+    import pathlib
+    src = (pathlib.Path(flash.__file__).parent / "csrc" / "flash.cu").read_text()
+    for name in ("FWD_PRODUCER_REGS", "FWD_CONSUMER_REGS"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == getattr(flash, name), name
+        assert getattr(flash, name) % 8 == 0 and 24 <= getattr(flash, name) <= 256
+    consumers = flash.fwd_threads(192) - 128
+    assert 128 * flash.FWD_PRODUCER_REGS + consumers * flash.FWD_CONSUMER_REGS <= 65536
+
+
 def test_bwd_inputs_start_rows_on_16_bytes():
     """The bf16 backward copies rows in 16-byte pieces: the wrapper passes
     an aligned view as it is and copies one that is not."""
@@ -291,6 +325,44 @@ def test_ptxas_report_is_parsed():
                  smem=0),
         "_Z3fooPf": dict(stack=0, spill_stores=0, spill_loads=0,
                          registers=32, smem=1024)}
+
+
+def test_ptxas_notes_are_collected_by_kernel():
+    """ptxas's coded notes (a serialized wgmma, an ignored setmaxnreg) land
+    in the ``notes`` of the kernel they name, else of the kernel being
+    compiled; a kernel without one has no ``notes``, and the card run
+    fails on any note of a bf16 flash instance."""
+    from repro_torch.kernels import build
+    ws = "_ZN12_GLOBAL__N_119flash_fwd_ws_kernelILi192ELb0EEEv11CUtensorMap"
+    tc = "_ZN12_GLOBAL__N_119flash_fwd_tc_kernelILi128ELb1EEEvPK13__nv_bfloat16"
+    log = (
+        f"ptxas info    : Compiling entry function '{ws}' for 'sm_90a'\n"
+        "ptxas info    : (C7508) Potential Performance Loss: setmaxnreg "
+        "ignored; unable to determine register count at entry.\n"
+        f"ptxas info    : Function properties for {ws}\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 560 bytes "
+        "cmem[0]\n"
+        f"ptxas info    : Compiling entry function '{tc}' for 'sm_90a'\n"
+        "ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized due to wgmma pipeline crossing function "
+        f"boundary at a function call in the function '{tc}'\n"
+        f"ptxas info    : Function properties for {tc}\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 238 registers, 560 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'\n"
+        "ptxas info    : Used 32 registers, 360 bytes cmem[0]\n")
+    rep = build.parse_ptxas(log)
+    assert rep[ws]["registers"] == 168 and rep[tc]["registers"] == 238
+    assert rep[ws]["notes"] == [
+        "C7508 Potential Performance Loss: setmaxnreg ignored; unable to "
+        "determine register count at entry."]
+    assert [n[:5] for n in rep[tc]["notes"]] == ["C7520"]
+    assert "notes" not in rep["_Z3fooPf"]
+    stray = build.parse_ptxas("ptxas info    : (C7510) Potential "
+                              "Performance Loss: wgmma serialized\n")
+    assert stray == {"": {"notes": ["C7510 Potential Performance Loss: "
+                                    "wgmma serialized"]}}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
