@@ -111,8 +111,10 @@ path through the public API at the paper's sizes:
   ``launch/mesh.py``), in worlds of spawned ranks that load the kernels
   built here and check their own launches: sharded_main_11, the main cell
   at batch 8 on a (1, 1) mesh of one NCCL rank with one all-reduce (FP,
-  BP and SIRT-50 bit-equal to the single-device Projector); in one gloo
-  world of 4 ranks sharing the card, sharded_3d (the 3D cell on a (2, 2)
+  BP, SIRT-50, FISTA-TV-30 with its power iteration, refinement-20 on
+  half of the views and the projection residual bit-equal to the
+  single-device Projector); in one gloo world of 4 ranks sharing the
+  card, sharded_3d (the 3D cell on a (2, 2)
   mesh: 90 views, 256 slices and 256 rows a rank, halo 0), sharded_cone
   (the cone cell on (2, 2), halo 1 from ``suggest_halo``, 256-row blocks;
   halo 0 refused) and helical_long (512x512x64, 8 turns of 8 mm pitch in
@@ -120,8 +122,10 @@ path through the public API at the paper's sizes:
   pipeline, halo 7, a 30-slice slab a rank), each with FP and BP against
   the single-device kernel pair (2e-5; BP atol 2e-5 max|BP|), the dot
   test (< 1e-6), the overlap schedule against one all-reduce (1e-5, atol
-  scaled by max|BP|), per-rank times and peak memory, and on
-  helical_long SIRT-12 (within 1e-4 of one device, residual below 0.25
+  scaled by max|BP|), per-rank times and peak memory, on sharded_3d the
+  power iteration (3), FISTA-TV-3 (1e-4) and refinement-3 (relative L2
+  1e-4) against one device, and on helical_long SIRT-12 (within 1e-4 of
+  one device, residual below 0.25
   of its first) and CGLS-10 (relative L2 1e-4); dp_train, a gloo world of
   2 ranks: ``CTTrainer(data_parallel=True)`` at n = 512 (TrainConfig
   defaults, batch 4) for 3 steps against one device (DP_HALVES_TOL,
@@ -185,13 +189,25 @@ path through the public API at the paper's sizes:
   bf16), random weights from seed 0, tokens from ``TokenPipeline(seed 0)``:
   lm_prefill (2 prompts of 4096 tokens through ``make_prefill_step``; the
   forward kernel 28 times; against the plain attention), lm_grad (the
-  loss gradient at 1 x 4096; the three gradient kernels 28 times each; a
+  loss gradient at 1 x 4096 under the config's remat "full": the forward
+  with statistics 56 times, the two backward kernels 28 times each; a
   4-layer cut of the same widths against plain autograd), lm_serve (the
   continuous-batching ``Server``, 4 slots, 8 requests of 3-9 prompt tokens
   and 16 new ones, against offline greedy decoding; and a 3072-token prompt
   decoded token by token against the forward's logits at its last 8
-  positions, on the first 4 layers: decoding is launch-bound, ~70 ms a
+  positions, on the first 2 layers: decoding is launch-bound, ~70 ms a
   step at 28 layers).
+* lm_train — ``launch/train.train_loop`` trains Qwen3-0.6B at its
+  published widths and depth (remat "full", f32 master parameters, bf16
+  compute) for 8 steps of 4 x 4096 tokens in 2 microbatches on
+  ``build``'s AdamW: the median step (CUDA events between steps, after the
+  first), tokens/s, peak memory and the losses (the last below the
+  first); the forward with statistics 8 x 2 x 28 x 2 times, the backward
+  kernels 8 x 2 x 28.  On a 2-layer cut of the same widths: one step
+  against ``backend="ref"`` (5e-2), remat none / full / dots bit-equal
+  with each one's peak memory, a ``Supervisor`` resume from a failure at
+  step 3 (checkpoints every 2 steps; losses within 1e-6 of the
+  uninterrupted run), and 3 steps with 1-bit compression.
 
 After the build it prints ptxas's registers and spills of every flash
 kernel instance (four kernels, f32 and bf16, hd 64, 128 and 192), of
@@ -219,8 +235,8 @@ dropped thread-views, columns and terms.
 
 runs only the build and the named cells of the projector kernel phase,
 for comparing kernel sources on one card, and prints no ok line;
-``--phases serve,autotune`` (or ``sharded``) runs only the build and those
-phases.
+``--phases serve,autotune`` (or ``sharded``, ``lm_train``) runs only the
+build and those phases.
 ``--train-breakdown FILE`` is the child process the full run starts for
 the training step's breakdown.
 
@@ -275,8 +291,9 @@ F32_TOL = 2e-4          # kernel vs plain, as tests/test_kernels.py:33-46
 LM_PREFILL_REL_TOL = 5e-2
 LM_GRAD_REL_TOL = 5e-2
 # Decode (plain attention over the cache, bf16 scores) against the forward
-# (flash kernel) at the same positions.
+# (flash kernel) at the same positions, on the first DECODE_LAYERS layers.
 LM_DECODE_REL_TOL = 5e-2
+DECODE_LAYERS = 2
 
 # The cone-family FP before its redesign (one thread per column and 4 rows),
 # as this script measured it on an NVIDIA H100 80GB HBM3 at 700.00 W (run
@@ -2118,7 +2135,8 @@ def lm_prefill(torch, results, cfg, params):
 
 
 def lm_grad(torch, results, cfg, params):
-    """The loss gradient at 1 x 4096, the full depth."""
+    """The loss gradient at 1 x 4096, the full depth, under the published
+    config's remat "full"."""
     from repro_torch.models import model
     toks = lm_tokens(torch, cfg, 1, 4096, seed=1)
     leaves = [t.requires_grad_() for _, t in model._leaves(params)]
@@ -2215,20 +2233,20 @@ def lm_serve(torch, results, cfg, params):
     check(all(same), "served tokens differ from offline greedy decoding")
 
     # a 3072-token prompt: the forward (flash kernel) against decode_step,
-    # on a 4-layer cut of the same widths (at 28 layers the 3072 decode
-    # steps take minutes: decoding is launch-bound)
-    cfg4, p4 = layer_cut(cfg, params, 4)
-    p4 = model.compute_params(cfg4, p4)
+    # on a cut of the same widths (decoding is launch-bound: at 28 layers
+    # the 3072 decode steps take minutes, at 4 layers ~32 s on an H100)
+    cfgd, pd = layer_cut(cfg, params, DECODE_LAYERS)
+    pd = model.compute_params(cfgd, pd)
     toks = lm_tokens(torch, cfg, 1, 3072, seed=2)
     with torch.no_grad():
-        x = model.forward(cfg4, p4, toks)
-        full = model.logits_fn(cfg4, p4, x[:, -8:])[0]
+        x = model.forward(cfgd, pd, toks)
+        full = model.logits_fn(cfgd, pd, x[:, -8:])[0]
         del x
-        cache = model.init_cache(cfg4, 1, 3072, "cuda")
+        cache = model.init_cache(cfgd, 1, 3072, "cuda")
         dec = []
         t = time.perf_counter()
         for i in range(3072):
-            lg, cache = model.decode_step(cfg4, p4, cache, toks[:, i], i)
+            lg, cache = model.decode_step(cfgd, pd, cache, toks[:, i], i)
             if i >= 3072 - 8:
                 dec.append(lg[0])
         torch.cuda.synchronize()
@@ -2241,7 +2259,8 @@ def lm_serve(torch, results, cfg, params):
     out.update({"decode_3072_s": t_dec, "decode_vs_forward_rel": rel,
                 "decode_vs_forward_abs": err, "argmax_equal": agree.tolist(),
                 "top2_gap": gap.tolist()})
-    log(f"lm_serve 3072-token prompt, 4 layers, decoded token by token ({t_dec:.1f} s) "
+    log(f"lm_serve 3072-token prompt, {DECODE_LAYERS} layers, decoded token by token "
+        f"({t_dec:.1f} s) "
         f"vs the forward at the last 8 positions: rel {rel:.3g} (tol {LM_DECODE_REL_TOL}), "
         f"argmax equal {agree.tolist()}, top-2 gaps {[round(g, 4) for g in gap.tolist()]}, "
         f"max abs err {err:.4g}")
@@ -2263,12 +2282,14 @@ def lm_category(key: str) -> str:
 
 def category_breakdown(torch, results, name: str, fn, reps: int = 2,
                        section: str = "lm_breakdown", classify=lm_category,
-                       categories=("attention_kernels", "matmul", "other")) -> None:
+                       categories=("attention_kernels", "matmul", "other"),
+                       ms=None) -> None:
     """Device time of ``fn`` by category (``classify`` of each lower-cased
     kernel name; the LM's: the attention kernels, matrix products,
-    everything else), its median time, and the device's busy share of the
-    profiled window."""
-    ms = cuda_ms(torch, fn, reps=3, warmup=1)
+    everything else), its median time (``ms``, where the caller measured
+    it), and the device's busy share of the profiled window."""
+    if ms is None:
+        ms = cuda_ms(torch, fn, reps=3, warmup=1)
     rows, wall_us, events = profiled(torch, fn, reps)
     cats = dict.fromkeys(categories, 0.0)
     top = {k: [] for k in categories}
@@ -2305,9 +2326,13 @@ def lm_paths(torch, results) -> dict:
     grad_kernels = ("flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")
     launches.update(run_path(torch, results, "lm_grad", grad_kernels,
                              lambda: lm_grad(torch, results, cfg, params)))
+    # remat "full" (the published config's) runs each layer's forward again
+    # in the backward
+    want = {"flash_fwd_stats": 2 * n_layers, "flash_bwd_dq": n_layers,
+            "flash_bwd_dkv": n_layers}
     for k in grad_kernels:
-        check(launches[k] == n_layers, f"lm_grad launched {k} {launches[k]} times, "
-                                       f"not {n_layers}")
+        check(launches[k] == want[k], f"lm_grad launched {k} {launches[k]} times, "
+                                      f"not {want[k]}")
     t = time.perf_counter()
     lm_grad_vs_plain(torch, results, cfg, params)
     results["phase_s"]["lm_grad vs plain"] = time.perf_counter() - t
@@ -2317,8 +2342,10 @@ def lm_paths(torch, results) -> dict:
     t = time.perf_counter()
     toks = lm_tokens(torch, cfg, 2, 4096)
     prefill = make_prefill_step(cfg)
+    # one profiled call each: the gradient is host-bound under remat, and
+    # each profiled call costs seconds of the run
     category_breakdown(torch, results, "lm_prefill",
-                       lambda: prefill(params, {"tokens": toks}))
+                       lambda: prefill(params, {"tokens": toks}), reps=1)
     toks1 = lm_tokens(torch, cfg, 1, 4096, seed=1)
     leaves = [p for _, p in model._leaves(params)]
 
@@ -2330,7 +2357,7 @@ def lm_paths(torch, results) -> dict:
             p.requires_grad_(False)
         return g
 
-    category_breakdown(torch, results, "lm_grad", grad_step)
+    category_breakdown(torch, results, "lm_grad", grad_step, reps=1)
     bd = results["lm_breakdown"]
     results["lm_prefill"]["ms"] = bd["lm_prefill"]["ms"]
     results["lm_prefill"]["tokens_per_s"] = 2 * 4096 / (bd["lm_prefill"]["ms"] / 1e3)
@@ -2339,6 +2366,235 @@ def lm_paths(torch, results) -> dict:
     results["phase_s"]["lm breakdown"] = time.perf_counter() - t
     del params
     torch.cuda.empty_cache()
+    return launches
+
+
+# LM training at Qwen3-0.6B's published widths and depth (28 layers, remat
+# "full"): a global batch of 4 x 4096 tokens in 2 microbatches, build's AdamW
+# over an 8-step schedule (warmup 1 step), f32 master parameters, bf16
+# compute.  The checks run a 2-layer cut of the same widths.
+LM_TRAIN_STEPS = 8
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_ACCUM = 4, 4096, 2
+LM_TRAIN_LR = 3e-4
+LM_TRAIN_CUT = 2              # layers of the checks' cut
+LM_RESUME_STEPS, LM_RESUME_EVERY, LM_RESUME_FAIL = 4, 2, 3
+LM_RESUME_TOL = 1e-6          # resumed vs uninterrupted losses (rel)
+LM_COMPRESS_STEPS = 3
+
+
+def lm_train_cfg(n_layers=None):
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get("qwen3-0.6b"), grad_accum=LM_TRAIN_ACCUM)
+    return cfg if n_layers is None else dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def lm_pipeline(cfg):
+    from repro_torch.data.tokens import TokenPipeline
+    return TokenPipeline(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH)
+
+
+def lm_train(torch, results) -> None:
+    """train_loop at full width and depth for LM_TRAIN_STEPS steps on the
+    card: the losses fall; each step's time (CUDA events between the
+    steps' batch draws, the host's batch and the loss read included),
+    tokens/s and the peak memory."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model
+    cfg = lm_train_cfg()
+    marks = []
+
+    class Marked(TokenPipeline):
+        def batch(self, step=None):
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            return super().batch(step)
+
+    pipe = Marked(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (params, losses), wall = host_s(torch, lambda: train_loop(
+        cfg, None, pipe, LM_TRAIN_STEPS, log_every=0, lr=LM_TRAIN_LR))
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    marks[-1].synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    ms = statistics.median(step_ms[1:])
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    out = results["lm_train"] = {
+        "losses": losses, "step_ms": step_ms, "ms": ms,
+        "tokens_per_s": tokens / (ms / 1e3), "wall_s": wall,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "n_params": sum(t.numel() for t in model.flatten(params).values())}
+    log(f"lm_train {cfg.name}, {cfg.n_layers} layers, remat {cfg.remat_policy}, "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens a step in {LM_TRAIN_ACCUM} microbatches, "
+        f"{out['n_params'] / 1e6:.1f}M f32 parameters: median step {ms:.2f} ms after the "
+        f"first ({step_ms[0]:.1f} ms), {out['tokens_per_s']:.0f} tokens/s, peak "
+        f"{out['peak_gib']:.2f} GiB; losses {[round(v, 4) for v in losses]} "
+        f"[{results['device']}]")
+    check(all(np.isfinite(losses)), f"lm_train: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"lm_train: the loss did not fall: {losses}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_train_breakdown(torch, results) -> None:
+    """Device time of one full-depth training step by category, in a
+    profiler window of one step (lm_train warmed the same shapes and timed
+    the step)."""
+    from repro_torch.launch.train import build
+    from repro_torch.models import model
+    cfg = lm_train_cfg()
+    params = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt, step_fn = build(cfg, None, lr=LM_TRAIN_LR, total_steps=LM_TRAIN_STEPS)
+    state = opt.init(model.flatten(params))
+    batch = {"tokens": torch.from_numpy(lm_pipeline(cfg).batch(0)).cuda()}
+    category_breakdown(torch, results, "lm_train_step",
+                       lambda: step_fn(params, state, batch), reps=1,
+                       ms=results["lm_train"]["ms"])
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def lm_train_checks(torch, results) -> None:
+    """At full width and LM_TRAIN_CUT layers: one training step (both
+    microbatches) with the kernels against backend="ref"; remat none, full
+    and dots bit-equal, each with its peak memory; a Supervisor resume from
+    a failure against the uninterrupted run; 1-bit compression."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import build, train_loop
+    from repro_torch.models import model
+    from repro_torch.runtime import checkpoint as CKPT
+    from repro_torch.runtime import compression
+    from repro_torch.runtime.fault import Supervisor
+    cfg = lm_train_cfg(LM_TRAIN_CUT)
+    out = results["lm_train_checks"] = {}
+    gen = torch.Generator(device="cuda")
+    params = model.init_params(cfg, gen.manual_seed(0))
+    toks = torch.from_numpy(lm_pipeline(cfg).batch(0)).cuda()
+
+    # one step, kernels against the plain attention
+    seen = {}
+    for backend in ("auto", "ref"):
+        def capture(g, backend=backend):
+            seen[backend] = g
+            return g
+        opt, _ = build(cfg, None, lr=LM_TRAIN_LR, total_steps=LM_TRAIN_STEPS)
+        _, _, m = steps.make_train_step(cfg, opt, compress_fn=capture, backend=backend)(
+            params, opt.init(model.flatten(params)), {"tokens": toks})
+        seen[backend + "_loss"] = float(m["loss"])
+    errs = {k: rel_err(g, seen["ref"][k]) for k, g in seen["auto"].items()}
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(seen["auto_loss"] / seen["ref_loss"] - 1)
+    out["vs_plain"] = {"loss_rel": loss_rel, "worst": worst, "rel_err_by_leaf": errs}
+    log(f"lm_train step, {LM_TRAIN_CUT} layers, kernels vs plain attention: loss rel "
+        f"{loss_rel:.3g}, worst gradient {worst} rel {errs[worst]:.3g} (tol "
+        f"{LM_GRAD_REL_TOL})")
+    check(loss_rel <= LM_GRAD_REL_TOL and errs[worst] <= LM_GRAD_REL_TOL,
+          f"lm_train step vs plain: loss {loss_rel:.3g}, {worst} {errs[worst]:.3g}")
+    del seen
+
+    # remat: the same bits, and each policy's peak memory
+    mb = {"tokens": toks[:LM_TRAIN_BATCH // LM_TRAIN_ACCUM]}
+    got, peaks = {}, {}
+    for policy in ("none", "full", "dots"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        got[policy] = steps.value_and_grad(
+            dataclasses.replace(cfg, remat_policy=policy), params, mb)
+        torch.cuda.synchronize()
+        peaks[policy] = torch.cuda.max_memory_allocated() / 2 ** 30
+    same = {p: bool(torch.equal(got[p][0], got["none"][0])
+                    and all(torch.equal(g, got["none"][1][k]) for k, g in got[p][1].items()))
+            for p in ("full", "dots")}
+    out["remat"] = {"peak_gib": peaks, "bit_equal": same}
+    log(f"lm_train remat at {LM_TRAIN_CUT} layers, one microbatch of "
+        f"{LM_TRAIN_BATCH // LM_TRAIN_ACCUM} x {LM_TRAIN_SEQ}: peak GiB "
+        + ", ".join(f"{p} {v:.3f}" for p, v in peaks.items())
+        + f"; loss and gradients bit-equal to none: {same}")
+    check(all(same.values()), f"lm_train: remat changed the bits: {same}")
+    del got
+
+    # a failure under the Supervisor, resumed from the checkpoint
+    def run(ckpt_dir=None, fail=None):
+        return train_loop(cfg, None, lm_pipeline(cfg), LM_RESUME_STEPS, ckpt_dir,
+                          ckpt_every=LM_RESUME_EVERY, log_every=0, fail_at_step=fail,
+                          lr=LM_TRAIN_LR)
+
+    want_p, want = run()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_lm_ckpt_")
+    try:
+        starts, runs = [], []
+
+        def loop(start):
+            starts.append(start)
+            runs.append(run(ckpt_dir, LM_RESUME_FAIL if len(starts) == 1 else None))
+            return LM_RESUME_STEPS
+
+        t = time.perf_counter()
+        sup = Supervisor(loop, lambda: CKPT.latest_step(ckpt_dir) or 0, backoff_s=0.0)
+        sup.run()
+        resume_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    got_p, losses = runs[-1]
+    k0 = LM_RESUME_STEPS - len(losses)
+    rel = max(abs(a / b - 1) for a, b in zip(losses, want[k0:]))
+    perr = max(float((t - want_p_t).abs().max()) for t, want_p_t in
+               zip(model.flatten(got_p).values(), model.flatten(want_p).values()))
+    out["resume"] = {"starts": starts, "restarts": sup.restarts, "losses": losses,
+                     "uninterrupted": want, "loss_rel": rel, "params_max_abs": perr,
+                     "supervised_s": resume_s}
+    log(f"lm_train resume at {LM_TRAIN_CUT} layers: failure at step {LM_RESUME_FAIL}, "
+        f"checkpoints every {LM_RESUME_EVERY}: attempts from {starts}, losses "
+        f"{[round(v, 6) for v in losses]} vs uninterrupted "
+        f"{[round(v, 6) for v in want]} (rel {rel:.3g}, tol {LM_RESUME_TOL}), "
+        f"parameters max abs {perr:.3g}; supervised run {resume_s:.1f} s")
+    check(starts == [0, LM_RESUME_EVERY] and k0 == LM_RESUME_EVERY and rel <= LM_RESUME_TOL,
+          f"lm_train resume: starts {starts}, losses {losses} vs {want}")
+    del want_p, got_p, runs
+
+    # 1-bit error-feedback compression
+    opt, step_fn = build(cfg, None, lr=LM_TRAIN_LR, total_steps=LM_TRAIN_STEPS,
+                         compress=True)
+    p = params
+    state = opt.init(model.flatten(p))
+    pipe = lm_pipeline(cfg)
+    comp = []
+    for i in range(LM_COMPRESS_STEPS):
+        p, state, m = step_fn(p, state, {"tokens": torch.from_numpy(pipe.batch(i)).cuda()})
+        comp.append(float(m["loss"]))
+    f32_bytes = sum(t.numel() * 4 for t in model.flatten(p).values())
+    out["compression"] = {"losses": comp, "bytes": compression.compressed_bytes(
+        model.flatten(p)), "f32_bytes": f32_bytes}
+    log(f"lm_train with 1-bit compression at {LM_TRAIN_CUT} layers: losses "
+        f"{[round(v, 4) for v in comp]} (first without: {want[0]:.4f}); "
+        f"{out['compression']['bytes']} bytes a step on the data axis against "
+        f"{f32_bytes} in f32")
+    check(all(np.isfinite(comp)) and comp[0] == want[0],
+          f"lm_train compression: losses {comp}, first without {want[0]}")
+    del p, state, params
+    torch.cuda.empty_cache()
+
+
+def lm_train_paths(torch, results) -> dict:
+    """The LM training path, under run_path, then one step's breakdown and
+    the checks."""
+    cfg = lm_train_cfg()
+    kernels = ("flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")
+    launches = run_path(torch, results, "lm_train", kernels,
+                        lambda: lm_train(torch, results))
+    micro = LM_TRAIN_STEPS * cfg.grad_accum * cfg.n_layers
+    want = {"flash_fwd_stats": 2 * micro, "flash_bwd_dq": micro, "flash_bwd_dkv": micro}
+    check(launches == want, f"lm_train launches {launches}, want {want} (remat "
+                            f"{cfg.remat_policy}: the forward twice a layer)")
+    t = time.perf_counter()
+    lm_train_breakdown(torch, results)
+    results["phase_s"]["lm_train breakdown"] = time.perf_counter() - t
+    t = time.perf_counter()
+    lm_train_checks(torch, results)
+    results["phase_s"]["lm_train checks"] = time.perf_counter() - t
     return launches
 
 
@@ -3316,8 +3572,10 @@ def close(torch, got, want, tol: float, bp: bool, what: str) -> float:
 def shard_cell(torch, rank: int, cell: str, mesh, geom) -> dict:
     """One 4-rank projector cell on every rank: the sharded pair on seeded
     inputs (times, dot test, overlap against psum; on helical_long SIRT-12
-    and CGLS-10), counted; then rank 0 holds the gathered results against
-    the single-device kernel pair.  Returns this rank's numbers."""
+    and CGLS-10), counted; on sharded_3d then the power iteration,
+    FISTA-TV-3 and refinement-3; then rank 0 holds the gathered results
+    against the single-device kernel pair and solvers.  Returns this rank's
+    numbers."""
     from repro_torch import Projector, ProjectorSpec
     from repro_torch import kernels as K
     from repro_torch.core.distributed import distribute
@@ -3356,7 +3614,8 @@ def shard_cell(torch, rank: int, cell: str, mesh, geom) -> dict:
     out["dot"] = float(abs(lhs - rhs) / (mass + 1e-12))
     check(out["dot"] < SHARD_DOT_TOL, f"{cell}: dot test {out['dot']:.3g}")
     aty_ovl = ovl.T(ys)
-    out["bp_overlap_ms"] = wall_ms(torch, lambda: ovl.T(ys))
+    # one timed call of the schedule that is not the default
+    out["bp_overlap_ms"] = wall_ms(torch, lambda: ovl.T(ys), reps=1)
     out["overlap_vs_psum"] = float((aty_ovl - aty).abs().max())
     scale = float(aty.abs().max())
     check(torch.allclose(aty_ovl, aty, rtol=SHARD_OVERLAP_TOL,
@@ -3376,8 +3635,18 @@ def shard_cell(torch, rank: int, cell: str, mesh, geom) -> dict:
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     out["launches"] = rank_launches(torch, cell)
     out["path_s"] = time.perf_counter() - t_cell
+    if cell == "sharded_3d":               # after the pair's peak memory
+        ys3 = dp(fs)
+        ms3 = dp.shard_sino(half_views_mask(torch, geom.sino_shape, dev))
+        (L3, fi3, dc3), out["fista3_dc3_s"] = host_s(torch, lambda: sharded_solve(
+            dp, ys3, ms3, 0.5 * fs))
+        out["fista3_L"] = L3
+        out["fista3_hist"] = fi3.residual_history.cpu().tolist()
     # the global tensors, on the host of rank 0
     got = {"fp": dp.gather_sino(ax), "bp": dp.gather_volume(aty)}
+    if cell == "sharded_3d":
+        got.update(fista3=dp.gather_volume(fi3.image), dc3=dp.gather_volume(dc3))
+        del ys3, ms3, fi3, dc3
     if cell == "helical_long":
         got.update(y=dp.gather_sino(yh), sirt=dp.gather_volume(res.image),
                    cgls=dp.gather_volume(cg.image))
@@ -3402,10 +3671,30 @@ def shard_cell(torch, rank: int, cell: str, mesh, geom) -> dict:
         del yg
     torch.cuda.synchronize()
     out["single_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if cell == "sharded_3d":
+        L1, fi1, dc1 = sharded_solve(proj, proj(f), half_views_mask(
+            torch, geom.sino_shape, dev), 0.5 * f)
     out["fp_max_abs_err"] = close(torch, got["fp"], fp1, SHARD_PAIR_TOL, False,
                                   f"{cell} FP")
     out["bp_max_abs_err"] = close(torch, got["bp"], bp1, SHARD_PAIR_TOL, True,
                                   f"{cell} BP")
+    if cell == "sharded_3d":
+        out["fista3_L_rel_err"] = abs(out["fista3_L"] / L1 - 1)
+        check(out["fista3_L_rel_err"] < SHARD_SIRT_TOL,
+              f"{cell}: power iteration {out['fista3_L']} vs one device {L1}")
+        out["fista3_max_abs_err"] = close(torch, got["fista3"], fi1.image,
+                                          SHARD_SIRT_TOL, False, f"{cell} FISTA-TV-3")
+        hist = fi1.residual_history.cpu().numpy()
+        out["fista3_hist_rel_err"] = float(np.max(np.abs(
+            np.asarray(out["fista3_hist"]) - hist) / hist))
+        check(out["fista3_hist_rel_err"] < SHARD_SIRT_TOL,
+              f"{cell}: FISTA-TV-3 history rel {out['fista3_hist_rel_err']:.3g}")
+        got_dc = got["dc3"].to(dev)
+        out["dc3_rel_l2"] = float(torch.linalg.vector_norm(got_dc - dc1)
+                                  / torch.linalg.vector_norm(dc1))
+        check(out["dc3_rel_l2"] < SHARD_CGLS_TOL,
+              f"{cell}: refinement-3 rel L2 {out['dc3_rel_l2']:.3g}")
+        del fi1, dc1, got_dc
     if cell == "helical_long":
         out["sirt_max_abs_err"] = close(torch, got["sirt"], ref.image,
                                         SHARD_SIRT_TOL, False, f"{cell} SIRT-12")
@@ -3423,6 +3712,22 @@ def shard_cell(torch, rank: int, cell: str, mesh, geom) -> dict:
     del x, y, f, proj, got, fp1, bp1
     torch.cuda.empty_cache()
     return out
+
+
+def half_views_mask(torch, sino_shape, dev):
+    """Every other view measured (a few-view refinement)."""
+    m = torch.zeros(sino_shape, device=dev)
+    m[..., ::2, :, :] = 1.0
+    return m
+
+
+def sharded_solve(op, y, mask, x_net):
+    """sharded_3d's solvers on a DistributedProjector or one device: the
+    power iteration (3), FISTA-TV-3 with its L, refinement-3."""
+    from repro_torch.recon import data_consistency_refine, fista_tv, power_iteration
+    L = float(power_iteration(op, n_iters=3)) * 1.05
+    return (L, fista_tv(op, y, n_iters=3, L=L),
+            data_consistency_refine(op, x_net, y, mask, n_iters=3))
 
 
 def sharded_world4(rank: int, world: int) -> dict:
@@ -3449,10 +3754,24 @@ def sharded_world4(rank: int, world: int) -> dict:
     return out
 
 
+def main_solve(op, y, mask, x_net) -> dict:
+    """sharded_main_11's other solvers on a DistributedProjector or one
+    device: FISTA-TV-30 (its own power iteration), refinement-20 of
+    ``x_net`` on the measured half of the views, and the projection
+    residual of the refined image."""
+    from repro_torch.recon import data_consistency_refine, fista_tv, projection_residual
+    fi = fista_tv(op, y, n_iters=30)
+    dc = data_consistency_refine(op, x_net, y, mask, n_iters=20)
+    return {"fista30": fi.image, "fista30_history": fi.residual_history,
+            "dc20": dc, "projection_residual": projection_residual(op, dc, y, mask)}
+
+
 def sharded_main_world(rank: int, world: int) -> dict:
     """sharded_main_11: the main cell (batch 8) on a (1, 1) mesh of one NCCL
-    rank with one all-reduce: FP, BP and SIRT-50 bit-equal to the
-    single-device Projector (tests/test_distributed_ct.py:213-230)."""
+    rank with one all-reduce: FP, BP, SIRT-50, FISTA-TV-30,
+    refinement-20 (SIRT's image as the prior, half of the views measured)
+    and the projection residual bit-equal to the single-device Projector
+    (tests/test_distributed_ct.py:213-230)."""
     import torch
     rank_setup(torch)
     from repro_torch import Projector, ProjectorSpec
@@ -3473,17 +3792,23 @@ def sharded_main_world(rank: int, world: int) -> dict:
     sino = dp(dp.shard_volume(x))
     back = dp.T(dp.shard_sino(sino))
     res = sirt(dp, sino, n_iters=50)
+    mask = half_views_mask(torch, sino.shape, sino.device)
+    solved, out["fista30_dc20_s"] = host_s(torch, lambda: main_solve(
+        dp, sino, mask, res.image))
     out["fp_ms"] = wall_ms(torch, lambda: dp(x))
     out["bp_ms"] = wall_ms(torch, lambda: dp.T(sino))
     out["launches"] = rank_launches(torch, cell)
     out["path_s"] = time.perf_counter() - t
     proj = Projector(spec)
     one = sirt(proj, sino, n_iters=50)
+    alone = main_solve(proj, sino, mask, one.image)
     out["single_fp_ms"] = wall_ms(torch, lambda: proj(x))
     out["single_bp_ms"] = wall_ms(torch, lambda: proj.T(sino))
+    out["projection_residual"] = float(solved["projection_residual"])
     for name, a, b in (("fp", sino, proj(x)), ("bp", back, proj.T(sino)),
                        ("sirt50", res.image, one.image),
-                       ("sirt50_history", res.residual_history, one.residual_history)):
+                       ("sirt50_history", res.residual_history, one.residual_history),
+                       *((k, v, alone[k]) for k, v in solved.items())):
         out[f"{name}_bit_equal"] = bool(torch.equal(a, b))
         check(out[f"{name}_bit_equal"], f"{cell}: {name} is not bit-equal to one device")
     return out
@@ -3633,6 +3958,12 @@ def log_shard_cell(cell: str, rs: list, device: str) -> None:
         f"dot {max(r['dot'] for r in rs):.3g}; overlap vs psum max abs "
         f"{max(r['overlap_vs_psum'] for r in rs):.3g}; path s "
         f"{[round(r['path_s'], 1) for r in rs]} [{device}]")
+    if cell == "sharded_3d":
+        log(f"sharded_3d: power iteration 3 L {r0['fista3_L']:.6g} (rel "
+            f"{r0['fista3_L_rel_err']:.3g}), FISTA-TV-3 vs one device max abs "
+            f"{r0['fista3_max_abs_err']:.3g} (history {r0['fista3_hist_rel_err']:.3g}), "
+            f"refinement-3 rel L2 {r0['dc3_rel_l2']:.3g}; the three "
+            f"{r0['fista3_dc3_s']:.2f} s")
     if cell == "helical_long":
         log(f"helical_long: SIRT-12 {r0['sirt12_s']:.2f} s (residual ratio "
             f"{r0['sirt_residual_ratio']:.3g}, vs one device max abs "
@@ -3673,8 +4004,10 @@ def sharded_phase(torch, results) -> None:
             m = ranks[0]
             log(f"sharded_main_11: FP {m['fp_ms']:.3f} ms BP {m['bp_ms']:.3f} ms (one "
                 f"device {m['single_fp_ms']:.3f} / {m['single_bp_ms']:.3f}); FP, BP, "
-                f"SIRT-50 and its history bit-equal; launches {m['launches']} "
-                f"[{results['device']}]")
+                f"SIRT-50 and its history, FISTA-TV-30 and its history, refinement-20 "
+                f"and the projection residual ({m['projection_residual']:.4g}) "
+                f"bit-equal; FISTA-TV-30 + refinement-20 {m['fista30_dc20_s']:.2f} s; "
+                f"launches {m['launches']} [{results['device']}]")
     d = out["dp_train"]
     c = out["dp_train_vs_one_device"] = dp_train_compare(torch, d)
     log(f"dp_train: losses {[r['losses'] for r in d]} (one device "
@@ -3770,7 +4103,7 @@ def main() -> int:
     if phases is not None:
         for name in phases:
             {"serve": serve_phase, "autotune": autotune_phase,
-             "sharded": sharded_phase}[name](torch, results)
+             "sharded": sharded_phase, "lm_train": lm_train_paths}[name](torch, results)
         tune.clear()
         outdir = ROOT / "chiprun_out"
         outdir.mkdir(exist_ok=True)
@@ -3794,6 +4127,7 @@ def main() -> int:
     train_paths(torch, results)
     flash_phase(torch, results)
     launches.update(lm_paths(torch, results))
+    launches.update(lm_train_paths(torch, results))
     t = time.perf_counter()
     line_launches = nemotron_attn_layer(torch, results)
     results["phase_s"]["nemotron_attn_layer"] = time.perf_counter() - t

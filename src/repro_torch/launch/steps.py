@@ -1,15 +1,88 @@
-"""Prefill and serving step builders, the counterparts of the reference
-package's ``launch/steps.py`` ``make_prefill_step`` and ``make_serve_step``.
-``make_train_step`` comes with the LM training loop, on ``optim/``.
+"""Training, prefill and serving step builders, the counterparts of the
+reference package's ``launch/steps.py``.
 
-Both steps run without autograd, so a long prompt's attention takes the
-forward-only flash kernel."""
+The prefill and serving steps run without autograd, so a long prompt's
+attention takes the forward-only flash kernel; the training step's takes
+the forward with statistics and the two backward kernels."""
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim.adamw import (Optimizer, apply_updates,
+                                     clip_by_global_norm)
+
+
+def value_and_grad(cfg: ModelConfig, params: dict, batch: dict,
+                   backend: str = "auto"):
+    """``(loss, grads)`` of ``MD.loss_fn`` at ``params`` (a model tree):
+    the loss detached, the gradients as a flat dict (``MD.flatten``'s
+    keys) in the parameters' dtype."""
+    leaves = {k: t.detach().requires_grad_()
+              for k, t in MD.flatten(params).items()}
+    loss = MD.loss_fn(cfg, MD.unflatten(leaves), batch, backend)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def make_train_step(cfg: ModelConfig, opt: Optimizer,
+                    grad_accum: Optional[int] = None, clip_norm: float = 1.0,
+                    compress_fn: Optional[Callable] = None,
+                    backend: str = "auto",
+                    reduce_fn: Optional[Callable] = None):
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm"})``.
+
+    ``params`` is a model tree (``MD.init_params``); ``opt_state`` is
+    ``opt.init(MD.flatten(params))``, since ``optim`` works on flat dicts;
+    ``batch`` holds ``tokens`` (B, S).  ``grad_accum`` (None: the config's)
+    splits the batch into that many microbatches of consecutive rows, run
+    one after the other: the gradients are summed as ``g / grad_accum`` in
+    microbatch order, and ``metrics["loss"]`` is the last microbatch's
+    loss, as in the reference (not the mean over the microbatches).  Then,
+    in order: ``reduce_fn(loss, grads) -> (loss, grads)`` (the data-parallel
+    mean over ranks, ``launch/mesh.pmean``; None on one rank),
+    ``compress_fn(grads) -> grads`` (e.g. ``runtime/compression``),
+    clipping to ``clip_norm`` (``grad_norm`` is the norm before it), the
+    optimizer update and ``apply_updates``.  ``backend`` routes the
+    long-sequence attention (``models/layers``).
+
+    The reference also takes ``ac``, its activation-sharding constraint for
+    GSPMD; the port runs one model replica a rank and has no such
+    constraint."""
+    if grad_accum is None:
+        grad_accum = cfg.grad_accum
+
+    def step(params, opt_state, batch):
+        if grad_accum == 1:
+            loss, grads = value_and_grad(cfg, params, batch, backend)
+        else:
+            n = batch["tokens"].shape[0]
+            if n % grad_accum:
+                raise ValueError(f"batch of {n} rows does not split into "
+                                 f"grad_accum={grad_accum} microbatches")
+            per = n // grad_accum
+            grads = None
+            for j in range(grad_accum):
+                mb = {k: v[j * per:(j + 1) * per] for k, v in batch.items()}
+                loss, g = value_and_grad(cfg, params, mb, backend)
+                grads = ({k: v / grad_accum for k, v in g.items()}
+                         if grads is None else
+                         {k: grads[k] + g[k] / grad_accum for k in grads})
+        if reduce_fn is not None:
+            loss, grads = reduce_fn(loss, grads)
+        if compress_fn is not None:
+            grads = compress_fn(grads)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        flat = MD.flatten(params)
+        updates, opt_state = opt.update(grads, opt_state, flat)
+        params = MD.unflatten(apply_updates(flat, updates))
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return step
 
 
 def make_prefill_step(cfg: ModelConfig, backend: str = "auto"):

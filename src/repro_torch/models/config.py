@@ -5,9 +5,11 @@ One ``ModelConfig`` describes any member of the LM family zoo: dense GQA
 transformers, MoE, Mamba-1 SSMs, hybrid (parallel attention+SSM) blocks,
 VLM and audio backbones.  ``repro_torch/configs/<id>.py`` instantiates one
 per assigned architecture.  The port's model runs the ``dense`` family; the
-mesh and compiler knobs (``remat_policy``, ``scan_layers``, ``seq_shard``,
-``pure_dp``) are kept so that a config reads the same in both packages, and
-the port's eager single-card model does not read them.
+mesh and compiler knobs (``scan_layers``, ``seq_shard``, ``pure_dp``) are
+kept so that a config reads the same in both packages, and the port's eager
+model does not read them; it reads ``remat_policy`` (activation
+checkpointing, ``models/model.py``) and ``grad_accum``
+(``launch/steps.py``).
 """
 from __future__ import annotations
 

@@ -13,27 +13,38 @@ of a module.
 
 The port runs the layers in a Python loop (the reference scans them), with
 f32 master parameters cast to the compute dtype per layer, as the
-reference's ``_cast_layer``.  It keeps every activation for the backward:
-the reference's ``remat_policy`` is a compiler knob that the eager port does
-not read.  Only the ``dense`` family with global attention, one codebook and
-standard RoPE is ported: other configs raise ``NotImplementedError`` (see
-ROADMAP.md).  ``backend`` (``"auto"`` or ``"ref"``) picks the route of the
-long-sequence attention, as in ``layers.attention_train``.
+reference's ``_cast_layer``.  Under autograd each layer keeps what
+``cfg.remat_policy`` says, as the reference's ``jax.checkpoint`` policies
+do (``model.py:194-198`` there): ``"none"`` every activation; ``"full"``
+only the layer's input, the layer run again in the backward
+(``torch.utils.checkpoint``, non-reentrant); ``"dots"`` the outputs of its
+2-D matrix products (``aten.mm``, the counterpart of
+``dots_with_no_batch_dims_saveable``), the rest run again.  A recomputed
+layer gives the bits of its first run, so no policy changes a bit of the
+loss or the gradients; on the card ``"full"`` launches the attention's
+forward kernel twice a layer.  Only the ``dense`` family with global
+attention, one codebook and standard RoPE is ported: other configs raise
+``NotImplementedError`` (see ROADMAP.md).  ``backend`` (``"auto"`` or
+``"ref"``) picks the route of the long-sequence attention, as in
+``layers.attention_train``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 PORTED_FAMILIES = ("dense",)
+REMAT_POLICIES = ("none", "full", "dots")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -97,6 +108,26 @@ def _unflatten(pairs) -> dict:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
     return out
+
+
+def flatten(tree: dict) -> dict:
+    """A parameter tree as one flat dict, ``"layers/attn/wq"``-style keys
+    in sorted order (the form ``optim`` works on)."""
+    return {"/".join(path): t for path, t in _leaves(tree)}
+
+
+def unflatten(flat: dict) -> dict:
+    """The inverse of :func:`flatten`."""
+    return _unflatten((tuple(k.split("/")), t) for k, t in flat.items())
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree's shapes in ``cfg.param_dtype`` with no storage:
+    ``device="meta"`` tensors (the reference's ``jax.ShapeDtypeStruct``
+    tree)."""
+    dt = _dtype(cfg.param_dtype)
+    return _unflatten((path, torch.empty(shp, dtype=dt, device="meta"))
+                      for path, shp in _leaves(param_shapes(cfg)))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -188,6 +219,25 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None].expand(B, S)
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, block):
+    """``block`` under ``cfg.remat_policy`` (see the module docstring)."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"expected one of {REMAT_POLICIES}")
+    if cfg.remat_policy == "none" or not torch.is_grad_enabled():
+        return block
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return lambda *a: ckpt.checkpoint(block, *a, use_reentrant=False, **kw)
+
+
 def forward(cfg: ModelConfig, params, tokens, positions=None,
             backend: str = "auto"):
     """Final-normed hidden states (B, S, d) in the compute dtype."""
@@ -196,8 +246,9 @@ def forward(cfg: ModelConfig, params, tokens, positions=None,
     B, S, _ = x.shape
     if positions is None:
         positions = _positions(B, S, x.device)
+    block = _remat(cfg, functools.partial(_block_train, cfg))
     for i in range(cfg.n_layers):
-        x = _block_train(cfg, _layer(params, i), x, positions, backend)
+        x = block(_layer(params, i), x, positions, backend)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -1,9 +1,12 @@
 """Uniform solver result + input coercion for the recon layer.
 
-Every iterative solver returns a :class:`ReconResult` and accepts either a
-:class:`~repro_torch.core.spec.ProjectorSpec` or an already-built
-:class:`~repro_torch.core.projector.Projector`; ``sirt`` and ``cgls`` also
-take a :class:`~repro_torch.core.distributed.DistributedProjector`.
+Every iterative solver returns a :class:`ReconResult` and accepts a
+:class:`~repro_torch.core.spec.ProjectorSpec`, an already-built
+:class:`~repro_torch.core.projector.Projector` or a
+:class:`~repro_torch.core.distributed.DistributedProjector`: the solvers
+see the operator through the shapes of this process's pieces
+(``local_vol_shape``, ``local_sino_shape``) and the sum of every process's
+partial sums (``reduce_partial``), which one device holds whole.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 from repro_torch.core.projector import Projector
 from repro_torch.core.spec import ProjectorSpec
 
-__all__ = ["ReconResult", "as_projector", "as_local_projector"]
+__all__ = ["ReconResult", "as_projector"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,17 +64,3 @@ def as_projector(spec_or_projector, device: Optional[torch.device] = None):
         f"expected a ProjectorSpec, Projector or DistributedProjector, "
         f"got {type(spec_or_projector).__name__}")
 
-
-def as_local_projector(spec_or_projector, what: str,
-                       device: Optional[torch.device] = None) -> Projector:
-    """:func:`as_projector` for the solvers that run on one device only:
-    ``fista_tv``'s TV term and the completion helpers take z differences
-    and whole-volume steps that cross slabs, so a ``DistributedProjector``
-    raises ``NotImplementedError``."""
-    projector = as_projector(spec_or_projector, device)
-    if not isinstance(projector, Projector):
-        raise NotImplementedError(
-            f"{what} on a DistributedProjector is not ported: its z "
-            f"differences cross slabs (ROADMAP.md, queue 1); sirt and cgls "
-            f"run distributed")
-    return projector

@@ -875,8 +875,10 @@ def test_flash_refuses_what_it_has_no_kernel_for():
 
 def test_long_prefill_and_gradient_run_the_kernels():
     """The model's long branch (S = 3072) on the card: prefill launches the
-    forward kernel once per layer, a gradient the three others once per
-    layer, and both agree with the plain attention."""
+    forward kernel once per layer, a gradient the forward with statistics
+    twice per layer (remat "full", the config's default, runs each layer
+    again in the backward) and the two backward kernels once per layer,
+    and both agree with the plain attention."""
     requires_cuda()
     cfg = ModelConfig(name="small", family="dense", n_layers=2, d_model=128,
                       n_heads=4, n_kv_heads=2, head_dim=64, d_ff=256,
@@ -891,7 +893,8 @@ def test_long_prefill_and_gradient_run_the_kernels():
     K.reset_launches()
     got = torch.autograd.grad(model.loss_fn(cfg, params, {"tokens": toks}), leaves)
     n = K.launches()
-    assert n["flash_fwd_stats"] == n["flash_bwd_dq"] == n["flash_bwd_dkv"] == 2, n
+    assert cfg.remat_policy == "full"
+    assert n["flash_fwd_stats"] == 4 and n["flash_bwd_dq"] == n["flash_bwd_dkv"] == 2, n
     want = torch.autograd.grad(
         model.loss_fn(cfg, params, {"tokens": toks}, backend="ref"), leaves)
     for g, w in zip(got, want):
@@ -901,8 +904,9 @@ def test_long_prefill_and_gradient_run_the_kernels():
 def test_long_branch_at_hd192_runs_the_kernels():
     """A dense config at Nemotron-4 340B's head dim 192 (d_model 768 over 4
     heads, no head_dim, as its 18432 / 96): the long branch (S = 3072)
-    launches the forward kernel once per layer in prefill and the three
-    gradient kernels once per layer in a gradient, and both agree with
+    launches the forward kernel once per layer in prefill, and in a
+    gradient the forward with statistics twice per layer (remat "full")
+    and the two backward kernels once per layer; both agree with
     backend="ref"."""
     requires_cuda()
     cfg = ModelConfig(name="hd192", family="dense", n_layers=2, d_model=768,
@@ -919,11 +923,69 @@ def test_long_branch_at_hd192_runs_the_kernels():
     K.reset_launches()
     got = torch.autograd.grad(model.loss_fn(cfg, params, {"tokens": toks}), leaves)
     n = K.launches()
-    assert n["flash_fwd_stats"] == n["flash_bwd_dq"] == n["flash_bwd_dkv"] == 2, n
+    assert n["flash_fwd_stats"] == 4 and n["flash_bwd_dq"] == n["flash_bwd_dkv"] == 2, n
     want = torch.autograd.grad(
         model.loss_fn(cfg, params, {"tokens": toks}, backend="ref"), leaves)
     for g, w in zip(got, want):
         assert _rel(g, w) <= 1e-4
+
+
+def _update_rel(p, p_ref, p0):
+    """``||d - d_ref|| / ||d_ref||`` of the parameter changes ``d = p - p0``
+    and ``d_ref = p_ref - p0`` of one leaf (``err``, ``ref``: the squared
+    norms, to sum over leaves)."""
+    d, d_ref = (p.double() - p0.double()), (p_ref.double() - p0.double())
+    return float(((d - d_ref) ** 2).sum()), float((d_ref ** 2).sum())
+
+
+LM_UPDATE_REL_TOL, LM_UPDATE_LEAF_REL_TOL = 0.15, 0.3
+
+
+def test_lm_train_step_matches_plain_attention():
+    """One training step (make_train_step: two microbatches of 2 x 4096,
+    AdamW, clipping) of Qwen3-0.6B's widths at 2 layers on the card against
+    the same step with backend="ref" (the plain attention): its loss and
+    gradients within 5e-2 of each leaf's largest entry, chip_smoke.py's
+    LM_GRAD_REL_TOL for the bf16 model; the parameters' change from their
+    start against the plain step's change, ||d - d_ref|| / ||d_ref|| at
+    most LM_UPDATE_REL_TOL over all leaves and LM_UPDATE_LEAF_REL_TOL on
+    each, every d_ref nonzero (AdamW's first step moves each entry by
+    about lr * sign(g), so the two differ where bf16 flips the sign of a
+    gradient entry near zero); the kernels launched as remat "full" says."""
+    requires_cuda()
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import build
+    cfg = dataclasses.replace(configs.get("qwen3-0.6b"), n_layers=2, grad_accum=2)
+    params = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    p0 = {k: v.clone() for k, v in model.flatten(params).items()}
+    toks = torch.randint(0, cfg.vocab_size, (4, 4096), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    out = {}
+    for backend in ("auto", "ref"):
+        grads = {}
+
+        def capture(g):
+            grads.update(g)
+            return g
+
+        opt, _ = build(cfg, None, total_steps=8)
+        K.reset_launches()
+        p, _, m = steps.make_train_step(cfg, opt, compress_fn=capture, backend=backend)(
+            params, opt.init(model.flatten(params)), {"tokens": toks})
+        out[backend] = (float(m["loss"]), grads, model.flatten(p), K.launches())
+    loss, grads, p, n = out["auto"]
+    assert n["flash_fwd_stats"] == 8 and n["flash_bwd_dq"] == n["flash_bwd_dkv"] == 4, n
+    assert not any(out["ref"][3].values())
+    assert abs(loss / out["ref"][0] - 1) <= 5e-2
+    num = den = 0.0
+    for k, g in grads.items():
+        assert _rel(g, out["ref"][1][k]) <= 5e-2, k
+        err, ref = _update_rel(p[k], out["ref"][2][k], p0[k])
+        assert ref > 0, (k, "the plain step did not move")
+        assert (err / ref) ** 0.5 <= LM_UPDATE_LEAF_REL_TOL, (k, (err / ref) ** 0.5)
+        num, den = num + err, den + ref
+    assert (num / den) ** 0.5 <= LM_UPDATE_REL_TOL, (num / den) ** 0.5
 
 
 def test_long_branch_without_kernels_refuses_on_the_card():

@@ -8,18 +8,31 @@
   legacy ``as_spec`` shim, each against the reference.
 * A (1, 1) gloo world: the pair against the reference's
   ``DistributedProjector`` on a jax (1, 1) mesh (read with ``np.asarray``),
-  the legacy factory, the validation errors, SIRT and CGLS bit-equal to one
-  device, and the solvers that stay on one device.
+  the legacy factory, the validation errors, and every solver (SIRT, CGLS,
+  FISTA-TV, the power iteration, the refinement, complete-and-refine, the
+  projection residual) bit-equal to one device.
 * A 4-rank gloo world: the halo pair against its numpy oracle; parallel
   (2, 2) against the reference's own sharded pair (``backend="ref"``, in a
   subprocess with 4 forced host devices); cone (2, 2) and helical (1, 4)
   against the reference's and the port's single-device ops; dot tests,
-  overlap against psum, the helical SIRT and CGLS against one device, and
-  the gradient and double backward through the sharded pair.
+  overlap against psum, the helical SIRT and CGLS against one device, the
+  gradient and double backward through the sharded pair, and the solvers
+  on parallel (2, 2) and cone (2, 2): FISTA-TV (its ``L`` given, and with
+  its own power iteration), the refinement, complete-and-refine and the
+  projection residual against the port's single device (1e-5 relative),
+  FISTA-TV and the refinement also against the reference's single-device
+  solvers on the gathered problem (5e-4, ``tests/test_torch_solvers.py``'s
+  bound).  The reference's sharded solvers cannot
+  serve as the oracle: on its (2, 2) mesh of forced host devices
+  ``power_iteration``, ``fista_tv`` and ``data_consistency_refine`` raise
+  ``ShardingTypeError`` (a reshape of a z-sharded array in ``z.ravel()``,
+  and ``jnp.vdot``) under the installed jax.
 
 Tolerances are the reference tests' (``tests/test_distributed_ct.py``): the
 pair within 2e-5 (BP atol 2e-5 max|BP|), dot tests under 1e-6, overlap
-against psum 1e-5, SIRT 1e-4.  Each world runs all its checks in one spawn
+against psum 1e-5, SIRT 1e-4; the other solvers 1e-5 relative to the
+largest entry against the port's single device.  Each
+world runs all its checks in one spawn
 (``tests/torch_dist_worlds.py``) with a timeout of its own.
 """
 import dataclasses
@@ -41,6 +54,7 @@ from repro.core import distributed as JD
 from repro.core import spec as jspec
 from repro.configs.leap_ct import table1_geometries as jtable1
 from repro.kernels import ops as jops
+from repro import recon as jrecon
 
 import repro_torch.core.geometry as tgeo
 from repro_torch import Projector, ProjectorSpec, ShardSpec
@@ -49,7 +63,9 @@ from repro_torch.core import distributed as TD
 from repro_torch.core import spec as tspec
 from repro_torch.kernels import ops as tops
 from repro_torch.launch.mesh import RankError, run_world
-from repro_torch.recon import cgls, sirt
+from repro_torch.recon import (cgls, complete_and_refine,
+                               data_consistency_refine, fista_tv,
+                               power_iteration, projection_residual, sirt)
 from repro_torch.recon.result import as_projector
 
 import torch_dist_worlds as W
@@ -435,9 +451,11 @@ def test_data_consistency_on_11_mesh(world11):
 @pytest.mark.parametrize("what", ["fista_tv", "power_iteration",
                                   "data_consistency_refine",
                                   "complete_and_refine", "projection_residual"])
-def test_single_device_solvers_refuse_distributed(world11, what):
-    kind, msg = world11["local_only"][what]
-    assert kind == "NotImplementedError" and "ROADMAP" in msg and what in msg
+def test_other_solvers_bit_equal_on_11_mesh(world11, what):
+    """FISTA-TV (with its power iteration), the power iteration, the
+    refinement, complete-and-refine and the projection residual on a (1, 1)
+    DistributedProjector: the bits of one device."""
+    assert world11["solvers_bit_equal"][what]
 
 
 # --------------------------------------------------------------------------- #
@@ -592,3 +610,63 @@ def test_gradient_through_sharded_pair(world4):
         g = r["cone_grad"]
         assert g["grad_max_err"] <= 1e-6 * g["grad_scale"]
         assert g["hv_max_err"] <= 1e-6 * g["hv_scale"]
+
+
+# --------------------------------------------------------------------------- #
+# The solvers on (2, 2) DistributedProjectors
+# --------------------------------------------------------------------------- #
+SOLVE_TOL = 1e-5
+# against the reference: tests/test_torch_solvers.py's bounds (the two
+# packages' pairs agree to ~1e-6, which CG and FISTA amplify)
+REF_IMG_TOL, REF_HIST_TOL = 5e-4, 5e-3
+
+
+def _rel(got, want, what, tol=SOLVE_TOL):
+    want = np.asarray(want)
+    err = float(np.abs(np.asarray(got) - want).max() / np.abs(want).max())
+    assert err <= tol, (what, err)
+
+
+@pytest.mark.parametrize("name", ["par", "cone"])
+def test_sharded_solvers_match_one_device(world4, name):
+    """The port's solvers on the (2, 2) layout against the same solvers on
+    the port's single-device Projector, on the gathered inputs."""
+    got = world4[0][0][f"{name}_solve"]
+    g = W.make_geom(tgeo, name)
+    proj = Projector(ProjectorSpec(g), "cpu")
+    inp = {k: torch.from_numpy(v) for k, v in W.solver_inputs(g).items()}
+    y, x_net, mask = inp["y"], inp["x_net"], inp["mask"]
+    it = W.SOLVER_ITERS
+    L1 = float(power_iteration(proj, n_iters=it["power"])) * 1.05
+    assert got["L"] == pytest.approx(L1, rel=SOLVE_TOL)
+    res = fista_tv(proj, y, n_iters=it["fista"], L=got["L"])
+    _rel(got["fista"], res.image, "fista_tv")
+    _rel(got["fista_hist"], res.residual_history, "fista_tv history")
+    res = fista_tv(proj, y, n_iters=it["fista_pi"])
+    _rel(got["fista_pi"], res.image, "fista_tv, own power iteration")
+    _rel(got["fista_pi_hist"], res.residual_history, "its history")
+    _rel(got["dc"], data_consistency_refine(proj, x_net, y, mask,
+                                            n_iters=it["dc"]), "refine")
+    x, completed = complete_and_refine(proj, x_net, y, mask, n_iters=it["car"])
+    _rel(got["car_x"], x, "complete_and_refine x")
+    _rel(got["car_sino"], completed, "complete_and_refine sinogram")
+    assert got["residual"] == pytest.approx(
+        float(projection_residual(proj, x_net, y, mask)), rel=SOLVE_TOL)
+
+
+@pytest.mark.parametrize("name", ["par", "cone"])
+def test_sharded_solvers_match_reference_one_device(world4, name):
+    """FISTA-TV (its ``L`` given) and the refinement on the (2, 2) layout
+    against the reference's single-device solvers on the gathered
+    problem, at ``tests/test_torch_solvers.py``'s bounds."""
+    got = world4[0][0][f"{name}_solve"]
+    g = W.make_geom(jgeo, name)
+    inp = {k: jnp.asarray(v) for k, v in W.solver_inputs(g).items()}
+    it = W.SOLVER_ITERS
+    res = jrecon.fista_tv(JSpec(g), inp["y"], n_iters=it["fista"], L=got["L"])
+    _rel(got["fista"], res.image, "fista_tv", REF_IMG_TOL)
+    _rel(got["fista_hist"], res.residual_history, "fista_tv history",
+         REF_HIST_TOL)
+    _rel(got["dc"], jrecon.data_consistency_refine(
+        JSpec(g), inp["x_net"], inp["y"], inp["mask"], n_iters=it["dc"]),
+        "refine", REF_IMG_TOL)

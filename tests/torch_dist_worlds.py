@@ -1,5 +1,6 @@
 """Rank functions of the port's ``torch.distributed`` tests
-(``tests/test_torch_distributed.py``, ``tests/test_torch_dp_train.py``).
+(``tests/test_torch_distributed.py``, ``tests/test_torch_dp_train.py``,
+``tests/test_torch_lm_train.py``).
 
 Each runs on every rank of a gloo world that
 ``repro_torch.launch.mesh.run_world`` starts on the CPU, does every check of
@@ -9,6 +10,7 @@ module imports no JAX, so the ranks start quickly.  The geometries are
 built from the argument tuples in ``GEOMS``, which the tests also hand to
 the reference package.
 """
+import dataclasses
 import warnings
 
 import numpy as np
@@ -160,16 +162,68 @@ def world_11(rank, world):
             and torch.equal(a.residual_history, b.residual_history))
     out["dc"] = (float(dps.data_consistency(f, y + 0.1)),
                  float(Projector(spec, "cpu").data_consistency(f, y + 0.1)))
-    out["local_only"] = {
-        "fista_tv": _err(lambda: fista_tv(dps, y, n_iters=1)),
-        "power_iteration": _err(lambda: power_iteration(dps)),
-        "data_consistency_refine": _err(
-            lambda: data_consistency_refine(dps, f, y, 1.0, n_iters=1)),
-        "complete_and_refine": _err(
-            lambda: complete_and_refine(dps, f, y, 1.0, n_iters=1)),
-        "projection_residual": _err(lambda: projection_residual(dps, f, y)),
-    }
+    # the other solvers: the same bits as on one device
+    proj = Projector(spec, "cpu")
+    mask = _t(half_views_mask(gq.sino_shape))
+    out["solvers_bit_equal"] = {}
+    for name, run in (
+            ("fista_tv", lambda op: fista_tv(op, y, n_iters=3)),
+            ("power_iteration", lambda op: power_iteration(op, n_iters=4)),
+            ("data_consistency_refine", lambda op: data_consistency_refine(
+                op, f, y, mask, n_iters=3)),
+            ("complete_and_refine", lambda op: complete_and_refine(
+                op, f, y, mask, n_iters=3)),
+            ("projection_residual", lambda op: projection_residual(
+                op, f, y, mask))):
+        a, b = run(dps), run(proj)
+        if hasattr(a, "image"):
+            a, b = (a.image, a.residual_history), (b.image, b.residual_history)
+        a, b = ((a,), (b,)) if torch.is_tensor(a) else (a, b)
+        out["solvers_bit_equal"][name] = all(
+            torch.equal(u, v) for u, v in zip(a, b))
     return out
+
+
+def half_views_mask(sino_shape) -> np.ndarray:
+    """Every other view measured: a few-view completion problem."""
+    m = np.zeros(sino_shape, np.float32)
+    m[::2] = 1.0
+    return m
+
+
+def solver_inputs(geom) -> dict:
+    """The global inputs of the sharded solver checks: a nonnegative
+    sinogram, a network prior and the half-views mask."""
+    return {"y": np.abs(data(geom.sino_shape, 20)),
+            "x_net": np.abs(data(geom.vol.shape, 21)),
+            "mask": half_views_mask(geom.sino_shape)}
+
+
+SOLVER_ITERS = dict(fista=4, fista_pi=3, power=10, dc=4, car=3)
+
+
+def _sharded_solvers(dp, geom) -> dict:
+    """FISTA-TV (L from the sharded power iteration, given; and with its own
+    power iteration), data-consistency refinement, complete-and-refine and
+    the projection residual on ``dp``, gathered to global tensors."""
+    inp = {k: _t(v) for k, v in solver_inputs(geom).items()}
+    ys, ms = dp.shard_sino(inp["y"]), dp.shard_sino(inp["mask"])
+    xs = dp.shard_volume(inp["x_net"])
+    it = SOLVER_ITERS
+    L = float(power_iteration(dp, n_iters=it["power"])) * 1.05
+    res = fista_tv(dp, ys, n_iters=it["fista"], L=L)
+    res_pi = fista_tv(dp, ys, n_iters=it["fista_pi"])
+    x_car, completed = complete_and_refine(dp, xs, ys, ms, n_iters=it["car"])
+    return {"L": L,
+            "fista": _np(dp.gather_volume(res.image)),
+            "fista_hist": _np(res.residual_history),
+            "fista_pi": _np(dp.gather_volume(res_pi.image)),
+            "fista_pi_hist": _np(res_pi.residual_history),
+            "dc": _np(dp.gather_volume(data_consistency_refine(
+                dp, xs, ys, ms, n_iters=it["dc"]))),
+            "car_x": _np(dp.gather_volume(x_car)),
+            "car_sino": _np(dp.gather_sino(completed)),
+            "residual": float(projection_residual(dp, xs, ys, ms))}
 
 
 # --------------------------------------------------------------------------- #
@@ -217,6 +271,7 @@ def world_4(rank, world, par_in):
                   "comm_blocks": len(ovl._layout.bp_specs),
                   "overlap": _np(ovl.gather_volume(ovl.T(ovl.shard_sino(yp))))}
     out["par"]["psum"] = out["par"]["bp"]
+    out["par_solve"] = _sharded_solvers(dp, g)
     out["par_errors"] = {
         "halo_on_parallel": _err(lambda: distribute(
             ProjectorSpec(g), mesh22, z_axis="model", halo=1, device="cpu")),
@@ -229,6 +284,7 @@ def world_4(rank, world, par_in):
                        undersized=_err(lambda: distribute(
                            ProjectorSpec(g), mesh22, z_axis="model", halo=0,
                            device="cpu")))
+    out["cone_solve"] = _sharded_solvers(dp, g)
     # the gradient of 0.5 ||Ax - y||^2 through the sharded pair, and double
     # backward
     xs = dp.shard_volume(_t(data(g.vol.shape, 3))).requires_grad_()
@@ -337,3 +393,54 @@ def raise_on_rank_1(rank, world):
         raise ArithmeticError("rank one fails on purpose")
     torch.distributed.barrier()
     return rank
+
+
+# --------------------------------------------------------------------------- #
+# Data-parallel LM training on two ranks
+# --------------------------------------------------------------------------- #
+LM_DP = dict(seq=64, batch=4, steps=3)
+
+
+def lm_dp_cfg():
+    """The Qwen3-0.6B smoke config in f32 (bf16 rounds the two runs'
+    differently ordered sums to neighbouring values)."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_smoke("qwen3-0.6b"),
+                               compute_dtype="float32")
+
+
+def lm_dp_run(mesh, pipe) -> dict:
+    """The first batch's loss and gradients (averaged over the data axis
+    under data parallelism) from ``train_loop``'s initial parameters, then
+    ``train_loop``'s losses and final parameters."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model as MD
+    cfg = lm_dp_cfg()
+    p0 = MD.init_params(cfg, torch.Generator().manual_seed(0))
+    loss0, grads0 = value_and_grad(cfg, p0, {"tokens": torch.from_numpy(
+        pipe.batch(0))})
+    if mesh is not None:
+        loss0, grads0 = pmean(mesh, "data", loss0, grads0)
+    params, losses = train_loop(cfg, mesh, pipe, LM_DP["steps"], device="cpu",
+                                log_every=0)
+    return {"loss0": float(loss0),
+            "grads0": {k: _np(v) for k, v in grads0.items()},
+            "losses": losses,
+            "params": {k: _np(v) for k, v in MD.flatten(params).items()}}
+
+
+def world_lm_dp(rank, world):
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.train import build, train_loop
+    cfg = lm_dp_cfg()
+    mesh = make_local_mesh()
+    pipe = TokenPipeline(cfg.vocab_size, LM_DP["seq"], LM_DP["batch"],
+                         shard_index=mesh.coord("data"),
+                         shard_count=dp_size(mesh))
+    out = lm_dp_run(mesh, pipe)
+    out["unsharded_pipeline"] = _err(lambda: train_loop(
+        cfg, mesh, TokenPipeline(cfg.vocab_size, LM_DP["seq"], LM_DP["batch"]),
+        1, device="cpu"))
+    out["model_axis"] = _err(lambda: build(cfg, Mesh((1, 2))))
+    return out
