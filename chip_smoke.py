@@ -195,8 +195,8 @@ path through the public API at the paper's sizes:
   continuous-batching ``Server``, 4 slots, 8 requests of 3-9 prompt tokens
   and 16 new ones, against offline greedy decoding; and a 3072-token prompt
   decoded token by token against the forward's logits at its last 8
-  positions, on the first 2 layers: decoding is launch-bound, ~70 ms a
-  step at 28 layers).
+  positions, on the first layer: decoding is launch-bound, ~70 ms a step
+  at 28 layers).
 * lm_train — ``launch/train.train_loop`` trains Qwen3-0.6B at its
   published widths and depth (remat "full", f32 master parameters, bf16
   compute) for 8 steps of 4 x 4096 tokens in 2 microbatches on
@@ -208,6 +208,26 @@ path through the public API at the paper's sizes:
   with each one's peak memory, a ``Supervisor`` resume from a failure at
   step 3 (checkpoints every 2 steps; losses within 1e-6 of the
   uninterrupted run), and 3 steps with 1-bit compression.
+* lm_families — the other LM families at their published widths
+  (``configs/*.py``), random weights from seed 0, each model freed before
+  the next: hymba_train (Hymba-1.5B, 32 layers, 1.662e9 parameters,
+  windows of 2048 on 29 layers: ``train_loop`` for 4 steps of 2 x 4096
+  tokens in 2 microbatches, the published grad_accum being 4; the
+  forward with statistics 512 times, the backward kernels 256; the
+  median step, tokens/s, peak memory, the losses falling, and the time
+  of one layer's Mamba block and plain scan), hymba_cut (its first 3
+  layers' widths: one step against ``backend="ref"``), hymba_serve (a
+  4-slot ``Server`` round of 4 requests against offline greedy decoding;
+  a 128-token prompt decoded against the forward on the 3-layer cut),
+  olmoe (OLMoE-1B-7B, 6.92e9 parameters: prefill 2 x 4096 under impl
+  dense, ragged and gather, ragged against dense, gather's dropped slots;
+  a serving round), falcon_mamba (Falcon-Mamba-7B, no attention: prefill
+  1 x 4096, a serving round, decode against the forward on a 4-layer
+  cut), qwen2_vl (Qwen2-VL-72B's widths at 2 layers: prefill of 1024 vision
+  embeddings and 3072 tokens with M-RoPE positions against
+  ``backend="ref"``) and musicgen (MusicGen-large, 4 codebooks: prefill 2
+  x 4096, a serving round).  The flash phase's hymba_attn cell holds the
+  four kernels at Hymba's 25/5 heads of 64 with its window.
 
 After the build it prints ptxas's registers and spills of every flash
 kernel instance (four kernels, f32 and bf16, hd 64, 128 and 192), of
@@ -235,8 +255,8 @@ dropped thread-views, columns and terms.
 
 runs only the build and the named cells of the projector kernel phase,
 for comparing kernel sources on one card, and prints no ok line;
-``--phases serve,autotune`` (or ``sharded``, ``lm_train``) runs only the
-build and those phases.
+``--phases serve,autotune`` (or ``sharded``, ``lm_train``, ``flash``,
+``lm_families``) runs only the build and those phases.
 ``--train-breakdown FILE`` is the child process the full run starts for
 the training step's breakdown.
 
@@ -291,9 +311,11 @@ F32_TOL = 2e-4          # kernel vs plain, as tests/test_kernels.py:33-46
 LM_PREFILL_REL_TOL = 5e-2
 LM_GRAD_REL_TOL = 5e-2
 # Decode (plain attention over the cache, bf16 scores) against the forward
-# (flash kernel) at the same positions, on the first DECODE_LAYERS layers.
+# (flash kernel) at the same positions, on the first DECODE_LAYERS layers
+# (2 until the lm_families phase: its 3072 steps took 14.5 s on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, run 29B in PERF.md).
 LM_DECODE_REL_TOL = 5e-2
-DECODE_LAYERS = 2
+DECODE_LAYERS = 1
 
 # The cone-family FP before its redesign (one thread per column and 4 rows),
 # as this script measured it on an NVIDIA H100 80GB HBM3 at 700.00 W (run
@@ -409,6 +431,8 @@ FLASH_CELLS = {
     "window_edges": (1, 16, 8, 4096, 128, 100, ("bfloat16", "float32")),
     # Nemotron-4 340B's attention (96 query heads, 8 kv heads of 192)
     "nemotron_attn": (1, 96, 8, 4096, 192, None, ("bfloat16", "float32")),
+    # Hymba-1.5B's attention (25 query heads over 5 kv heads of 64, window 2048)
+    "hymba_attn": (1, 25, 5, 4096, 64, 2048, ("bfloat16", "float32")),
 }
 # The cell whose bf16 rows stand for the flash kernels in the kernels line,
 # by name suffix: the LM path's (hd 128), and the hd-192 instances'.
@@ -1421,28 +1445,64 @@ def joseph_path(torch, results):
 
 
 ITER_IMG_TOL = 5e-4      # card vs host images, as tests/test_torch_solvers.py
+ITER_CUT = dict(n_cgls=3, n_fista=3, verbose=False)
+# The host's run of the cut (~40 s of CPU work) runs in a process of its
+# own beside the card's phases, on this many threads
+ITER_HOST_THREADS = 4
 
 
-def iterative_recon_path(torch, results):
-    """examples/iterative_recon_torch.py on the card (CGLS-25, FISTA-TV-40 on
-    the exact cone kernels; CGLS-25 on Joseph for the tilted arcs), then at
-    3 iterations each on the card and on the host with the same inputs: the
-    images agree within ITER_IMG_TOL (relative L2)."""
+def iterative_example():
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "iterative_recon_torch", ROOT / "examples" / "iterative_recon_torch.py")
     ex = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ex)
+    return ex
+
+
+def iterative_host_child(torch, out: pathlib.Path) -> int:
+    """The process of ``start_iterative_host``: the example's cut on the
+    host, its images, PSNRs and seconds written to ``out``."""
+    torch.set_num_threads(ITER_HOST_THREADS)
+    t = time.perf_counter()
+    host = iterative_example().main("cpu", **ITER_CUT)
+    host["host_cut_s"] = time.perf_counter() - t
+    torch.save(host, out)
+    return 0
+
+
+def start_iterative_host():
+    """Start the host's run of the iterative_recon cut in a process of its
+    own (``chip_smoke.py --iterative-host FILE``), stopped at exit if still
+    running; returns (process, FILE)."""
+    out = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_iter_")) / "host.pt"
+    atexit.register(shutil.rmtree, out.parent, True)
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--iterative-host", str(out)])
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out
+
+
+def iterative_recon_path(torch, results, host_run):
+    """examples/iterative_recon_torch.py on the card (CGLS-25, FISTA-TV-40 on
+    the exact cone kernels; CGLS-25 on Joseph for the tilted arcs), then at
+    3 iterations each on the card and on the host with the same inputs
+    (``host_run``: start_iterative_host's process, which ran beside the
+    card's phases): the images agree within ITER_IMG_TOL (relative L2)."""
+    ex = iterative_example()
     full, t_full = host_s(torch, lambda: ex.main("cuda", verbose=False))
     out = {"psnr": full["psnr"], "card_s": t_full}
     log("iterative_recon on the card: " + ", ".join(
         f"{k} PSNR {v:.2f} dB" for k, v in full["psnr"].items())
         + f" ({t_full:.2f} s)")
-    cut = dict(n_cgls=3, n_fista=3, verbose=False)
-    card = ex.main("cuda", **cut)
+    card = ex.main("cuda", **ITER_CUT)
+    proc, path = host_run
     t = time.perf_counter()
-    host = ex.main("cpu", **cut)
-    out["host_cut_s"] = time.perf_counter() - t
+    check(proc.wait(timeout=900) == 0, f"iterative_recon: the host's run exited "
+                                       f"{proc.returncode}")
+    out["host_wait_s"] = time.perf_counter() - t
+    host = torch.load(path, weights_only=False)   # written by our own child
+    out["host_cut_s"] = host["host_cut_s"]
     for k in ("cgls", "fista_tv", "modular_cgls"):
         a, b = card[k].double().cpu(), host[k].double()
         out[f"{k}_card_vs_host"] = float((a - b).norm() / b.norm())
@@ -1451,7 +1511,8 @@ def iterative_recon_path(torch, results):
     log("iterative_recon at 3 iterations, card vs host: " + ", ".join(
         f"{k} {out[f'{k}_card_vs_host']:.3g}" for k in ("cgls", "fista_tv",
                                                         "modular_cgls"))
-        + f" (host {out['host_cut_s']:.1f} s)")
+        + f" (host {out['host_cut_s']:.1f} s on {ITER_HOST_THREADS} threads beside the "
+        f"card's phases, {out['host_wait_s']:.1f} s waited)")
     for k in ("cgls", "fista_tv", "modular_cgls"):
         check(out[f"{k}_card_vs_host"] < ITER_IMG_TOL,
               f"iterative_recon {k}: card vs host {out[f'{k}_card_vs_host']:.3g}")
@@ -2188,87 +2249,116 @@ def lm_grad_vs_plain(torch, results, cfg, params):
     check(errs[worst] <= LM_GRAD_REL_TOL, f"lm_grad vs plain: {worst} {errs[worst]:.3g}")
 
 
-def lm_serve(torch, results, cfg, params):
-    """The continuous-batching server against offline greedy decoding, and
-    a 3072-token prompt decoded token by token against the forward."""
-    from repro_torch.launch.serve import Request, Server
+def offline_greedy(torch, cfg, params, reqs, slots: int, max_len: int) -> dict:
+    """Greedy decode_step loops of ``reqs``, ``slots`` at a time, each
+    request in its own lane from position 0 (lanes are independent in a
+    decode step); codebook tokens fed and kept as the Server does."""
     from repro_torch.models import model
-    slots, max_len = 4, 64
-    srv = Server(cfg, slots=slots, max_len=max_len, params=params, device="cuda")
-    rng = np.random.default_rng(0)           # as the reference's serve.py main
-    reqs = []
-    for rid in range(8):
-        prompt = rng.integers(0, cfg.vocab_size, size=rng.integers(3, 10)).tolist()
-        reqs.append(Request(rid, prompt, 16))
-        srv.submit(reqs[-1])
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    done = {r.rid: r for r in srv.run()}
-    torch.cuda.synchronize()
-    t_serve = time.perf_counter() - t
-    check(len(done) == 8, f"server finished {len(done)} of 8 requests")
-
-    def offline(prompt, max_new):
-        """Greedy decode_step loop on a batch of the server's shape (the
-        request in lane 0, idle lanes at token 0)."""
+    out = {}
+    for i in range(0, len(reqs), slots):
+        group = reqs[i:i + slots]
         cache = model.init_cache(cfg, slots, max_len, "cuda")
-        out = []
+        outs = [[] for _ in group]
         with torch.no_grad():
-            for t in range(len(prompt) + max_new - 1):
-                cur = prompt[t] if t < len(prompt) else out[-1]
-                toks = torch.tensor([cur] + [0] * (slots - 1), device="cuda")
-                pos = torch.tensor([t] + [0] * (slots - 1), device="cuda")
-                lg, cache = model.decode_step(cfg, srv.params, cache, toks, pos)
-                if t >= len(prompt) - 1:
-                    out.append(int(lg[0].argmax()))
-        return out
+            for t in range(max(len(r.prompt) + r.max_new - 1 for r in group)):
+                cur = [0] * slots
+                for j, r in enumerate(group):
+                    cur[j] = r.prompt[t] if t < len(r.prompt) else (outs[j] or [0])[-1]
+                toks = torch.tensor(cur, device="cuda")
+                if cfg.n_codebooks > 1:
+                    toks = toks[:, None].expand(slots, cfg.n_codebooks)
+                lg, cache = model.decode_step(cfg, params, cache, toks,
+                                              torch.full((slots,), t, device="cuda"))
+                nxt = lg.argmax(-1).cpu().numpy()
+                for j, r in enumerate(group):
+                    if len(r.prompt) - 1 <= t and len(outs[j]) < r.max_new:
+                        outs[j].append(int(nxt[j, 0] if nxt.ndim > 1 else nxt[j]))
+        del cache
+        out.update({r.rid: o for r, o in zip(group, outs)})
+    return out
 
-    same = [done[r.rid].out == offline(r.prompt, r.max_new) for r in reqs]
-    new_tokens = sum(len(r.out) for r in done.values())
-    out = {"steps": srv.steps, "serve_s": t_serve, "new_tokens": new_tokens,
-           "ms_per_step": t_serve / srv.steps * 1e3, "equal_offline": same}
-    log(f"lm_serve 8 requests on 4 slots: {srv.steps} steps, {out['ms_per_step']:.2f} "
-        f"ms/step, {new_tokens} new tokens in {t_serve:.2f} s; equal to offline greedy "
-        f"{same}")
-    check(all(same), "served tokens differ from offline greedy decoding")
 
-    # a 3072-token prompt: the forward (flash kernel) against decode_step,
-    # on a cut of the same widths (decoding is launch-bound: at 28 layers
-    # the 3072 decode steps take minutes, at 4 layers ~32 s on an H100)
-    cfgd, pd = layer_cut(cfg, params, DECODE_LAYERS)
-    pd = model.compute_params(cfgd, pd)
-    toks = lm_tokens(torch, cfg, 1, 3072, seed=2)
+def lm_requests(cfg, n: int, lo: int, hi: int, new: int, seed: int = 0):
+    """``n`` requests of ``lo``-``hi`` random prompt tokens and ``new`` new
+    ones (the reference's serve.py main draws 3-9 from seed 0)."""
+    from repro_torch.launch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid, rng.integers(0, cfg.vocab_size,
+                                      size=rng.integers(lo, hi + 1)).tolist(), new)
+            for rid in range(n)]
+
+
+def serve_round(torch, out: dict, name: str, cfg, params, reqs, slots: int = 4,
+                max_len: int = 32) -> None:
+    """A ``slots``-slot Server round over ``reqs``: its tokens against
+    offline greedy decoding."""
+    from repro_torch.launch.serve import Server
+    srv = Server(cfg, slots=slots, max_len=max_len, params=params, device="cuda")
+    for r in reqs:
+        srv.submit(r)
+    done, t_serve = host_s(torch, lambda: {r.rid: r for r in srv.run()})
+    check(len(done) == len(reqs), f"{name}: served {len(done)} of {len(reqs)} requests")
+    want, t_off = host_s(torch, lambda: offline_greedy(torch, cfg, srv.params, reqs,
+                                                       slots, max_len))
+    same = [done[r.rid].out == want[r.rid] for r in reqs]
+    new = sum(len(r.out) for r in done.values())
+    out["serve"] = {"requests": len(reqs), "slots": slots, "steps": srv.steps,
+                    "serve_s": t_serve, "ms_per_step": t_serve / srv.steps * 1e3,
+                    "new_tokens": new, "offline_s": t_off, "equal_offline": same}
+    log(f"{name} serve: {len(reqs)} requests on {slots} slots, {srv.steps} steps, "
+        f"{t_serve / srv.steps * 1e3:.2f} ms/step, {new} new tokens in {t_serve:.2f} s; "
+        f"equal to offline greedy {same} ({t_off:.2f} s)")
+    check(all(same), f"{name}: served tokens differ from offline greedy decoding")
+    del srv
+
+
+def decode_vs_forward(torch, cfg, params, n_tokens: int, last: int = 8):
+    """A prompt of ``n_tokens`` decoded token by token against the
+    forward's logits at its last ``last`` positions: rel, argmax agreement
+    where the forward's top-2 gap exceeds twice the error, and seconds."""
+    from repro_torch.models import model
+    toks = lm_tokens(torch, cfg, 1, n_tokens, seed=2)
     with torch.no_grad():
-        x = model.forward(cfgd, pd, toks)
-        full = model.logits_fn(cfgd, pd, x[:, -8:])[0]
-        del x
-        cache = model.init_cache(cfgd, 1, 3072, "cuda")
+        full = model.logits_fn(cfg, params, model.forward(cfg, params, toks)[:, -last:])[0]
+        cache = model.init_cache(cfg, 1, n_tokens, "cuda")
         dec = []
         t = time.perf_counter()
-        for i in range(3072):
-            lg, cache = model.decode_step(cfgd, pd, cache, toks[:, i], i)
-            if i >= 3072 - 8:
+        for i in range(n_tokens):
+            lg, cache = model.decode_step(cfg, params, cache, toks[:, i], i)
+            if i >= n_tokens - last:
                 dec.append(lg[0])
         torch.cuda.synchronize()
         t_dec = time.perf_counter() - t
     dec = torch.stack(dec)
-    rel = rel_err(dec, full)
     err = float((dec.float() - full.float()).abs().max())
     gap = top2_gap(full)
     agree = dec.argmax(-1) == full.argmax(-1)
-    out.update({"decode_3072_s": t_dec, "decode_vs_forward_rel": rel,
-                "decode_vs_forward_abs": err, "argmax_equal": agree.tolist(),
-                "top2_gap": gap.tolist()})
+    return {"rel": rel_err(dec, full), "max_abs_err": err, "decode_s": t_dec,
+            "argmax_equal": agree.tolist(), "top2_gap": gap.tolist(),
+            "argmax_decided_equal": bool(agree[gap > 2 * err].all())}
+
+
+def lm_serve(torch, results, cfg, params):
+    """The continuous-batching server (4 slots; 8 requests of 3-9 prompt
+    tokens and 16 new ones, drawn as the reference's serve.py main draws
+    them) against offline greedy decoding, and a 3072-token prompt decoded
+    token by token against the forward on the first DECODE_LAYERS layers
+    (decoding is launch-bound: at 28 layers the 3072 steps take minutes)."""
+    from repro_torch.models import model
+    out = results["lm_serve"] = {}
+    serve_round(torch, out, "lm_serve", cfg, params, lm_requests(cfg, 8, 3, 9, 16),
+                max_len=64)
+    cfgd, pd = layer_cut(cfg, params, DECODE_LAYERS)
+    dv = out["decode_vs_forward"] = decode_vs_forward(
+        torch, cfgd, model.compute_params(cfgd, pd), 3072)
     log(f"lm_serve 3072-token prompt, {DECODE_LAYERS} layers, decoded token by token "
-        f"({t_dec:.1f} s) "
-        f"vs the forward at the last 8 positions: rel {rel:.3g} (tol {LM_DECODE_REL_TOL}), "
-        f"argmax equal {agree.tolist()}, top-2 gaps {[round(g, 4) for g in gap.tolist()]}, "
-        f"max abs err {err:.4g}")
-    results["lm_serve"] = out
-    check(rel <= LM_DECODE_REL_TOL, f"decode vs forward {rel:.3g}")
-    check(bool(agree[gap > 2 * err].all()), "decode argmax differs from the forward's "
-                                            "where the top-2 gap exceeds twice the error")
-    del cache
+        f"({dv['decode_s']:.1f} s) vs the forward at the last 8 positions: rel "
+        f"{dv['rel']:.3g} (tol {LM_DECODE_REL_TOL}), argmax equal {dv['argmax_equal']}, "
+        f"top-2 gaps {[round(g, 4) for g in dv['top2_gap']]}, max abs err "
+        f"{dv['max_abs_err']:.4g}")
+    check(dv["rel"] <= LM_DECODE_REL_TOL, f"decode vs forward {dv['rel']:.3g}")
+    check(dv["argmax_decided_equal"], "decode argmax differs from the forward's where "
+                                      "the top-2 gap exceeds twice the error")
     torch.cuda.empty_cache()
 
 
@@ -2598,6 +2688,372 @@ def lm_train_paths(torch, results) -> dict:
     return launches
 
 
+# The other LM families at their published widths (configs/*.py), random
+# weights from seed 0 on the card, each model freed before the next:
+# Hymba-1.5B trained (full depth, remat "full", 2 x 4096 tokens a step in 2
+# microbatches; the published grad_accum is 4) and served; OLMoE-1B-7B,
+# Falcon-Mamba-7B, Qwen2-VL-72B (a 2-layer cut: 72.7e9 parameters do not
+# fit one card) and MusicGen-large prefilled and served.
+FAMILY_TRAIN_STEPS = 4
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_ACCUM = 2, 4096, 2
+FAMILY_CUT = 3                 # Hymba's checks: layers 0 and 2 global, 1 windowed
+FAMILY_DECODE_PROMPT = 128     # Hymba's cut: decode vs forward
+# Hymba's serving round: 4 requests of 16-32 prompt tokens on 4 slots, 16
+# new tokens each; a decode step takes ~100-140 ms (32 layers, host-bound),
+# so 8 requests of 16-64 tokens took 43 s with their offline decoding, and 5
+# of 16-32 took 15.8 s (an NVIDIA H100 80GB HBM3 at 700.00 W, runs 29A and
+# 29B in PERF.md).
+HYMBA_REQUESTS = 4
+MAMBA_CUT, MAMBA_DECODE_PROMPT = 4, 64
+MAMBA_DECODE_REL_TOL = 5e-2    # tests/test_archs.py:96
+# The parameter change of one AdamW step, kernels against backend="ref"
+# (tests/test_torch_cuda.py's bounds for Qwen3-0.6B's step)
+LM_UPDATE_REL_TOL, LM_UPDATE_LEAF_REL_TOL = 0.15, 0.3
+
+
+def family_cfg(arch: str, **change):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(arch), **change)
+
+
+def family_params(torch, cfg, cast: bool = True):
+    """Random parameters from seed 0 on the card; ``cast``: cast once to the
+    compute dtype (model.compute_params), the f32 masters freed."""
+    from repro_torch.models import model
+    params = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    if cast:
+        params = model.compute_params(cfg, params)
+        torch.cuda.empty_cache()
+    return params
+
+
+def hymba_train(torch, results) -> dict:
+    """train_loop at Hymba-1.5B's full width and depth: the losses fall;
+    each step's time (CUDA events between the steps' batch draws), tokens/s
+    and the peak memory; then the time of one layer's pieces at the step's
+    shapes (the Mamba block and its plain scan, forward and gradient)."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import mamba, model
+    cfg = family_cfg("hymba-1.5b", grad_accum=FAMILY_TRAIN_ACCUM)
+    marks = []
+
+    class Marked(TokenPipeline):
+        def batch(self, step=None):
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            return super().batch(step)
+
+    pipe = Marked(cfg.vocab_size, FAMILY_TRAIN_SEQ, FAMILY_TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (params, losses), wall = host_s(torch, lambda: train_loop(
+        cfg, None, pipe, FAMILY_TRAIN_STEPS, log_every=0, lr=LM_TRAIN_LR))
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    marks[-1].synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    ms = statistics.median(step_ms[1:])
+    tokens = FAMILY_TRAIN_BATCH * FAMILY_TRAIN_SEQ
+    out = {"losses": losses, "step_ms": step_ms, "ms": ms, "tokens_per_s": tokens / (ms / 1e3),
+           "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "n_params": sum(t.numel() for t in model.flatten(params).values())}
+    log(f"hymba_train {cfg.name}, {cfg.n_layers} layers, remat {cfg.remat_policy}, "
+        f"{FAMILY_TRAIN_BATCH} x {FAMILY_TRAIN_SEQ} tokens a step in {FAMILY_TRAIN_ACCUM} "
+        f"microbatches, {out['n_params'] / 1e9:.3f}e9 f32 parameters: median step "
+        f"{ms:.2f} ms after the first ({step_ms[0]:.1f} ms), {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak {out['peak_gib']:.2f} GiB; losses {[round(v, 4) for v in losses]} "
+        f"[{results['device']}]")
+    check(all(np.isfinite(losses)), f"hymba_train: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"hymba_train: the loss did not fall: {losses}")
+    del params
+    torch.cuda.empty_cache()
+
+    # one layer's pieces at the step's shapes (1 x 4096 a microbatch), bf16
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lp = model._cast_layer(model._layer(family_params(torch, dataclasses.replace(
+        cfg, n_layers=1), cast=False), 0), torch.bfloat16)
+    x = torch.randn((1, FAMILY_TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    ssm = {k: v.requires_grad_() for k, v in lp["ssm"].items() if k != "ln"}
+    xg = x.clone().requires_grad_()
+
+    def block_grad():
+        return torch.autograd.grad(mamba.mamba_train(ssm, xg, cfg).float().square().sum(),
+                                   [xg] + list(ssm.values()))
+
+    C, di, N = mamba.CHUNK, cfg.d_inner, cfg.ssm.d_state
+    a = torch.rand((1, C, di, N), generator=gen, device="cuda").requires_grad_()
+    b = torch.randn((1, C, di, N), generator=gen, device="cuda").requires_grad_()
+
+    def scan_grad():
+        acum, hcum = mamba._scan(a, b)
+        return torch.autograd.grad((acum.sum() + hcum.sum()), [a, b])
+
+    with torch.no_grad():
+        mamba_fwd = cuda_ms(torch, lambda: mamba.mamba_train(lp["ssm"], x, cfg), reps=3, warmup=1)
+        scan_fwd = cuda_ms(torch, lambda: mamba._scan(a, b), reps=3, warmup=1)
+    mamba_grad = cuda_ms(torch, block_grad, reps=3, warmup=1)
+    scan_grad_ms = cuda_ms(torch, scan_grad, reps=3, warmup=1)
+    chunks = FAMILY_TRAIN_SEQ // C
+    # a microbatch runs each layer's forward twice (remat "full") and its
+    # backward once: forward + (forward + backward) = fwd + grad
+    per_step = FAMILY_TRAIN_ACCUM * cfg.n_layers
+    out["pieces"] = {
+        "mamba_fwd_ms": mamba_fwd, "mamba_grad_ms": mamba_grad,
+        "scan_fwd_ms_per_chunk": scan_fwd, "scan_grad_ms_per_chunk": scan_grad_ms,
+        "mamba_share_of_step": per_step * (mamba_fwd + mamba_grad) / ms,
+        "scan_share_of_step": per_step * chunks * (scan_fwd + scan_grad_ms) / ms}
+    log(f"hymba_train pieces (one layer, 1 x {FAMILY_TRAIN_SEQ}, bf16): Mamba block "
+        f"forward {mamba_fwd:.2f} ms, forward+backward {mamba_grad:.2f} ms; plain scan a "
+        f"chunk of {C} x {di} x {N} f32: forward {scan_fwd:.2f} ms, forward+backward "
+        f"{scan_grad_ms:.2f} ms; of the median step: Mamba blocks "
+        f"{out['pieces']['mamba_share_of_step']:.3f}, scans "
+        f"{out['pieces']['scan_share_of_step']:.3f}")
+    del lp, ssm, x, xg, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def hymba_cut_check(torch, out: dict) -> None:
+    """The FAMILY_CUT-layer cut: one training step (both microbatches) on
+    the kernels against backend="ref"."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import build
+    from repro_torch.models import model
+    cfg = family_cfg("hymba-1.5b", n_layers=FAMILY_CUT, grad_accum=FAMILY_TRAIN_ACCUM)
+    check(model._layer_windows(cfg).tolist() == [True, False, True],
+          f"hymba cut windows {model._layer_windows(cfg)}")
+    params = family_params(torch, cfg, cast=False)
+    p0 = {k: v.clone() for k, v in model.flatten(params).items()}
+    toks = torch.from_numpy(TokenPipeline(cfg.vocab_size, FAMILY_TRAIN_SEQ,
+                                          FAMILY_TRAIN_BATCH).batch(0)).cuda()
+    seen = {}
+    for backend in ("auto", "ref"):
+        grads = {}
+
+        def capture(g, grads=grads):
+            grads.update(g)
+            return g
+
+        opt, _ = build(cfg, None, lr=LM_TRAIN_LR, total_steps=FAMILY_TRAIN_STEPS)
+        p, _, m = steps.make_train_step(cfg, opt, compress_fn=capture, backend=backend)(
+            params, opt.init(model.flatten(params)), {"tokens": toks})
+        seen[backend] = (float(m["loss"]), grads, model.flatten(p))
+    loss_rel = abs(seen["auto"][0] / seen["ref"][0] - 1)
+    errs = {k: rel_err(g, seen["ref"][1][k]) for k, g in seen["auto"][1].items()}
+    worst = max(errs, key=errs.get)
+    num = den = 0.0
+    upd = {}
+    for k, p in seen["auto"][2].items():
+        d = p.double() - p0[k].double()
+        d_ref = seen["ref"][2][k].double() - p0[k].double()
+        err, ref = float(((d - d_ref) ** 2).sum()), float((d_ref ** 2).sum())
+        check(ref > 0, f"hymba cut: the plain step did not move {k}")
+        upd[k] = (err / ref) ** 0.5
+        num, den = num + err, den + ref
+    upd_worst = max(upd, key=upd.get)
+    out["cut_vs_plain"] = {"loss_rel": loss_rel, "worst": worst, "rel_err_by_leaf": errs,
+                           "update_rel": (num / den) ** 0.5, "update_worst": upd_worst,
+                           "update_rel_by_leaf": upd}
+    log(f"hymba_train step, {FAMILY_CUT} layers, kernels vs plain attention: loss rel "
+        f"{loss_rel:.3g}, worst gradient {worst} rel {errs[worst]:.3g} (tol "
+        f"{LM_GRAD_REL_TOL}); update rel {(num / den) ** 0.5:.3g} (tol {LM_UPDATE_REL_TOL}), "
+        f"worst leaf {upd_worst} {upd[upd_worst]:.3g} (tol {LM_UPDATE_LEAF_REL_TOL})")
+    check(loss_rel <= LM_GRAD_REL_TOL and errs[worst] <= LM_GRAD_REL_TOL,
+          f"hymba cut vs plain: loss {loss_rel:.3g}, {worst} {errs[worst]:.3g}")
+    check((num / den) ** 0.5 <= LM_UPDATE_REL_TOL and upd[upd_worst] <= LM_UPDATE_LEAF_REL_TOL,
+          f"hymba cut update vs plain: {(num / den) ** 0.5:.3g}, {upd_worst} "
+          f"{upd[upd_worst]:.3g}")
+    del seen, params, p0
+    torch.cuda.empty_cache()
+
+
+def hymba_serve(torch, results) -> dict:
+    """Server(slots=4) on the full model: HYMBA_REQUESTS requests of 16-32
+    prompt tokens and 16 new tokens each against offline greedy decoding;
+    on the cut, a prompt decoded token by token against the forward."""
+    cfg = family_cfg("hymba-1.5b")
+    params = family_params(torch, cfg)
+    out = {}
+    serve_round(torch, out, "hymba_serve", cfg, params,
+                lm_requests(cfg, HYMBA_REQUESTS, 16, 32, 16), max_len=64)
+    del params
+    cfgc = family_cfg("hymba-1.5b", n_layers=FAMILY_CUT)
+    pc = family_params(torch, cfgc)
+    dv = out["decode_vs_forward"] = decode_vs_forward(torch, cfgc, pc, FAMILY_DECODE_PROMPT)
+    log(f"hymba_serve {FAMILY_CUT}-layer cut, a {FAMILY_DECODE_PROMPT}-token prompt decoded "
+        f"({dv['decode_s']:.1f} s) vs the forward at the last 8 positions: rel "
+        f"{dv['rel']:.3g} (tol {LM_DECODE_REL_TOL}), argmax equal {dv['argmax_equal']}")
+    check(dv["rel"] <= LM_DECODE_REL_TOL and dv["argmax_decided_equal"],
+          f"hymba decode vs forward {dv}")
+    del pc
+    torch.cuda.empty_cache()
+    return out
+
+
+def olmoe_cell(torch, results) -> dict:
+    """OLMoE-1B-7B at full width and depth: prefill 2 x 4096 under the
+    published impl "dense" and under "ragged" on the same weights (within
+    LM_PREFILL_REL_TOL), "gather" with its dropped slots; a Server round."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe
+    cfg = family_cfg("olmoe-1b-7b")
+    params = family_params(torch, cfg)
+    toks = lm_tokens(torch, cfg, 2, 4096)
+    out = {"n_params": cfg.n_params()}
+    lg = {}
+    for impl in moe.IMPLS:
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, impl=impl))
+        drops = []
+        if impl == "gather":
+            gather = moe.moe_gather
+
+            def counted(p, x, cfg_, stats=None):
+                s = {}
+                y = gather(p, x, cfg_, s)
+                drops.append(s["dropped"])
+                return y
+            moe.moe_gather = counted
+        try:
+            lg[impl], s = host_s(torch, lambda: make_prefill_step(c)(params, {"tokens": toks}))
+        finally:
+            if impl == "gather":
+                moe.moe_gather = gather
+        out[impl] = {"s": s, "ms": s * 1e3}
+        if drops:
+            out[impl]["dropped_slots"] = int(sum(int(d) for d in drops))
+            out[impl]["slots"] = cfg.n_layers * 2 * 4096 * cfg.moe.top_k
+        check(bool(torch.isfinite(lg[impl]).all()), f"olmoe {impl} prefill non-finite")
+    rel = rel_err(lg["ragged"], lg["dense"])
+    out["ragged_vs_dense_rel"] = rel
+    out["gather_vs_dense_rel"] = rel_err(lg["gather"], lg["dense"])
+    log(f"olmoe prefill 2 x 4096 ({cfg.n_params() / 1e9:.2f}e9 parameters, bf16 cast once): "
+        + ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in out.items() if k in moe.IMPLS)
+        + f"; ragged vs dense rel {rel:.3g} (tol {LM_PREFILL_REL_TOL}); gather dropped "
+        f"{out['gather']['dropped_slots']} of {out['gather']['slots']} slots, vs dense rel "
+        f"{out['gather_vs_dense_rel']:.3g}")
+    check(rel <= LM_PREFILL_REL_TOL, f"olmoe ragged vs dense prefill {rel:.3g}")
+    serve_round(torch, out, "olmoe", cfg, params, lm_requests(cfg, 4, 8, 16, 8))
+    del params, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def falcon_mamba_cell(torch, results) -> dict:
+    """Falcon-Mamba-7B at full width and depth (no attention: no kernel):
+    prefill 1 x 4096, a Server round, and on a MAMBA_CUT-layer cut a
+    MAMBA_DECODE_PROMPT-token prompt decoded against the forward's last
+    position."""
+    from repro_torch.launch.steps import make_prefill_step
+    cfg = family_cfg("falcon-mamba-7b")
+    params = family_params(torch, cfg)
+    toks = lm_tokens(torch, cfg, 1, 4096)
+    lg, s = host_s(torch, lambda: make_prefill_step(cfg)(params, {"tokens": toks}))
+    check(bool(torch.isfinite(lg).all()), "falcon_mamba prefill non-finite")
+    out = {"n_params": cfg.n_params(), "prefill_ms": s * 1e3}
+    log(f"falcon_mamba prefill 1 x 4096 ({cfg.n_params() / 1e9:.2f}e9 parameters): "
+        f"{s * 1e3:.1f} ms")
+    serve_round(torch, out, "falcon_mamba", cfg, params, lm_requests(cfg, 4, 8, 16, 8))
+    cfgc, pc = layer_cut(cfg, params, MAMBA_CUT)
+    dv = out["decode_vs_forward"] = decode_vs_forward(torch, cfgc, pc, MAMBA_DECODE_PROMPT,
+                                                      last=1)
+    log(f"falcon_mamba {MAMBA_CUT}-layer cut, a {MAMBA_DECODE_PROMPT}-token prompt decoded vs "
+        f"the forward's last position: rel {dv['rel']:.3g} (tol {MAMBA_DECODE_REL_TOL})")
+    check(dv["rel"] <= MAMBA_DECODE_REL_TOL, f"falcon_mamba decode vs forward {dv}")
+    del params, pc
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen2_vl_cell(torch, results) -> dict:
+    """Qwen2-VL-72B's widths at 2 layers: prefill 1 x (1024 vision
+    embeddings + 3072 text tokens) with M-RoPE positions whose sections
+    differ (a 32 x 32 patch grid at temporal 0, then the text ids), against
+    backend="ref"."""
+    from repro_torch.launch.steps import make_prefill_step
+    cfg = family_cfg("qwen2-vl-72b", n_layers=2)
+    params = family_params(torch, cfg)
+    nv, nt = cfg.vision_tokens, 4096 - cfg.vision_tokens
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ve = 0.02 * torch.randn((1, nv, cfg.d_model), generator=gen, device="cuda")
+    i = torch.arange(nv, device="cuda")
+    side = int(round(nv ** 0.5))
+    grid = torch.stack([torch.zeros_like(i), i // side, i % side])
+    text = (torch.arange(nt, device="cuda") + side)[None].expand(3, nt)
+    batch = {"tokens": lm_tokens(torch, cfg, 1, nt), "vision_embeds": ve,
+             "positions": torch.cat([grid, text], 1)[:, None]}
+    lg, s = host_s(torch, lambda: make_prefill_step(cfg)(params, batch))
+    want = make_prefill_step(cfg, backend="ref")(params, batch)
+    rel = rel_err(lg, want)
+    out = {"n_params": cfg.n_params(), "prefill_ms": s * 1e3, "rel_err_vs_plain": rel}
+    log(f"qwen2_vl 2-layer cut ({cfg.n_params() / 1e9:.2f}e9 parameters) prefill 1 x ({nv} "
+        f"vision + {nt} text), M-RoPE: {s * 1e3:.1f} ms, vs plain attention rel {rel:.3g} "
+        f"(tol {LM_PREFILL_REL_TOL})")
+    check(bool(torch.isfinite(lg).all()) and rel <= LM_PREFILL_REL_TOL,
+          f"qwen2_vl prefill vs plain {rel:.3g}")
+    del params, lg, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def musicgen_cell(torch, results) -> dict:
+    """MusicGen-large at full width and depth (4 codebooks): prefill 2 x
+    4096, a Server round whose decode step returns (slots, 4) tokens."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import model
+    cfg = family_cfg("musicgen-large")
+    params = family_params(torch, cfg)
+    toks = lm_tokens(torch, cfg, 2, 4096)[:, None].expand(2, cfg.n_codebooks, 4096)
+    lg, s = host_s(torch, lambda: make_prefill_step(cfg)(params, {"tokens": toks}))
+    check(bool(torch.isfinite(lg).all()), "musicgen prefill non-finite")
+    out = {"n_params": cfg.n_params(), "prefill_ms": s * 1e3}
+    nxt, _, _ = make_serve_step(cfg)(params, model.init_cache(cfg, 4, 8, "cuda"),
+                                     torch.zeros((4, cfg.n_codebooks), dtype=torch.long,
+                                                 device="cuda"), 0)
+    check(tuple(nxt.shape) == (4, cfg.n_codebooks), f"musicgen serve step {tuple(nxt.shape)}")
+    log(f"musicgen prefill 2 x 4096 x {cfg.n_codebooks} codebooks ({cfg.n_params() / 1e9:.2f}e9 "
+        f"parameters): {s * 1e3:.1f} ms; a serve step returns {tuple(nxt.shape)} tokens")
+    serve_round(torch, out, "musicgen", cfg, params, lm_requests(cfg, 4, 8, 16, 8))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_families(torch, results) -> None:
+    """Every cell of the other LM families, each under run_path with its
+    flash kernels' launch counts."""
+    t_phase = time.perf_counter()
+    out = results["lm_families"] = {}
+    grad_kernels = ("flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")
+    micro = FAMILY_TRAIN_STEPS * FAMILY_TRAIN_ACCUM * family_cfg("hymba-1.5b").n_layers
+    cells = [
+        ("hymba_train", lambda: out.__setitem__("hymba_train", hymba_train(torch, results)),
+         {"flash_fwd_stats": 2 * micro, "flash_bwd_dq": micro, "flash_bwd_dkv": micro}),
+        ("hymba_cut", lambda: hymba_cut_check(torch, out["hymba_train"]), None),
+        ("hymba_serve", lambda: out.__setitem__("hymba_serve", hymba_serve(torch, results)), {}),
+        ("olmoe", lambda: out.__setitem__("olmoe", olmoe_cell(torch, results)),
+         {"flash_fwd": 3 * family_cfg("olmoe-1b-7b").n_layers}),
+        ("falcon_mamba", lambda: out.__setitem__("falcon_mamba",
+                                                 falcon_mamba_cell(torch, results)), {}),
+        ("qwen2_vl", lambda: out.__setitem__("qwen2_vl", qwen2_vl_cell(torch, results)),
+         {"flash_fwd": 2}),
+        ("musicgen", lambda: out.__setitem__("musicgen", musicgen_cell(torch, results)),
+         {"flash_fwd": family_cfg("musicgen-large").n_layers}),
+    ]
+    for name, fn, want in cells:
+        t = time.perf_counter()
+        if want is None:
+            fn()
+        else:
+            got = run_path(torch, results, f"lm_families {name}", tuple(want), fn)
+            check(got == want, f"lm_families {name} launches {got}, want {want}")
+        results["phase_s"][f"lm_families {name}"] = time.perf_counter() - t
+    results["phase_s"]["lm_families"] = time.perf_counter() - t_phase
+    log(f"lm_families {results['phase_s']['lm_families']:.1f} s [{results['device']}]")
+
+
 def nemotron_attn_layer(torch, results) -> dict:
     """One attention layer of Nemotron-4 340B at its published widths
     (``configs/nemotron_4_340b.py``: d_model 18432, 96 query heads and 8 kv
@@ -2679,7 +3135,7 @@ def nemotron_attn_layer(torch, results) -> dict:
                for k in ("flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")}}
 
 
-def projector_phases(torch, results, only=None) -> dict:
+def projector_phases(torch, results, only=None, host_run=None) -> dict:
     """The projector kernels' cells and paths, and their profile; returns the
     launches of each projector kernel on its own path.  ``only``: the names
     of the kernel-phase cells to run, and nothing else."""
@@ -2791,7 +3247,7 @@ def projector_phases(torch, results, only=None) -> dict:
     cone_packed_exact(torch, results, packed)
     run_path(torch, results, "joseph", (), lambda: joseph_path(torch, results))
     run_path(torch, results, "iterative_recon", ("fp_cone_sf", "bp_cone_sf"),
-             lambda: iterative_recon_path(torch, results))
+             lambda: iterative_recon_path(torch, results, host_run))
     t = time.perf_counter()
     profile_cells(torch, results)
     torch.cuda.synchronize()
@@ -4063,6 +4519,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--train-breakdown"]:
         return train_breakdown_child(torch, pathlib.Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--iterative-host"]:
+        return iterative_host_child(torch, pathlib.Path(sys.argv[2]))
     # A tune cache of this run's own, and the heuristics everywhere but in
     # the autotune phase: a measured configuration must change no kernel
     # time or bit of this run's earlier phases or of a later run.
@@ -4103,7 +4561,8 @@ def main() -> int:
     if phases is not None:
         for name in phases:
             {"serve": serve_phase, "autotune": autotune_phase,
-             "sharded": sharded_phase, "lm_train": lm_train_paths}[name](torch, results)
+             "sharded": sharded_phase, "lm_train": lm_train_paths,
+             "flash": flash_phase, "lm_families": lm_families}[name](torch, results)
         tune.clear()
         outdir = ROOT / "chiprun_out"
         outdir.mkdir(exist_ok=True)
@@ -4115,7 +4574,8 @@ def main() -> int:
 
     if only is None:
         train_breakdowns(torch, results)
-    launches = projector_phases(torch, results, only)
+    host_run = start_iterative_host() if only is None else None
+    launches = projector_phases(torch, results, only, host_run)
     if only is not None:
         for row in results["kernels"]:
             log(json.dumps({k: row[k] for k in ("kernel", "cell", "dtype", "ms",
@@ -4128,6 +4588,7 @@ def main() -> int:
     flash_phase(torch, results)
     launches.update(lm_paths(torch, results))
     launches.update(lm_train_paths(torch, results))
+    lm_families(torch, results)
     t = time.perf_counter()
     line_launches = nemotron_attn_layer(torch, results)
     results["phase_s"]["nemotron_attn_layer"] = time.perf_counter() - t

@@ -36,9 +36,10 @@ class Request:
 
 
 class Server:
-    """Fixed-slot continuous batching.  Each slot holds one request; the KV
-    cache is (layers, slots, ...) and slots are recycled as requests
-    finish.  ``params`` is a parameter tree on ``device``; without one the
+    """Fixed-slot continuous batching.  Each slot holds one request; the
+    KV/SSM cache is (layers, slots, ...) and slots are recycled as requests
+    finish (a slot's lanes of every cache entry zeroed on admission).
+    ``params`` is a parameter tree on ``device``; without one the
     server initializes its own from ``seed``.  The server keeps the weights
     cast to the compute dtype once (``model.compute_params``)."""
 
@@ -91,6 +92,10 @@ class Server:
             return False
         toks = torch.tensor([self._slot_token(s) for s in range(self.slots)],
                             dtype=torch.int64, device=self.device)
+        if self.cfg.n_codebooks > 1:
+            # as the reference: every codebook fed the request's token, the
+            # first codebook's greedy token kept
+            toks = toks[:, None].expand(self.slots, self.cfg.n_codebooks)
         pos = torch.from_numpy(self.positions).to(self.device)
         nxt, _, self.cache = self._step(self.params, self.cache, toks, pos)
         nxt = nxt.cpu().numpy()
@@ -101,7 +106,7 @@ class Server:
             self.positions[s] += 1
             pos_s = int(self.positions[s])
             if pos_s >= len(req.prompt):       # generating
-                tok = int(nxt[s])
+                tok = int(nxt[s, 0] if nxt.ndim > 1 else nxt[s])
                 req.out.append(tok)
                 if (len(req.out) >= req.max_new
                         or (self.eos_id is not None and tok == self.eos_id)

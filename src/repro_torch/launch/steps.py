@@ -38,12 +38,13 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
 
     ``params`` is a model tree (``MD.init_params``); ``opt_state`` is
     ``opt.init(MD.flatten(params))``, since ``optim`` works on flat dicts;
-    ``batch`` holds ``tokens`` (B, S).  ``grad_accum`` (None: the config's)
-    splits the batch into that many microbatches of consecutive rows, run
-    one after the other: the gradients are summed as ``g / grad_accum`` in
-    microbatch order, and ``metrics["loss"]`` is the last microbatch's
-    loss, as in the reference (not the mean over the microbatches).  Then,
-    in order: ``reduce_fn(loss, grads) -> (loss, grads)`` (the data-parallel
+    ``batch`` holds ``tokens`` (B, S) or (B, nq, S), and optionally
+    ``vision_embeds`` and ``positions`` (``MD.loss_fn``).  ``grad_accum``
+    (None: the config's) splits the batch into that many microbatches of
+    consecutive rows, run one after the other: the gradients are summed as
+    ``g / grad_accum`` in microbatch order, and ``metrics["loss"]`` is the
+    last microbatch's loss, as in the reference (not the mean over the
+    microbatches).  Then, in order: ``reduce_fn(loss, grads) -> (loss, grads)`` (the data-parallel
     mean over ranks, ``launch/mesh.pmean``; None on one rank),
     ``compress_fn(grads) -> grads`` (e.g. ``runtime/compression``),
     clipping to ``clip_norm`` (``grad_norm`` is the norm before it), the
@@ -67,7 +68,9 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
             per = n // grad_accum
             grads = None
             for j in range(grad_accum):
-                mb = {k: v[j * per:(j + 1) * per] for k, v in batch.items()}
+                # positions under M-RoPE are (3, B, S): rows on axis 1
+                mb = {k: (v[:, j * per:(j + 1) * per] if k == "positions"
+                          else v[j * per:(j + 1) * per]) for k, v in batch.items()}
                 loss, g = value_and_grad(cfg, params, mb, backend)
                 grads = ({k: v / grad_accum for k, v in g.items()}
                          if grads is None else
@@ -86,13 +89,15 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
 
 
 def make_prefill_step(cfg: ModelConfig, backend: str = "auto"):
-    """Forward over the full prompt; returns last-position logits (B, V).
-    ``backend`` routes the long-sequence attention (``layers``)."""
+    """Forward over the full prompt (``tokens``, and optionally
+    ``vision_embeds`` and ``positions``); returns last-position logits (B,
+    V), of the first codebook for multi-codebook.  ``backend`` routes the
+    long-sequence attention (``layers``)."""
 
     @torch.no_grad()
     def prefill(params, batch):
         x = MD.forward(cfg, params, batch["tokens"], batch.get("positions"),
-                       backend)
+                       backend, batch.get("vision_embeds"))
         return MD.logits_fn(cfg, params, x[:, -1:])[:, 0]
 
     return prefill
@@ -100,7 +105,8 @@ def make_prefill_step(cfg: ModelConfig, backend: str = "auto"):
 
 def make_serve_step(cfg: ModelConfig):
     """One greedy decode iteration: logits -> next token -> updated cache
-    (in place)."""
+    (in place).  The tokens are (B,), or (B, n_codebooks) for
+    multi-codebook."""
 
     @torch.no_grad()
     def serve(params, cache, tokens, position):

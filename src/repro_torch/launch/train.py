@@ -22,6 +22,7 @@ import argparse
 import time
 from typing import Callable, Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -147,7 +148,8 @@ def train_loop(cfg, mesh, pipeline, steps: int, ckpt_dir: Optional[str] = None,
     ``ckpt_every`` steps and at the end (once: the reference writes the
     last step twice when ``ckpt_every`` divides ``steps``), and a call
     resumes from the latest one.  Step ``i`` trains on
-    ``pipeline.batch(i)`` (by index, so a resumed run replays no batch).
+    ``pipeline.batch(i)`` (by index, so a resumed run replays no batch),
+    with zero ``vision_embeds`` for a VLM config, as the reference's loop.
     ``fail_at_step`` raises before that step (the fault-tolerance tests).
 
     ``mesh=None`` runs on one device.  Over a mesh with a ``data`` axis of
@@ -191,6 +193,10 @@ def train_loop(cfg, mesh, pipeline, steps: int, ckpt_dir: Optional[str] = None,
             if fail_at_step is not None and i == fail_at_step:
                 raise RuntimeError("injected failure (fault-tolerance test)")
             batch = {"tokens": torch.from_numpy(toks).to(dev)}
+            if cfg.vision_tokens:
+                batch["vision_embeds"] = torch.zeros(
+                    (toks.shape[0], cfg.vision_tokens, cfg.d_model),
+                    dtype=getattr(torch, cfg.compute_dtype), device=dev)
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             losses.append(float(metrics["loss"]))
             if log_every and i % log_every == 0:
@@ -214,7 +220,7 @@ def train_loop(cfg, mesh, pipeline, steps: int, ckpt_dir: Optional[str] = None,
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.train",
-        description="Train an assigned architecture (dense family) under the "
+        description="Train an assigned architecture under the "
                     "Supervisor, with checkpoints and automatic resume.")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -238,6 +244,11 @@ def main(argv=None):
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     pipe = TokenPipeline(cfg.vocab_size, args.seq, args.batch)
+    if cfg.n_codebooks > 1:
+        # the reference's stub: every codebook gets the same tokens
+        base = pipe.batch
+        pipe.batch = lambda step=None: np.stack(
+            [base(step)] * cfg.n_codebooks, axis=1)
     attempts = {"n": 0}
 
     def loop(start):

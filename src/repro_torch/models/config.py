@@ -4,7 +4,7 @@ reference package's ``models/config.py``: pure dataclasses).
 One ``ModelConfig`` describes any member of the LM family zoo: dense GQA
 transformers, MoE, Mamba-1 SSMs, hybrid (parallel attention+SSM) blocks,
 VLM and audio backbones.  ``repro_torch/configs/<id>.py`` instantiates one
-per assigned architecture.  The port's model runs the ``dense`` family; the
+per assigned architecture.  The port's model runs every family; the
 mesh and compiler knobs (``scan_layers``, ``seq_shard``, ``pure_dp``) are
 kept so that a config reads the same in both packages, and the port's eager
 model does not read them; it reads ``remat_policy`` (activation

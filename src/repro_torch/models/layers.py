@@ -1,7 +1,8 @@
-"""Transformer building blocks of the dense family, the counterparts of the
-reference package's ``models/layers.py``: norms, RoPE, GQA attention (full,
-optionally sliding-window, the long-sequence flash path, and single-step
-decode against a KV cache), and the MLP variants.
+"""Transformer building blocks, the counterparts of the reference package's
+``models/layers.py``: norms, RoPE and M-RoPE, GQA attention (full or
+sliding-window, the long-sequence flash path, and single-step decode against
+a KV cache, a ring buffer where every layer is windowed), and the MLP
+variants.
 
 Activations keep the reference's ``(B, S, H, hd)`` layout.  The long branch
 of :func:`attention_train` (``S > 2048``) goes through
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +71,30 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _mrope_section_ids(sections: Tuple[int, ...], device: torch.device):
+    """(sum(sections),): each frequency's section, made once per device."""
+    return torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                        device=device)
+
+
+def apply_mrope(x, positions3, sections: Tuple[int, ...],
+                theta: float = 10000.0):
+    """Qwen2-VL multimodal RoPE.  positions3: (3, ..., S), the temporal,
+    height and width ids; ``sections`` split the half-dim, and each section
+    rotates with its own ids."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    sec = _mrope_section_ids(tuple(sections), x.device)
+    pos = positions3[sec].movedim(0, -1)                    # (..., S, hd/2)
+    ang = pos.float() * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # --------------------------------------------------------------------------- #
 # Attention
 # --------------------------------------------------------------------------- #
@@ -85,6 +110,9 @@ def _qkv(params, x, cfg: ModelConfig, positions):
     if cfg.rope == "standard":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
     return q, k, v
 
 
@@ -144,8 +172,10 @@ def _flash(q, k, v, window: Optional[int], backend: str):
 
 def attention_train(params, x, cfg: ModelConfig, positions,
                     window: Optional[int] = None, backend: str = "auto"):
-    """Full-sequence causal attention.  ``S <= 2048``: dense masked softmax;
-    longer: flash attention (memory O(S * chunk) instead of O(S^2)), whose
+    """Full-sequence causal attention, over the last ``window`` keys of each
+    query where ``window`` is given (a global layer of a windowed stack
+    passes None).  ``S <= 2048``: dense masked softmax; longer: flash
+    attention (memory O(S * chunk) instead of O(S^2)), whose
     chunks need ``S % 1024 == 0`` as in the reference, on ``backend``
     (``"auto"`` or ``"ref"``, see the module's docstring)."""
     if backend not in BACKENDS:
@@ -167,22 +197,38 @@ def attention_train(params, x, cfg: ModelConfig, positions,
 
 
 def attention_decode(params, x, cfg: ModelConfig, cache_k, cache_v,
-                     position):
-    """One-token decode of a global-attention layer.  cache_k/v: (B, S_max,
-    KV, hd), written in place at each sequence's slot; position: (B,)
-    per-sequence write index (continuous batching: every slot may be at a
-    different depth).  Returns (out (B,1,d), cache_k, cache_v)."""
+                     position, window: Optional[int] = None,
+                     is_global: Optional[bool] = None):
+    """One-token decode.  cache_k/v: (B, S_max, KV, hd), written in place at
+    each sequence's slot; position: (B,) per-sequence write index
+    (continuous batching: every slot may be at a different depth).  With a
+    ``window``, a layer attends to the last ``window`` positions unless
+    ``is_global`` (a stack of windowed and global layers passes each layer's
+    flag); where ``is_global`` is None and the cache is ``window`` long, the
+    cache is a ring buffer written at ``position % window``.  Returns (out
+    (B,1,d), cache_k, cache_v)."""
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     position = torch.as_tensor(position, dtype=torch.int64,
                                device=x.device).expand(B)
-    q, k, v = _qkv(params, x, cfg, position[:, None])
+    pos = position[:, None]                                     # (B, 1)
+    if cfg.rope == "mrope":
+        # decode: all three M-RoPE sections advance with the token index
+        pos = pos[None].expand(3, B, 1)
+    q, k, v = _qkv(params, x, cfg, pos)
     S_max = cache_k.shape[1]
+    ring = window is not None and S_max == window and is_global is None
+    slot = position % window if ring else position
     bidx = torch.arange(B, device=x.device)
-    cache_k[bidx, position] = k[:, 0]
-    cache_v[bidx, position] = v[:, 0]
+    cache_k[bidx, slot] = k[:, 0]
+    cache_v[bidx, slot] = v[:, 0]
     kp = torch.arange(S_max, device=x.device)[None, :]        # (1, S)
-    valid = kp <= position[:, None]
+    if ring:
+        valid = kp < torch.clamp(position + 1, max=window)[:, None]
+    else:
+        valid = kp <= position[:, None]
+        if window is not None and not is_global:
+            valid &= kp > position[:, None] - window
     q = q.reshape(B, 1, KV, H // KV, hd)
     s = torch.einsum("bskgh,btkh->bkgst", q, cache_k).float()
     s = s / math.sqrt(hd)

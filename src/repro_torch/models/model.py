@@ -1,32 +1,40 @@
-"""Decoder LM of the dense family, the counterpart of the reference package's
-``models/model.py``.
+"""Decoder LM covering every family of the repo's configs, the counterpart
+of the reference package's ``models/model.py``.
 
 One parameter tree, one ``loss_fn`` (training), one ``forward``/
 ``logits_fn`` (prefill) and one ``decode_step`` (serving), as functions of
-``(cfg, params, ...)`` with the reference's names.  The tree has the
-reference's structure: ``embed (n_codebooks, V, d)``, ``final_norm (d,)``,
-``head (n_codebooks, d, V)`` unless tied, and ``layers`` holding each
-layer's ``attn`` and ``mlp`` weights stacked along a leading ``n_layers``
-axis, so :func:`params_from_jax` carries the reference's parameters across
-one for one.  :class:`DecoderLM` holds such a tree as the ``nn.Parameter``s
-of a module.
+``(cfg, params, ...)`` with the reference's names.  The per-layer block is
+selected by ``cfg.family``:
+
+    dense / vlm / audio : [attn] + [mlp]
+    moe                 : [attn] + [moe]
+    ssm                 : [mamba]
+    hybrid (Hymba)      : [attn || mamba  (parallel, mean-fused)] + [mlp]
+
+The tree has the reference's structure: ``embed (n_codebooks, V, d)``,
+``final_norm (d,)``, ``head (n_codebooks, d, V)`` unless tied, and
+``layers`` holding each layer's ``attn``, ``ssm``, ``moe`` and ``mlp``
+groups stacked along a leading ``n_layers`` axis, so
+:func:`params_from_jax` carries the reference's parameters across one for
+one.  :class:`DecoderLM` holds such a tree as the ``nn.Parameter``s of a
+module.
 
 The port runs the layers in a Python loop (the reference scans them), with
 f32 master parameters cast to the compute dtype per layer, as the
-reference's ``_cast_layer``.  Under autograd each layer keeps what
-``cfg.remat_policy`` says, as the reference's ``jax.checkpoint`` policies
-do (``model.py:194-198`` there): ``"none"`` every activation; ``"full"``
-only the layer's input, the layer run again in the backward
-(``torch.utils.checkpoint``, non-reentrant); ``"dots"`` the outputs of its
-2-D matrix products (``aten.mm``, the counterpart of
-``dots_with_no_batch_dims_saveable``), the rest run again.  A recomputed
-layer gives the bits of its first run, so no policy changes a bit of the
-loss or the gradients; on the card ``"full"`` launches the attention's
-forward kernel twice a layer.  Only the ``dense`` family with global
-attention, one codebook and standard RoPE is ported: other configs raise
-``NotImplementedError`` (see ROADMAP.md).  ``backend`` (``"auto"`` or
-``"ref"``) picks the route of the long-sequence attention, as in
-``layers.attention_train``.
+reference's ``_cast_layer`` (the SSM's ``A_log``, ``dt_bias`` and ``D``
+stay f32).  A layer of a windowed stack is windowed or global
+(``_layer_windows``): a global layer passes ``window=None`` to the
+attention.  Under autograd each layer keeps what ``cfg.remat_policy``
+says, as the reference's ``jax.checkpoint`` policies do (``model.py:194-198``
+there): ``"none"`` every activation; ``"full"`` only the layer's input, the
+layer run again in the backward (``torch.utils.checkpoint``,
+non-reentrant); ``"dots"`` the outputs of its 2-D matrix products
+(``aten.mm``, the counterpart of ``dots_with_no_batch_dims_saveable``), the
+rest run again.  A recomputed layer gives the bits of its first run, so no
+policy changes a bit of the loss or the gradients; on the card ``"full"``
+launches the attention's forward kernel twice a layer.  ``backend``
+(``"auto"`` or ``"ref"``) picks the route of the long-sequence attention, as
+in ``layers.attention_train``.
 """
 from __future__ import annotations
 
@@ -41,26 +49,12 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
 
-PORTED_FAMILIES = ("dense",)
 REMAT_POLICIES = ("none", "full", "dots")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the PyTorch port runs the {PORTED_FAMILIES} famil(ies); "
-            f"{cfg.name!r} is {cfg.family!r}, which is still to be ported "
-            f"(see ROADMAP.md)")
-    unported = [what for what, on in (
-        ("sliding_window", cfg.sliding_window is not None),
-        ("n_codebooks > 1", cfg.n_codebooks > 1),
-        ("rope='mrope'", cfg.rope == "mrope")) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name!r} sets {', '.join(unported)}, which the port's dense "
-            f"model does not run yet (see ROADMAP.md)")
+_F32_LEAVES = {"A_log", "dt_bias", "D"}   # SSM dynamics stay f32
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -71,10 +65,15 @@ def _dtype(name: str) -> torch.dtype:
 # Parameter shapes / init
 # --------------------------------------------------------------------------- #
 def layer_param_shapes(cfg: ModelConfig) -> dict:
-    _check_family(cfg)
     d = cfg.d_model
-    shapes = {"attn": dict(L.attn_param_shapes(cfg), ln=(d,))}
-    if cfg.mlp != "none" and cfg.d_ff > 0:
+    shapes = {}
+    if cfg.uses_attention:
+        shapes["attn"] = dict(L.attn_param_shapes(cfg), ln=(d,))
+    if cfg.uses_ssm:
+        shapes["ssm"] = dict(M.ssm_param_shapes(cfg), ln=(d,))
+    if cfg.family == "moe":
+        shapes["moe"] = dict(MOE.moe_param_shapes(cfg), ln=(d,))
+    elif cfg.mlp != "none" and cfg.d_ff > 0:
         shapes["mlp"] = dict(L.mlp_param_shapes(cfg), ln=(d,))
     return shapes
 
@@ -131,21 +130,33 @@ def abstract_params(cfg: ModelConfig) -> dict:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
-    """Real initialization, as the reference's (``model.py:72-101``) for
-    the dense family: norms one, every weight normal / sqrt(fan_in) with
-    fan_in its second-to-last axis.  The tensors are made on the
-    generator's device in ``cfg.param_dtype``."""
+    """Real initialization, as the reference's (``model.py:72-101``): norms
+    and the SSM's ``D`` one, ``A_log = log(1..N)`` (f32), ``dt_bias`` the
+    inverse softplus of a dt log-uniform in [1e-3, 1e-1], biases (``*_b``)
+    zero, every other weight normal / sqrt(fan_in) with fan_in its
+    second-to-last axis.  The tensors are made on the generator's device in
+    ``cfg.param_dtype``."""
     dt = _dtype(cfg.param_dtype)
     dev = generator.device
     leaves = []
     for path, shp in _leaves(param_shapes(cfg)):
         name = path[-1]
-        if "ln" in name or "norm" in name:
-            leaves.append((path, torch.ones(shp, dtype=dt, device=dev)))
+        if "ln" in name or "norm" in name or name == "D":
+            t = torch.ones(shp, dtype=dt, device=dev)
+        elif name == "A_log":
+            t = torch.log(torch.arange(1, shp[-1] + 1, dtype=torch.float32,
+                                       device=dev)).expand(shp).contiguous()
+        elif name == "dt_bias":
+            u = torch.rand(shp, generator=generator, device=dev)
+            dtv = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+            t = torch.log(torch.expm1(dtv)).to(dt)
+        elif name.endswith("_b") or name == "bias":
+            t = torch.zeros(shp, dtype=dt, device=dev)
         else:
             fan_in = shp[-2] if len(shp) >= 2 else shp[-1]
-            w = torch.randn(shp, generator=generator, dtype=dt, device=dev)
-            leaves.append((path, w / math.sqrt(max(fan_in, 1))))
+            t = torch.randn(shp, generator=generator, dtype=dt, device=dev)
+            t = t / math.sqrt(max(fan_in, 1))
+        leaves.append((path, t))
     return _unflatten(leaves)
 
 
@@ -175,18 +186,22 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> dict:
 # Blocks
 # --------------------------------------------------------------------------- #
 def _cast_layer(lp: dict, dtype: torch.dtype) -> dict:
-    return {grp: {n: (t.to(dtype) if t.is_floating_point() else t)
+    return {grp: {n: (t.to(dtype) if t.is_floating_point() and n not in _F32_LEAVES
+                      else t)
                   for n, t in ps.items()} for grp, ps in lp.items()}
 
 
 def compute_params(cfg: ModelConfig, params: dict) -> dict:
     """``params`` with every weight that ``forward`` and ``decode_step`` cast
     to the compute dtype on each call (the layers', the embedding and the
-    head) cast once; ``final_norm``, which is applied in f32, stays.  Both
-    functions give the same values on it, without the per-call casts: a
-    decode step would otherwise cast every layer's weights each token."""
+    head) cast once; ``final_norm``, which is applied in f32, the SSM's f32
+    leaves, and a multi-codebook embedding, whose codebooks are summed
+    before the cast, stay.  Both functions give the same values on it,
+    without the per-call casts: a decode step would otherwise cast every
+    layer's weights each token."""
     cdt = _dtype(cfg.compute_dtype)
-    out = {k: (v if k == "final_norm" else v.to(cdt))
+    keep = {"final_norm"} | ({"embed"} if cfg.n_codebooks > 1 else set())
+    out = {k: (v if k in keep else v.to(cdt))
            for k, v in params.items() if k != "layers"}
     out["layers"] = _cast_layer(params["layers"], cdt)
     return out
@@ -197,11 +212,40 @@ def _layer(params, i: int) -> dict:
             for grp, ps in params["layers"].items()}
 
 
-def _block_train(cfg: ModelConfig, lp, x, positions, backend: str):
+def _layer_windows(cfg: ModelConfig) -> np.ndarray:
+    """Per layer: True = global attention, False = sliding window.  Every
+    ``global_attn_every``-th layer is global, and the last."""
+    if cfg.sliding_window is None:
+        return np.ones((cfg.n_layers,), bool)
+    if cfg.global_attn_every <= 0:
+        return np.zeros((cfg.n_layers,), bool)
+    g = np.zeros((cfg.n_layers,), bool)
+    g[::cfg.global_attn_every] = True
+    g[-1] = True
+    return g
+
+
+def _block_train(cfg: ModelConfig, lp, x, positions, window: Optional[int],
+                 backend: str):
+    """One layer; ``window`` is this layer's (None: global)."""
     lp = _cast_layer(lp, _dtype(cfg.compute_dtype))
+    if cfg.family == "ssm":
+        h = L.rms_norm(x, lp["ssm"]["ln"], cfg.norm_eps)
+        return x + M.mamba_train(lp["ssm"], h, cfg)
     h = L.rms_norm(x, lp["attn"]["ln"], cfg.norm_eps)
-    x = x + L.attention_train(lp["attn"], h, cfg, positions, backend=backend)
-    if "mlp" in lp:
+    a = L.attention_train(lp["attn"], h, cfg, positions, window=window,
+                          backend=backend)
+    if cfg.family == "hybrid":
+        s = M.mamba_train(lp["ssm"], L.rms_norm(x, lp["ssm"]["ln"], cfg.norm_eps),
+                          cfg)
+        x = x + 0.5 * (a + s)
+    else:
+        x = x + a
+    if "moe" in lp:
+        h = L.rms_norm(x, lp["moe"]["ln"], cfg.norm_eps)
+        y, _ = MOE.moe_apply(lp["moe"], h, cfg)    # the aux loss is not added
+        x = x + y
+    elif "mlp" in lp:
         h = L.rms_norm(x, lp["mlp"]["ln"], cfg.norm_eps)
         x = x + L.mlp_apply(lp["mlp"], h, cfg.mlp)
     return x
@@ -210,13 +254,26 @@ def _block_train(cfg: ModelConfig, lp, x, positions, backend: str):
 # --------------------------------------------------------------------------- #
 # Forward (training / prefill)
 # --------------------------------------------------------------------------- #
-def _embed(cfg: ModelConfig, params, tokens):
-    """tokens: (B, S) or (B,)."""
-    return params["embed"][0][tokens].to(_dtype(cfg.compute_dtype))
+def _embed(cfg: ModelConfig, params, tokens, vision_embeds=None):
+    """tokens: (B, S) or (B, nq, S) for multi-codebook, (B,) or (B, nq) in
+    decode; the codebooks' embeddings summed, ``vision_embeds`` (B, n_vis,
+    d) put before the text."""
+    emb = params["embed"]
+    if cfg.n_codebooks > 1:
+        x = sum(emb[q][tokens[:, q]] for q in range(cfg.n_codebooks))
+    else:
+        x = emb[0][tokens]
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
+    return x.to(_dtype(cfg.compute_dtype))
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, device=device)[None].expand(B, S)
+def _positions(cfg: ModelConfig, B: int, S: int, device) -> torch.Tensor:
+    pos = torch.arange(S, device=device)[None].expand(B, S)
+    if cfg.rope == "mrope":
+        # text-only stub: all three sections share the temporal index
+        return pos[None].expand(3, B, S)
+    return pos
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -239,77 +296,121 @@ def _remat(cfg: ModelConfig, block):
 
 
 def forward(cfg: ModelConfig, params, tokens, positions=None,
-            backend: str = "auto"):
-    """Final-normed hidden states (B, S, d) in the compute dtype."""
-    _check_family(cfg)
-    x = _embed(cfg, params, tokens)
+            backend: str = "auto", vision_embeds=None):
+    """Final-normed hidden states (B, n_vis + S, d) in the compute dtype.
+    ``positions``: (B, n_vis + S), or (3, B, n_vis + S) under M-RoPE."""
+    x = _embed(cfg, params, tokens, vision_embeds)
     B, S, _ = x.shape
     if positions is None:
-        positions = _positions(B, S, x.device)
+        positions = _positions(cfg, B, S, x.device)
     block = _remat(cfg, functools.partial(_block_train, cfg))
-    for i in range(cfg.n_layers):
-        x = block(_layer(params, i), x, positions, backend)
+    for i, is_global in enumerate(_layer_windows(cfg)):
+        x = block(_layer(params, i), x, positions,
+                  None if is_global else cfg.sliding_window, backend)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def logits_fn(cfg: ModelConfig, params, x):
+def logits_fn(cfg: ModelConfig, params, x, codebook: int = 0):
     head = (params["embed"].transpose(1, 2) if cfg.tie_embeddings
             else params["head"])
-    return x @ head[0].to(x.dtype)
+    return x @ head[codebook].to(x.dtype)
 
 
 def loss_fn(cfg: ModelConfig, params, batch, backend: str = "auto"):
-    """batch: {'tokens': (B, S), ['positions']}.  Next-token cross entropy,
-    in f32."""
+    """batch: {'tokens': (B, S) or (B, nq, S), ['vision_embeds'],
+    ['positions']}.  Next-token cross entropy in f32, over the text
+    positions only (a VLM's vision embeddings have no labels), the mean
+    over codebooks."""
     tokens = batch["tokens"]
-    x = forward(cfg, params, tokens, batch.get("positions"), backend)
-    logits = logits_fn(cfg, params, x[:, :-1]).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tokens[:, 1:, None].long())[..., 0]
-    return (lse - gold).mean()
+    ve = batch.get("vision_embeds")
+    x = forward(cfg, params, tokens, batch.get("positions"), backend, ve)
+    x = x[:, 0 if ve is None else ve.shape[1]:]
+
+    def ce(q, labels):
+        logits = logits_fn(cfg, params, x[:, :-1], q).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return (lse - gold).mean()
+
+    if cfg.n_codebooks > 1:
+        return sum(ce(q, tokens[:, q, 1:])
+                   for q in range(cfg.n_codebooks)) / cfg.n_codebooks
+    return ce(0, tokens[:, 1:])
 
 
 # --------------------------------------------------------------------------- #
 # Decode (serving)
 # --------------------------------------------------------------------------- #
 def cache_shapes(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    """KV cache shapes, (n_layers, batch, seq_len, KV, hd) each."""
-    _check_family(cfg)
-    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"k": shape, "v": shape}
+    """The decode cache's entries as ``(shape, dtype name)``: ``k``/``v``
+    (n_layers, batch, s, KV, hd) where attention runs, with ``s`` the window
+    where every layer is windowed (a ring buffer) and ``seq_len`` otherwise;
+    ``conv`` (n_layers, batch, d_conv - 1, d_inner) and ``ssm`` (n_layers,
+    batch, d_inner, d_state) in f32 where an SSM runs."""
+    cdt = cfg.compute_dtype
+    Lc = cfg.n_layers
+    out = {}
+    if cfg.uses_attention:
+        s = seq_len
+        if cfg.sliding_window is not None and cfg.global_attn_every <= 0:
+            s = min(seq_len, cfg.sliding_window)
+        shape = (Lc, batch, s, cfg.n_kv_heads, cfg.resolved_head_dim)
+        out["k"] = out["v"] = (shape, cdt)
+    if cfg.uses_ssm:
+        out["conv"] = ((Lc, batch, cfg.ssm.d_conv - 1, cfg.d_inner), cdt)
+        out["ssm"] = ((Lc, batch, cfg.d_inner, cfg.ssm.d_state), "float32")
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device=None) -> dict:
     dev = resolve_device(device, "init_cache")
-    dt = _dtype(cfg.compute_dtype)
-    return {n: torch.zeros(s, dtype=dt, device=dev)
-            for n, s in cache_shapes(cfg, batch, seq_len).items()}
+    return {n: torch.zeros(s, dtype=_dtype(dt), device=dev)
+            for n, (s, dt) in cache_shapes(cfg, batch, seq_len).items()}
 
 
 def decode_step(cfg: ModelConfig, params, cache: dict, tokens, position):
     """One decoding step for the whole stack.
 
-    tokens: (B,); position: scalar or (B,) write indices (per-sequence:
-    continuous-batching slots may be at different depths).  The cache is
-    updated in place (the reference returns a new one; in place saves a
-    copy of the cache per step).  Returns (logits (B, V) in the compute
-    dtype, cache)."""
-    _check_family(cfg)
+    tokens: (B,) or (B, nq); position: scalar or (B,) write indices
+    (per-sequence: continuous-batching slots may be at different depths).
+    The cache is updated in place (the reference returns a new one; in
+    place saves a copy of the cache per step).  Returns (logits (B, V), or
+    (B, nq, V) for multi-codebook, in the compute dtype, cache)."""
     cdt = _dtype(cfg.compute_dtype)
     x = _embed(cfg, params, tokens)[:, None]
-    for i in range(cfg.n_layers):
+    windowed = cfg.global_attn_every > 0
+    for i, is_global in enumerate(_layer_windows(cfg)):
         lp = _cast_layer(_layer(params, i), cdt)
-        h = L.rms_norm(x, lp["attn"]["ln"], cfg.norm_eps)
-        a, _, _ = L.attention_decode(
-            lp["attn"], h, cfg, cache["k"][i], cache["v"][i], position)
-        x = x + a
-        if "mlp" in lp:
+        if cfg.uses_attention:
+            h = L.rms_norm(x, lp["attn"]["ln"], cfg.norm_eps)
+            a, _, _ = L.attention_decode(
+                lp["attn"], h, cfg, cache["k"][i], cache["v"][i], position,
+                window=cfg.sliding_window,
+                is_global=bool(is_global) if windowed else None)
+        if cfg.uses_ssm:
+            h = L.rms_norm(x, lp["ssm"]["ln"], cfg.norm_eps)
+            s, conv, ssm = M.mamba_decode(lp["ssm"], h, cfg, cache["conv"][i],
+                                          cache["ssm"][i])
+            cache["conv"][i] = conv
+            cache["ssm"][i] = ssm
+        if cfg.family == "hybrid":
+            x = x + 0.5 * (a + s)
+        elif cfg.family == "ssm":
+            x = x + s
+        else:
+            x = x + a
+        if "moe" in lp:
+            h = L.rms_norm(x, lp["moe"]["ln"], cfg.norm_eps)
+            x = x + MOE.moe_apply(lp["moe"], h, cfg)[0]
+        elif "mlp" in lp:
             h = L.rms_norm(x, lp["mlp"]["ln"], cfg.norm_eps)
             x = x + L.mlp_apply(lp["mlp"], h, cfg.mlp)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_fn(cfg, params, x[:, 0]), cache
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)[:, 0]
+    if cfg.n_codebooks > 1:
+        return torch.stack([logits_fn(cfg, params, x, q)
+                            for q in range(cfg.n_codebooks)], dim=1), cache
+    return logits_fn(cfg, params, x), cache
 
 
 # --------------------------------------------------------------------------- #
@@ -325,7 +426,6 @@ class DecoderLM(nn.Module):
                  device=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device, "DecoderLM")
-        _check_family(cfg)
         self.cfg = cfg
         if params is None:
             params = init_params(
@@ -341,7 +441,12 @@ class DecoderLM(nn.Module):
         """The parameters as the functions' nested tree (the same tensors)."""
         return _unflatten((p, getattr(self, n)) for p, n in self._paths)
 
-    def forward(self, tokens, positions=None) -> torch.Tensor:
-        """Logits (B, S, V) in the compute dtype."""
+    def forward(self, tokens, positions=None, vision_embeds=None) -> torch.Tensor:
+        """Logits (B, S, V), or (B, nq, S, V) for multi-codebook, in the
+        compute dtype."""
         p = self.params
-        return logits_fn(self.cfg, p, forward(self.cfg, p, tokens, positions))
+        x = forward(self.cfg, p, tokens, positions, vision_embeds=vision_embeds)
+        if self.cfg.n_codebooks > 1:
+            return torch.stack([logits_fn(self.cfg, p, x, q)
+                                for q in range(self.cfg.n_codebooks)], dim=1)
+        return logits_fn(self.cfg, p, x)

@@ -930,6 +930,37 @@ def test_long_branch_at_hd192_runs_the_kernels():
         assert _rel(g, w) <= 1e-4
 
 
+def test_hybrid_long_branch_matches_plain_attention():
+    """A Hymba-shaped hybrid (5 query heads over 1 kv head of 64, window
+    2048, layers 0 and 2 global, 1 windowed; the Mamba block beside each
+    attention) at S = 4096 in f32: the prefill launches the forward kernel
+    once a layer, the gradient the forward with statistics twice a layer
+    (remat "full") and the two backward kernels once; both agree with
+    backend="ref"."""
+    requires_cuda()
+    from repro_torch.models.config import SSMConfig
+    cfg = ModelConfig(name="hybrid", family="hybrid", n_layers=3, d_model=320,
+                      n_heads=5, n_kv_heads=1, head_dim=64, d_ff=256, vocab_size=512,
+                      ssm=SSMConfig(d_state=16), sliding_window=2048,
+                      global_attn_every=2, compute_dtype="float32")
+    assert model._layer_windows(cfg).tolist() == [True, False, True]
+    params = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.randint(0, 512, (1, 4096), device="cuda")
+    K.reset_launches()
+    lg = make_prefill_step(cfg)(params, {"tokens": toks})
+    assert K.launches()["flash_fwd"] == 3
+    assert _rel(lg, make_prefill_step(cfg, backend="ref")(params, {"tokens": toks})) <= 1e-4
+    leaves = [t.requires_grad_() for _, t in model._leaves(params)]
+    K.reset_launches()
+    got = torch.autograd.grad(model.loss_fn(cfg, params, {"tokens": toks}), leaves)
+    n = K.launches()
+    assert n["flash_fwd_stats"] == 6 and n["flash_bwd_dq"] == n["flash_bwd_dkv"] == 3, n
+    want = torch.autograd.grad(
+        model.loss_fn(cfg, params, {"tokens": toks}, backend="ref"), leaves)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-4
+
+
 def _update_rel(p, p_ref, p0):
     """``||d - d_ref|| / ||d_ref||`` of the parameter changes ``d = p - p0``
     and ``d_ref = p_ref - p0`` of one leaf (``err``, ``ref``: the squared

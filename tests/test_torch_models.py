@@ -237,20 +237,6 @@ def test_attention_backend_routes():
         TMD.forward(tcfg, tp, toks[:, :16], backend="cuda")
 
 
-@pytest.mark.parametrize("change", [dict(sliding_window=32),
-                                    dict(n_codebooks=2),
-                                    dict(rope="mrope")])
-def test_unported_dense_options_raise(change):
-    """What only the hybrid, audio and vlm configs set is not ported: a
-    dense config that sets it is refused, not run without it."""
-    _, tcfg = _cfgs("qwen3_0_6b", "float32")
-    cfg = dataclasses.replace(tcfg, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TMD.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TMD.init_cache(cfg, 1, 8, device="cpu")
-
-
 def test_long_branch_needs_whole_chunks():
     _, tcfg = _cfgs("qwen3_0_6b", "float32")
     tcfg = dataclasses.replace(tcfg, n_layers=1)
@@ -278,16 +264,6 @@ def test_decode_matches_forward():
         np.testing.assert_allclose(_np(lg), _np(full[:, t]), **BF16)
         lg_c, cache_c = TMD.decode_step(tcfg, tc, cache_c, toks[:, t], t)
         assert torch.equal(lg, lg_c)
-
-
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCHS
-                                  if jconfigs.get(a).family != "dense"])
-def test_other_families_raise(arch):
-    cfg = tconfigs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TMD.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        TMD.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.int64))
 
 
 def test_module_form_and_parameter_tree(monkeypatch):

@@ -110,5 +110,6 @@ def test_serve_cli_on_cpu(capsys):
                 "--requests", "3", "--batch-slots", "2", "--max-new", "4"])
     out = capsys.readouterr().out
     assert "[serve]" in out and "3 requests" in out
-    with pytest.raises(NotImplementedError):
-        Server(tconfigs.get_smoke("olmoe_1b_7b"), device="cpu")
+    serve.main(["--arch", "olmoe-1b-7b", "--device", "cpu",
+                "--requests", "3", "--batch-slots", "2", "--max-new", "4"])
+    assert "3 requests" in capsys.readouterr().out
