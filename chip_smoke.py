@@ -9,7 +9,8 @@ PyTorch version on the card (f32 within 2e-4, bf16 within
 ``precision.BF16_KERNEL_REL_TOL``; the attention kernels element by
 element) at the shapes of every cell below and of reduced cells, with its
 time, its bound and the time of ``torch.sparse.mm`` on the
-CSR system matrix wherever its nonzeros fit int32 indices, then drives each
+CSR system matrix wherever its nonzeros fit int32 indices (but on the
+cells that vary another cell's geometry: ``Cell.library``), then drives each
 path through the public API at the paper's sizes:
 
 * main cell (parallel) — the limited-angle training shape,
@@ -140,9 +141,10 @@ path through the public API at the paper's sizes:
   constant computed at warm(), 16), serve_fan_cgls (the flat fan cell,
   CGLS-20, 32) and serve_cone_packed_fdk (the cone_packed slab, FDK,
   interactive, 32); sinograms are the card's projections of the cells'
-  phantoms.  Every answer is held against its solver on that request
-  alone through ``Projector`` on the card (relative L2 within 2e-4), and
-  bit for bit against its solver on its own packed batch; for one batch
+  phantoms.  Every 4th answer of a bucket (``SERVE_ALONE_EVERY``) is held
+  against its solver on that request alone through ``Projector`` on the
+  card (relative L2 within 2e-4), and every answer bit for bit against
+  its solver on its own packed batch; for one batch
   of each bucket, the kernel pair at that batch's lane count (16 lanes,
   128 on cone_packed) is held against the plain pair (2e-4: the FP of
   the batch's answers, the BP of its sinograms); every interactive dispatch comes before any quality one and no dispatch
@@ -228,6 +230,22 @@ path through the public API at the paper's sizes:
   ``backend="ref"``) and musicgen (MusicGen-large, 4 codebooks: prefill 2
   x 4096, a serving round).  The flash phase's hymba_attn cell holds the
   four kernels at Hymba's 25/5 heads of 64 with its window.
+* lm_tp — tensor parallelism (``launch/sharding.py``) on a (1, 2) world
+  of two gloo ranks sharing the card (NCCL refuses two ranks on one
+  card), at Qwen3-0.6B's published widths and depth (8/4 heads of 128 a
+  rank, half the MLP and the vocabulary): ``make_prefill_step`` on 2 x
+  4096 tokens against one device (5e-2; flash_fwd 28 launches a rank);
+  one training step of 2 x 4096 against one device's (the loss within
+  1e-3, the update within 0.15 / 0.3); ``train_loop`` for 3 steps (each
+  rank's step ms and each step's peak memory beside the dry run's
+  prediction for the same layout, made on ``meta`` in this process
+  meanwhile; the losses within 2e-2 of one device's train_loop; the
+  forward with statistics 168 launches a rank, the backward kernels 84);
+  a TP ``Server`` answering 4 requests, whose every token is one
+  device's argmax wherever one device's top-2 gap exceeds twice the
+  logits' difference; and Hymba-1.5B's widths at 3 layers, one step
+  against one device, its 25 heads and vocabulary of 32001 replicated
+  while its Mamba branch and MLP split.
 
 After the build it prints ptxas's registers and spills of every flash
 kernel instance (four kernels, f32 and bf16, hd 64, 128 and 192), of
@@ -256,7 +274,7 @@ dropped thread-views, columns and terms.
 runs only the build and the named cells of the projector kernel phase,
 for comparing kernel sources on one card, and prints no ok line;
 ``--phases serve,autotune`` (or ``sharded``, ``lm_train``, ``flash``,
-``lm_families``) runs only the build and those phases.
+``lm_families``, ``lm_tp``) runs only the build and those phases.
 ``--train-breakdown FILE`` is the child process the full run starts for
 the training step's breakdown.
 
@@ -298,9 +316,15 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published H100 SXM peaks (NVIDIA data sheet) used for the bound.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+
+
+def peak_rates():
+    """The card's HBM rate (B/s) and peak operation rates by dtype (op/s),
+    NVIDIA's published H100 SXM peaks, from ``repro_torch.launch.roofline``
+    (the bounds' one source)."""
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S, PEAK_OPS
+    return HBM_BYTES_PER_S, PEAK_OPS
+
 
 F32_TOL = 2e-4          # kernel vs plain, as tests/test_kernels.py:33-46
 
@@ -608,9 +632,12 @@ class Cell:
     """A kernel-phase cell: the kernel family, the geometry, the batch, a
     maker of the FP's f32 input at the kernel's interface, the plain
     version's timing repeats (0: time its comparison call alone, where it is
-    slow), a note, the tile dtypes to hold, and the samples the plain
+    slow), a note, the tile dtypes to hold, the samples the plain
     version runs on (0: all; n: the first n of a cone-family batch, whose
-    kernel outputs of those samples it is held against)."""
+    kernel outputs of those samples it is held against), and whether the
+    library's sparse matrix is built and timed (off for the cells that
+    vary another cell's geometry: the lane caps, the 1.5 mm rows, the cone
+    cell as modular frames, whose time went to the lm_tp phase)."""
     family: str
     geom: object
     batch: int
@@ -619,6 +646,7 @@ class Cell:
     note: str = ""
     dtypes: tuple = ("float32", "bfloat16")
     plain_samples: int = 0
+    library: bool = True
 
 
 def families():
@@ -695,7 +723,7 @@ def kernel_phase(torch, cells, results):
             shape = (geom.n_angles * geom.n_rows * geom.n_cols,
                      geom.vol.nx * geom.vol.ny * geom.vol.nz)
             nnz = cone_nnz(torch, plan)
-        library = nnz <= LIB_NNZ_MAX
+        library = c.library and nnz <= LIB_NNZ_MAX
         x_f32 = c.make_x()
         log(f"cell {cell}: nnz {nnz}, batch {batch}" + (f" ({c.note})" if c.note else ""))
         for name in c.dtypes:
@@ -745,8 +773,9 @@ def kernel_phase(torch, cells, results):
                           + k_out.numel() * 4)
                 del k_out
                 ops = 2.0 * nnz * mult
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = ops / PEAK_OPS[name] * 1e3
+                hbm, peak = peak_rates()
+                t_bytes = nbytes / hbm * 1e3
+                t_ops = ops / peak[name] * 1e3
                 row = {"kernel": kname, "cell": cell, "dtype": name,
                        "shape": {"vol": list(geom.vol.shape), "sino": list(geom.sino_shape),
                                  "batch": batch, "detector": geom.detector_type},
@@ -758,6 +787,7 @@ def kernel_phase(torch, cells, results):
                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                        "bytes": nbytes, "ops": ops, "nnz": nnz,
                        "library_note": None if library else
+                       "not built for this cell" if not c.library else
                        f"not built: {nnz} nonzeros > {LIB_NNZ_MAX} (int32 CSR)"}
                 if kname in ("fp_cone_sf", "fp_modular_sf"):
                     row["ms_15I"] = FP_15I_MS.get((cell, name))
@@ -1149,8 +1179,9 @@ def cone_path(torch, results):
     nnz = cone_nnz(torch, plan)
     nbytes = 4 * (geom.vol.nx * geom.vol.ny * geom.vol.nz + int(np.prod(geom.sino_shape)))
     nbytes += sum(t.nbytes for t in plan.tables)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * nnz / PEAK_OPS["float32"] * 1e3
+    hbm, peak = peak_rates()
+    t_bytes = nbytes / hbm * 1e3
+    t_ops = 2.0 * nnz / peak["float32"] * 1e3
     results["cone"] = {"dot": rel, "fp_first_s": t_fp, "bp_first_s": t_bp,
                        "fp_ms": fp_ms, "fp_ms_15I": FP_15I_PATH_MS["cone_fp"],
                        "bp_ms": bp_ms, "bp_ms_parent": BP_PARENT_PATH_MS["cone_bp"],
@@ -2119,8 +2150,9 @@ def flash_phase(torch, results):
                 del got
                 ms = cuda_ms(torch, run, reps=10)
                 ops = 2.0 * products * pairs * hd
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = ops / PEAK_OPS[name] * 1e3
+                hbm, peak = peak_rates()
+                t_bytes = nbytes / hbm * 1e3
+                t_ops = ops / peak[name] * 1e3
                 row = {"kernel": kname, "cell": cell, "dtype": name,
                        "shape": {"B": B, "H": H, "KV": KV, "S": S, "hd": hd,
                                  "window": window},
@@ -3187,11 +3219,12 @@ def projector_phases(torch, results, only=None, host_run=None) -> dict:
         "cone128": Cell("cone", cone128, 1, rand(1, 128, 128, 128), 2),
         "cone128_dv1.5": Cell("cone", cone128_geometry(1.5), 1,
                               rand(1, 128, 128, 128), 2,
-                              "cone128 with 1.5 mm rows (not a power of two)"),
+                              "cone128 with 1.5 mm rows (not a power of two)",
+                              library=False),
     }
     for name, (fam, geom) in lane_caps_geometries().items():
         cells[name] = Cell(fam, geom, 8, rand(geom.vol.nx, geom.vol.ny, 8), 0,
-                           "past the old 8-bit counts")
+                           "past the old 8-bit counts", library=False)
     helical = helical_geometry()
     cells.update({
         "helical": Cell("modular", helical, 8,
@@ -3208,10 +3241,11 @@ def projector_phases(torch, results, only=None, host_run=None) -> dict:
         "modular_wobbly_dv1.5": Cell("modular", wobbly_geometry(1.5), 1,
                                      rand(1, 128, 128, 64), 2,
                                      "modular_wobbly with 1.5 mm rows (not a "
-                                     "power of two)"),
+                                     "power of two)", library=False),
         "cone_as_modular": Cell("modular", cone_as_modular(cone_two), 1,
                                 rand(1, 512, 512, 512), 0,
-                                "views 7 and 31 of the cone cell as modular frames"),
+                                "views 7 and 31 of the cone cell as modular frames",
+                                library=False),
     })
     if only is not None:
         kernel_phase(torch, {k: cells[k] for k in only}, results)
@@ -3521,6 +3555,11 @@ def train_paths(torch, results) -> None:
 # its inner products one sample at a time, so the iterative answers are
 # bit-equal to their requests alone; FBP/FDK chunk their views by the batch.
 SERVE_TOL = 2e-4
+# Every SERVE_ALONE_EVERY-th request of a bucket is solved again alone and
+# held to its served answer (and its serial one): 44 of the 176.  All of
+# them took 53.8 s of the run on an NVIDIA H100 80GB HBM3 at 700 W, time
+# that went to the lm_tp phase.
+SERVE_ALONE_EVERY = 4
 SERVE_MAX_BATCH = 16
 SERVE_PLAIN_CHUNK = 8        # requests a plain call: the kernel phase's batch
 SERVE_KERNELS = ("fp_par_sf", "bp_par_sf", "fp_fan_sf", "bp_fan_sf")
@@ -3738,11 +3777,15 @@ def serve_phase(torch, results) -> None:
     t = time.perf_counter()
     want = {}
     for rid, (name, i) in rid_of.items():
+        b = out["buckets"].setdefault(name, {"max_rel_l2": 0.0, "bit_equal": 0})
+        b.setdefault("alone", 0)
+        if i % SERVE_ALONE_EVERY:
+            continue
         geom, solver, kw, _ = buckets[name]
         want[(name, i)] = alone(torch, geom, solver, kw, sinos[geom.canonical_hash()][i])
         err = image_rel_l2(done[rid].image, want[(name, i)])
-        b = out["buckets"].setdefault(name, {"max_rel_l2": 0.0, "bit_equal": 0})
         b["max_rel_l2"] = max(b["max_rel_l2"], err)
+        b["alone"] += 1
         b["bit_equal"] += bool(torch.equal(done[rid].image, want[(name, i)]))
         check(err <= SERVE_TOL, f"serve {name} request {i}: rel L2 {err:.3g} "
               f"against the request alone > {SERVE_TOL}")
@@ -3781,8 +3824,9 @@ def serve_phase(torch, results) -> None:
         sl = latency_ms([d for r, d in sdone.items() if srid[r][0] == name])
         b["serial_p50_ms"], b["serial_p99_ms"] = sl["p50_ms"], sl["p99_ms"]
     for r, d in sdone.items():
-        check(d.ok and image_rel_l2(d.image, want[srid[r]]) <= SERVE_TOL,
-              f"serve serial {srid[r]}: {d.error or 'differs from alone'}")
+        check(d.ok, f"serve serial {srid[r]}: {d.error}")
+        check(srid[r] not in want or image_rel_l2(d.image, want[srid[r]]) <= SERVE_TOL,
+              f"serve serial {srid[r]}: differs from alone")
     for tier in ("interactive", "quality"):
         out[tier] = latency_ms([d for d in done.values() if d.tier == tier])
 
@@ -3794,8 +3838,8 @@ def serve_phase(torch, results) -> None:
         log(f"{name}: {buckets[name][3]} requests, wall {b['wall_s']:.3f} s, "
             f"{b['us_per_recon']:.1f} us a recon batched{serial_s}; latency "
             f"p50 {b['p50_ms']:.1f} ms p99 {b['p99_ms']:.1f} ms; size classes "
-            f"{b['size_classes']}; vs alone max rel L2 {b['max_rel_l2']:.3g}, "
-            f"{b['bit_equal']}/{buckets[name][3]} bit-equal")
+            f"{b['size_classes']}; vs alone ({b['alone']} of them) max rel L2 "
+            f"{b['max_rel_l2']:.3g}, {b['bit_equal']}/{b['alone']} bit-equal")
     log(f"serve tiers: interactive p50/p99 {out['interactive']['p50_ms']:.1f}/"
         f"{out['interactive']['p99_ms']:.1f} ms, quality "
         f"{out['quality']['p50_ms']:.1f}/{out['quality']['p99_ms']:.1f} ms; burst "
@@ -3827,9 +3871,13 @@ def serve_phase(torch, results) -> None:
         iso = srv.drain()
     finally:
         srv._executors.update({(key, k): v for k, v in saved.items()})
+    geom, solver, kw, _ = buckets["serve_main_fbp"]
     for i, rid in enumerate(good):
-        check(iso[rid].ok and image_rel_l2(iso[rid].image, want[("serve_main_fbp", i)])
-              <= SERVE_TOL, f"serve isolation: batch mate {i} {iso[rid].error}")
+        ref = want.get(("serve_main_fbp", i))
+        if ref is None:
+            ref = alone(torch, geom, solver, kw, main_sinos[i])
+        check(iso[rid].ok and image_rel_l2(iso[rid].image, ref) <= SERVE_TOL,
+              f"serve isolation: batch mate {i} {iso[rid].error}")
     check(not iso[poisoned].ok and "poisoned" in iso[poisoned].error,
           f"serve isolation: the poisoned request answered {iso[poisoned].error}")
     out["isolation"] = "ok"
@@ -4484,6 +4532,315 @@ def sharded_phase(torch, results) -> None:
     results["phase_s"]["sharded"] = time.perf_counter() - t_phase
 
 
+# --------------------------------------------------------------------------- #
+# lm_tp: tensor parallelism (launch/sharding.py) on two ranks of the card
+# --------------------------------------------------------------------------- #
+TP_STEPS = 3
+TP_BATCH, TP_SEQ = 2, 4096
+TP_LOSS_TOL = 1e-3             # step 1's loss, TP vs one device (rel)
+TP_LOSSES_TOL = 2e-2           # train_loop's losses, TP vs one device (rel, bf16)
+TP_REQUESTS = 4
+TP_CUT = 3                     # Hymba's degrade check: layers 0 and 2 global
+TP_GRAD_KERNELS = ("flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def tp_qwen3_cfg():
+    """Qwen3-0.6B at its published widths and depth, one microbatch a step."""
+    return dataclasses.replace(lm_train_cfg(), grad_accum=1)
+
+
+def tp_step_vs_one(torch, name: str, cfg, mesh, rank: int) -> dict:
+    """One training step of ``cfg`` from seed 0 on the rank's shards
+    against one device's (rank 0) on the same batch: step 1's loss (rel)
+    and the update in norm, as a whole and leaf by leaf."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import sharding
+    from repro_torch.launch.train import build
+    from repro_torch.models import model
+    full = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.from_numpy(TokenPipeline(cfg.vocab_size, TP_SEQ, TP_BATCH)
+                            .batch(0)).cuda()
+    ac = sharding.make_ac(mesh, cfg)
+    shards = sharding.shard_params(cfg, full, mesh, specs=ac.specs)
+    opt, step = build(cfg, mesh, lr=LM_TRAIN_LR, total_steps=TP_STEPS, ac=ac)
+    p, _, m = step(shards, opt.init(model.flatten(shards)), {"tokens": toks})
+    del shards
+    got = model.flatten(sharding.gather_params(cfg, p, mesh, specs=ac.specs))
+    del p
+    out = {"loss": float(m["loss"]), "split": ac.split}
+    if rank == 0:
+        opt1, step1 = build(cfg, None, lr=LM_TRAIN_LR, total_steps=TP_STEPS)
+        p1, _, m1 = step1(full, opt1.init(model.flatten(full)), {"tokens": toks})
+        p1 = model.flatten(p1)
+        p0 = model.flatten(full)
+        num = den = 0.0
+        upd = {}
+        for k, v in got.items():
+            d = v.double() - p0[k].double()
+            d1 = p1[k].double() - p0[k].double()
+            err, ref = float(((d - d1) ** 2).sum()), float((d1 ** 2).sum())
+            upd[k] = (err / ref) ** 0.5 if ref > 0 else 0.0
+            num, den = num + err, den + ref
+        worst = max(upd, key=upd.get)
+        out.update({"one_device_loss": float(m1["loss"]),
+                    "loss_rel": abs(out["loss"] / float(m1["loss"]) - 1),
+                    "update_rel": (num / den) ** 0.5, "update_worst": worst,
+                    "update_worst_rel": upd[worst]})
+        check(out["loss_rel"] <= TP_LOSS_TOL,
+              f"{name}: step 1's loss on 2 ranks {out['loss']} vs one device "
+              f"{out['one_device_loss']}: rel {out['loss_rel']:.3g}")
+        check(out["update_rel"] <= LM_UPDATE_REL_TOL
+              and upd[worst] <= LM_UPDATE_LEAF_REL_TOL,
+              f"{name}: update on 2 ranks vs one device {out['update_rel']:.3g}, "
+              f"{worst} {upd[worst]:.3g}")
+        del p1, p0
+    del full, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_prefill(torch, mesh, rank: int) -> dict:
+    """make_prefill_step on the mesh, 2 x 4096 tokens at Qwen3-0.6B's
+    widths: the last-position logits (all-gathered over V) against one
+    device's (rank 0), and this rank's flash_fwd launches (row 9)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import sharding
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model
+    cfg = tp_qwen3_cfg()
+    full = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    ac = sharding.make_ac(mesh, cfg)
+    shards = sharding.shard_params(cfg, full, mesh, specs=ac.specs)
+    toks = lm_tokens(torch, cfg, TP_BATCH, TP_SEQ)
+    K.reset_launches()
+    lg, s = host_s(torch, lambda: make_prefill_step(cfg, ac)(shards, {"tokens": toks}))
+    out = {"launches": K.launches()["flash_fwd"], "s": s}
+    if rank == 0:
+        want = make_prefill_step(cfg)(full, {"tokens": toks})
+        out["rel"] = rel_err(lg, want)
+        check(out["rel"] <= LM_PREFILL_REL_TOL,
+              f"lm_tp prefill on 2 ranks vs one device: rel {out['rel']:.3g}")
+    del full, shards, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train(torch, mesh, rank: int) -> dict:
+    """train_loop on the (1, 2) mesh at Qwen3-0.6B's full width and depth:
+    TP_STEPS steps of TP_BATCH x TP_SEQ tokens; each step's time (CUDA
+    events between the steps' batch draws) and peak memory
+    (max_memory_allocated, reset at each draw); the flash kernels'
+    launches on this rank.  Rank 0 then runs the same loop on one device
+    (the other rank waits), whose losses the phase holds the ranks' to."""
+    from repro_torch import kernels as K
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.train import train_loop
+    cfg = tp_qwen3_cfg()
+    marks, peaks = [], []
+
+    class Marked(TokenPipeline):
+        def batch(self, step=None):
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            return super().batch(step)
+
+    pipe = Marked(cfg.vocab_size, TP_SEQ, TP_BATCH)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    (params, losses), wall = host_s(torch, lambda: train_loop(
+        cfg, mesh, pipe, TP_STEPS, log_every=0, lr=LM_TRAIN_LR))
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    marks[-1].synchronize()
+    peaks.append(torch.cuda.max_memory_allocated())
+    launches = {k: K.launches()[k] for k in TP_GRAD_KERNELS}
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    del params
+    torch.cuda.empty_cache()
+    out = {"losses": losses, "step_ms": step_ms, "wall_s": wall,
+           "step_peak_bytes": peaks[1:], "launches": launches,
+           "micro": TP_STEPS * cfg.n_layers}
+    if rank == 0:
+        params, out["one_device_losses"] = train_loop(
+            cfg, None, TokenPipeline(cfg.vocab_size, TP_SEQ, TP_BATCH), TP_STEPS,
+            log_every=0, lr=LM_TRAIN_LR)
+        del params
+        torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return out
+
+
+def tp_serve(torch, mesh, rank: int) -> dict:
+    """A Server on the mesh answers TP_REQUESTS requests; then the prompts
+    and the served tokens are fed through the TP decode step and, on rank
+    0, through one device's: each served token must be one device's argmax
+    wherever one device's top-2 gap exceeds twice the logits' difference
+    (as lm_serve holds decoding against the forward)."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import model
+    cfg = tp_qwen3_cfg()
+    full = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    reqs = lm_requests(cfg, TP_REQUESTS, 3, 9, 16)
+    srv = Server(cfg, mesh, slots=TP_REQUESTS, max_len=32, params=full, device="cuda")
+    for r in reqs:
+        srv.submit(r)
+    done, t_serve = host_s(torch, lambda: {r.rid: r for r in srv.run()})
+    check(len(done) == len(reqs), f"lm_tp serve: served {len(done)} of {len(reqs)}")
+    tp_params, ac = srv.params, srv.ac
+    steps_served = srv.steps
+    del srv
+    one = model.compute_params(cfg, full) if rank == 0 else None
+    del full
+    torch.cuda.empty_cache()
+    n = len(reqs)
+    cache = model.init_cache(cfg, n, 32, "cuda", ac)
+    cache1 = model.init_cache(cfg, n, 32, "cuda") if rank == 0 else None
+    decided = agree = 0
+    worst_gap_err = 0.0
+    with torch.no_grad():
+        for t in range(max(len(r.prompt) + r.max_new - 1 for r in reqs)):
+            feed = [(r.prompt + done[r.rid].out)[min(t, len(r.prompt) + r.max_new - 1)]
+                    for r in reqs]
+            toks = torch.tensor(feed, device="cuda")
+            pos = torch.full((n,), t, device="cuda")
+            lg, cache = model.decode_step(cfg, tp_params, cache, toks, pos, ac)
+            if rank == 0:
+                lg1, cache1 = model.decode_step(cfg, one, cache1, toks, pos)
+                err = (lg.float() - lg1.float()).abs().amax(-1)
+                gap = top2_gap(lg1)
+                for j, r in enumerate(reqs):
+                    k = t - (len(r.prompt) - 1)
+                    if 0 <= k < len(done[r.rid].out):
+                        if float(gap[j]) > 2 * float(err[j]):
+                            decided += 1
+                            agree += int(int(lg1[j].argmax()) == done[r.rid].out[k])
+                        worst_gap_err = max(worst_gap_err, float(err[j]))
+    out = {"requests": n, "steps": steps_served, "serve_s": t_serve,
+           "ms_per_step": t_serve / steps_served * 1e3,
+           "tokens": {r.rid: done[r.rid].out for r in reqs}}
+    if rank == 0:
+        out.update({"decided": decided, "agree": agree,
+                    "tokens_total": sum(len(done[r.rid].out) for r in reqs),
+                    "max_logit_err": worst_gap_err})
+        check(decided > 0 and agree == decided,
+              f"lm_tp serve: {agree} of {decided} decided tokens equal one device's")
+    del cache, cache1, tp_params, one
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_tp_world(rank: int, world: int) -> dict:
+    """lm_tp on every rank of a (1, 2) gloo world that shares the card:
+    Qwen3-0.6B trained (step 1 against one device, then train_loop) and
+    served, and the Hymba cut's degrade paths against one device."""
+    import torch
+    rank_setup(torch)
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh((1, 2))
+    out = {"backend": torch.distributed.get_backend()}
+    t = time.perf_counter()
+    out["prefill"] = tp_prefill(torch, mesh, rank)
+    out["qwen3_step"] = tp_step_vs_one(torch, "lm_tp qwen3", tp_qwen3_cfg(), mesh, rank)
+    out["train"] = tp_train(torch, mesh, rank)
+    out["serve"] = tp_serve(torch, mesh, rank)
+    out["hymba_cut"] = tp_step_vs_one(
+        torch, "lm_tp hymba cut", family_cfg("hymba-1.5b", n_layers=TP_CUT, grad_accum=1),
+        mesh, rank)
+    split = out["hymba_cut"]["split"]
+    check(not split["heads"] and not split["vocab"] and split["ssm"] and split["mlp"],
+          f"lm_tp hymba cut: splits {split}, want the attention and the vocabulary "
+          f"replicated and the Mamba branch and the MLP split")
+    out["s"] = time.perf_counter() - t
+    return out
+
+
+def lm_tp_predicted_peak() -> dict:
+    """The dry run's prediction for one rank of lm_tp's training step (on
+    meta, backend "ref"): arguments + the step's peak allocation."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeSpec
+    shape = ShapeSpec("lm_tp", "train", TP_SEQ, TP_BATCH)
+    rec = dryrun.run_cell("qwen3-0.6b", shape, False, {"grad_accum": 1},
+                          mesh_shape=(1, 2))
+    check(rec["status"] == "ok", f"lm_tp dry run: {rec}")
+    return rec
+
+
+def lm_tp(torch, results) -> None:
+    """Tensor parallelism on a (1, 2) world of two gloo ranks sharing the
+    card (NCCL refuses two ranks on one card): lm_tp_world, with the dry
+    run's memory prediction made in this process meanwhile."""
+    import threading
+    from repro_torch.launch.mesh import run_world
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    pred = {}
+    th = threading.Thread(target=lambda: pred.update(lm_tp_predicted_peak()))
+    th.start()
+    ranks = run_world(lm_tp_world, 2, backend="gloo", timeout=600)
+    th.join()
+    check("memory" in pred, "lm_tp: the dry run's prediction failed")
+    out = results["lm_tp"] = {"ranks": ranks, "dryrun": pred}
+    predicted = pred["memory"]["argument_bytes"] + pred["memory"]["temp_bytes"]
+    tokens = TP_BATCH * TP_SEQ
+    for r, res in enumerate(ranks):
+        tr = res["train"]
+        ms = statistics.median(tr["step_ms"][1:])
+        tr["ms"], tr["tokens_per_s"] = ms, tokens / (ms / 1e3)
+        log(f"lm_tp rank {r}: Qwen3-0.6B, 28 layers, (1, 2) mesh, {TP_BATCH} x {TP_SEQ} "
+            f"tokens a step: steps {[round(v, 1) for v in tr['step_ms']]} ms, median after "
+            f"the first {ms:.1f} ms, {tr['tokens_per_s']:.0f} tokens/s of the (1, 2) mesh; "
+            f"step peaks "
+            f"{[round(b / 2 ** 30, 2) for b in tr['step_peak_bytes']]} GiB against the dry "
+            f"run's {predicted / 2 ** 30:.2f} GiB (arguments "
+            f"{pred['memory']['argument_bytes'] / 2 ** 30:.2f} + temporaries "
+            f"{pred['memory']['temp_bytes'] / 2 ** 30:.2f}); launches {tr['launches']}; "
+            f"losses {[round(v, 4) for v in tr['losses']]} [{results['device']}]")
+    q, h, sv = ranks[0]["qwen3_step"], ranks[0]["hymba_cut"], ranks[0]["serve"]
+    log(f"lm_tp step 1 vs one device: Qwen3-0.6B loss rel {q['loss_rel']:.3g} (tol "
+        f"{TP_LOSS_TOL}), update rel {q['update_rel']:.3g}, worst leaf {q['update_worst']} "
+        f"{q['update_worst_rel']:.3g}; Hymba {TP_CUT}-layer cut (splits {h['split']}) loss "
+        f"rel {h['loss_rel']:.3g}, update rel {h['update_rel']:.3g}, worst leaf "
+        f"{h['update_worst']} {h['update_worst_rel']:.3g} (tols {LM_UPDATE_REL_TOL} / "
+        f"{LM_UPDATE_LEAF_REL_TOL})")
+    pf = ranks[0]["prefill"]
+    log(f"lm_tp prefill {TP_BATCH} x {TP_SEQ} on 2 ranks: {pf['s'] * 1e3:.1f} ms (first "
+        f"call), flash_fwd {[r['prefill']['launches'] for r in ranks]} launches, last-position "
+        f"logits vs one device rel {pf['rel']:.3g} (tol {LM_PREFILL_REL_TOL})")
+    log(f"lm_tp serve: {sv['requests']} requests, {sv['steps']} steps, "
+        f"{sv['ms_per_step']:.1f} ms/step on 2 ranks; {sv['agree']} of {sv['decided']} "
+        f"decided tokens (of {sv['tokens_total']}) equal one device's argmax, max logit "
+        f"difference {sv['max_logit_err']:.3g}")
+    one = ranks[0]["train"]["one_device_losses"]
+    log(f"lm_tp train_loop losses on one device {[round(v, 4) for v in one]}")
+    out["predicted_peak_bytes"] = predicted
+    for r, res in enumerate(ranks):
+        check(res["backend"] == "gloo", f"lm_tp: rank {r} ran {res['backend']}")
+        tr = res["train"]
+        want = {"flash_fwd_stats": 2 * tr["micro"], "flash_bwd_dq": tr["micro"],
+                "flash_bwd_dkv": tr["micro"]}
+        check(tr["launches"] == want, f"lm_tp rank {r}: launches {tr['launches']}, "
+                                      f"want {want}")
+        check(res["prefill"]["launches"] == tp_qwen3_cfg().n_layers,
+              f"lm_tp rank {r}: prefill launched flash_fwd {res['prefill']['launches']} "
+              f"times")
+        rel = [abs(a / b - 1) for a, b in zip(tr["losses"], one)]
+        check(all(np.isfinite(tr["losses"])) and max(rel) <= TP_LOSSES_TOL,
+              f"lm_tp rank {r}: losses {tr['losses']} vs one device {one}")
+        results.setdefault("path_launches", {})[f"lm_tp rank {r}"] = tr["launches"]
+    check(ranks[0]["train"]["losses"] == ranks[1]["train"]["losses"],
+          "lm_tp: the ranks' losses differ")
+    check(ranks[0]["serve"]["tokens"] == ranks[1]["serve"]["tokens"],
+          "lm_tp: the ranks served different tokens")
+    results["phase_s"]["lm_tp"] = time.perf_counter() - t_phase
+    log(f"lm_tp {results['phase_s']['lm_tp']:.1f} s (rank 0 {ranks[0]['s']:.1f} s) "
+        f"[{results['device']}]")
+
+
 def run_path(torch, results, name: str, kernels, fn) -> dict:
     """Run one path with every launch count set to 0 just before it and read
     just after; fail if a kernel of the path was not launched.  Returns the
@@ -4536,6 +4893,17 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     results = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                "kernels": [], "phase_s": {}}
+    try:
+        return run_phases(torch, results)
+    except BaseException:
+        # what ran before the failure, for the time budget
+        log("phases before the failure (s): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in results["phase_s"].items()))
+        raise
+
+
+def run_phases(torch, results) -> int:
+    """main's phases: the build, the kernel cells and every path."""
     t_start = time.perf_counter()
 
     from repro_torch.kernels import build, tune
@@ -4562,7 +4930,8 @@ def main() -> int:
         for name in phases:
             {"serve": serve_phase, "autotune": autotune_phase,
              "sharded": sharded_phase, "lm_train": lm_train_paths,
-             "flash": flash_phase, "lm_families": lm_families}[name](torch, results)
+             "flash": flash_phase, "lm_families": lm_families,
+             "lm_tp": lm_tp}[name](torch, results)
         tune.clear()
         outdir = ROOT / "chiprun_out"
         outdir.mkdir(exist_ok=True)
@@ -4593,6 +4962,7 @@ def main() -> int:
     line_launches = nemotron_attn_layer(torch, results)
     results["phase_s"]["nemotron_attn_layer"] = time.perf_counter() - t
     sharded_phase(torch, results)
+    lm_tp(torch, results)
     # last: a configuration measured here must reach no earlier phase
     serve_phase(torch, results)
     autotune_phase(torch, results)

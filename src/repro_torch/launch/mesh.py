@@ -1,17 +1,20 @@
-"""A two-axis device mesh over a ``torch.distributed`` world, and a launcher
-that runs a function on a world of N ranks.
+"""A device mesh over a ``torch.distributed`` world, and a launcher that
+runs a function on a world of N ranks.
 
 The counterpart of the reference package's ``launch/mesh.py``
-(``make_local_mesh``, ``data_axes``, ``dp_size``, ``tp_size``).  A
-:class:`Mesh` lays the world's ranks out row-major on a
-``("data", "model")`` grid: rank ``r`` sits at ``(r // m, r % m)`` of a
-``(d, m)`` mesh.  Each axis has one process group per line of the grid
-(the ranks that differ only in that axis's coordinate), all created in
-the same order on every rank, as ``torch.distributed.new_group`` demands.
-It is written on plain process groups rather than
+(``make_production_mesh``, ``make_local_mesh``, ``data_axes``,
+``dp_size``, ``tp_size``).  A :class:`Mesh` lays the world's ranks out
+row-major on a ``("data", "model")`` or ``("pod", "data", "model")``
+grid: rank ``r`` of a ``(d, m)`` mesh sits at ``(r // m, r % m)``.  Each
+axis has one process group per line of the grid (the ranks that differ
+only in that axis's coordinate), and a mesh with a ``pod`` axis has one
+more group per ``model`` coordinate over both data axes; all are created
+in the same order on every rank, as ``torch.distributed.new_group``
+demands.  It is written on plain process groups rather than
 ``torch.distributed.device_mesh.DeviceMesh``, which maps ranks to cards
 by rank; here several ranks may share one card (gloo) and the CPU tests
-run gloo worlds with no card at all.
+run gloo worlds with no card at all.  :class:`MeshShape` is the same
+layout with no process groups (the dry run's mesh).
 
 Backends: ``gloo`` runs on the CPU and, staging CUDA tensors through host
 memory, with several ranks on one card; ``nccl`` runs one rank per card.
@@ -22,7 +25,6 @@ another backend or to the CPU.
 
 runs ``fn(rank, world_size, *args)`` in 4 spawned processes that meet on
 a ``FileStore`` in a temporary directory, and returns each rank's result.
-``make_production_mesh`` (the reference's multi-host layout) is not ported.
 
 Importing this module starts no process group and no process.
 """
@@ -38,53 +40,98 @@ import time
 import traceback
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_local_mesh", "data_axes", "dp_size", "tp_size",
-           "pmean", "run_world", "RankError"]
+__all__ = ["Mesh", "MeshShape", "make_production_mesh", "make_local_mesh",
+           "data_axes", "dp_size", "tp_size", "pmean", "run_world",
+           "RankError"]
 
-AXES = ("data", "model")
+AXES = ("pod", "data", "model")
 
 
-class Mesh:
-    """A ``(data, model)`` grid over the ranks of the initialized world.
+def _axes_for(shape) -> tuple:
+    if len(shape) not in (2, 3):
+        raise ValueError(f"a mesh has 2 or 3 axes {AXES}, got shape "
+                         f"{tuple(shape)}")
+    return AXES[-len(shape):]
 
-    ``shape`` maps axis name to size; ``coord(axis)`` is this rank's
-    coordinate on an axis and ``group(axis)`` the process group of the
-    ranks that share its other coordinate.  Building one calls
-    ``torch.distributed.new_group`` for every line of both axes, so every
-    rank of the world must build the same meshes in the same order."""
 
-    def __init__(self, shape: Tuple[int, int], axis_names=AXES):
-        if not dist.is_available() or not dist.is_initialized():
-            raise RuntimeError(
-                "Mesh needs an initialized torch.distributed world "
-                "(torch.distributed.init_process_group, or run_world)")
-        d, m = (int(n) for n in shape)
-        world = dist.get_world_size()
-        if d < 1 or m < 1 or d * m != world:
-            raise ValueError(f"mesh shape {(d, m)} does not cover the "
-                             f"world of {world} ranks")
-        self.axis_names = tuple(axis_names)
-        self.shape: Dict[str, int] = dict(zip(self.axis_names, (d, m)))
-        self.rank = dist.get_rank()
-        self._coords = dict(zip(self.axis_names, divmod(self.rank, m)))
-        self._groups: Dict[str, Any] = {}
-        # columns (the first axis varies), then rows (the second varies)
-        for j in range(m):
-            g = dist.new_group([i * m + j for i in range(d)])
-            if self._coords[self.axis_names[1]] == j:
-                self._groups[self.axis_names[0]] = g
-        for i in range(d):
-            g = dist.new_group([i * m + j for j in range(m)])
-            if self._coords[self.axis_names[0]] == i:
-                self._groups[self.axis_names[1]] = g
+class MeshShape:
+    """A mesh's layout with no process groups: ``shape``, ``axis_names``
+    and the coordinates of ``rank`` (default 0), row-major as in
+    :class:`Mesh`.  The dry run builds one rank's shards on it."""
+
+    def __init__(self, shape, rank: int = 0, axis_names=None):
+        shape = tuple(int(n) for n in shape)
+        self.axis_names = tuple(axis_names or _axes_for(shape))
+        if len(self.axis_names) != len(shape) or min(shape) < 1:
+            raise ValueError(f"mesh shape {shape} does not fit the axes "
+                             f"{self.axis_names}")
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, shape))
+        self.size = int(np.prod(shape))
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is outside the mesh {shape}")
+        self.rank = rank
+        self._coords = dict(zip(self.axis_names,
+                                np.unravel_index(rank, shape)))
+        self._coords = {a: int(c) for a, c in self._coords.items()}
 
     def coord(self, axis: str) -> int:
         return self._coords[axis]
 
-    def group(self, axis: str):
+    def __repr__(self):
+        return f"{type(self).__name__}({self.shape}, rank={self.rank})"
+
+
+class Mesh(MeshShape):
+    """A ``(data, model)`` or ``(pod, data, model)`` grid over the ranks of
+    the initialized world.
+
+    ``shape`` maps axis name to size; ``coord(axis)`` is this rank's
+    coordinate on an axis and ``group(axis)`` the process group of the
+    ranks that share its other coordinates; ``group(data_axes(mesh))`` on a
+    three-axis mesh is the group over both data axes.  Building one calls
+    ``torch.distributed.new_group`` for every line of every axis, so every
+    rank of the world must build the same meshes in the same order."""
+
+    def __init__(self, shape, axis_names=None):
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError(
+                "Mesh needs an initialized torch.distributed world "
+                "(torch.distributed.init_process_group, or run_world)")
+        shape = tuple(int(n) for n in shape)
+        world = dist.get_world_size()
+        if min(shape) < 1 or int(np.prod(shape)) != world:
+            raise ValueError(f"mesh shape {shape} does not cover the "
+                             f"world of {world} ranks")
+        super().__init__(shape, dist.get_rank(), axis_names)
+        self._groups: Dict[Any, Any] = {}
+        grid = np.arange(world).reshape(shape)
+        lines = [(a,) for a in self.axis_names]
+        data = data_axes(self)
+        if len(data) > 1:
+            lines.append(data)
+        for axes in lines:
+            # the ranks that differ only in ``axes``: one group per
+            # combination of the other coordinates, in row-major order
+            dims = [self.axis_names.index(a) for a in axes]
+            rest = [i for i in range(len(shape)) if i not in dims]
+            g_of = np.moveaxis(grid, rest + dims, range(len(shape)))
+            g_of = g_of.reshape(-1, int(np.prod([shape[i] for i in dims])))
+            mine = tuple(self._coords[self.axis_names[i]] for i in rest)
+            for n, members in enumerate(g_of):
+                g = dist.new_group([int(r) for r in members])
+                if n == (np.ravel_multi_index(mine, [shape[i] for i in rest])
+                         if rest else 0):
+                    self._groups[axes if len(axes) > 1 else axes[0]] = g
+
+    def group(self, axis):
+        """The group of ``axis`` (a name), or of several data axes (a
+        tuple; a one-name tuple is that axis's group)."""
+        if isinstance(axis, tuple) and len(axis) == 1:
+            axis = axis[0]
         return self._groups[axis]
 
     def __repr__(self):
@@ -92,9 +139,30 @@ class Mesh:
                 f"coords={self._coords}, backend={dist.get_backend()})")
 
 
+def make_production_mesh(*, multi_pod: bool = False, shape=None) -> Mesh:
+    """The reference's production layouts over an initialized world of
+    exactly that many ranks: ``(16, 16)`` ``("data", "model")``, or with
+    ``multi_pod`` ``(2, 16, 16)`` ``("pod", "data", "model")``; ``shape``
+    overrides either (e.g. ``(64, 4)``).  A world of another size raises
+    ``ValueError`` naming both sizes."""
+    if shape is None:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+    shape = tuple(int(n) for n in shape)
+    _axes_for(shape)
+    need = int(np.prod(shape))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != need:
+        raise ValueError(f"the production mesh {shape} needs a world of "
+                         f"{need} ranks; this world has {world}")
+    return Mesh(shape)
+
+
 def make_local_mesh(model_axis: int = 1) -> Mesh:
     """A mesh over the whole world: ``(world // model_axis, model_axis)``."""
     n = dist.get_world_size()
+    if model_axis < 1 or n % model_axis:
+        raise ValueError(f"a model axis of {model_axis} does not divide the "
+                         f"world of {n} ranks")
     return Mesh((n // model_axis, model_axis))
 
 
@@ -114,11 +182,13 @@ def tp_size(mesh: Mesh) -> int:
     return int(mesh.shape.get("model", 1))
 
 
-def pmean(mesh: Mesh, axis: str, loss: torch.Tensor,
+def pmean(mesh: Mesh, axis, loss: torch.Tensor,
           grads: Dict[str, torch.Tensor]):
-    """``(loss, grads)`` averaged over ``axis``'s group in one all-reduce, so
-    that every rank of the group applies the same update."""
-    n = mesh.shape[axis]
+    """``(loss, grads)`` averaged over ``axis``'s group (an axis name, or a
+    tuple of data axes) in one all-reduce, so that every rank of the group
+    applies the same update."""
+    n = int(np.prod([mesh.shape[a] for a in
+                     ((axis,) if isinstance(axis, str) else axis)]))
     flat = torch.cat([g.reshape(-1) for g in grads.values()] + [loss.reshape(1)])
     dist.all_reduce(flat, group=mesh.group(axis))
     flat = flat / n

@@ -1,6 +1,7 @@
-"""Batched serving driver: continuous-batching greedy decode on one card,
-the counterpart of the reference package's ``launch/serve.py`` (without
-its mesh).
+"""Batched serving: continuous-batching greedy decode, the
+counterpart of the reference package's ``launch/serve.py``: on one device,
+or on a mesh (``launch/mesh``), each rank holding its shards of the
+weights (``launch/sharding``) and its heads' KV cache.
 
 A slot-based scheduler keeps a fixed-shape decode batch full (finished
 sequences free their slot for the next queued request), with per-request
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import model as MD
 
@@ -39,11 +41,18 @@ class Server:
     """Fixed-slot continuous batching.  Each slot holds one request; the
     KV/SSM cache is (layers, slots, ...) and slots are recycled as requests
     finish (a slot's lanes of every cache entry zeroed on admission).
-    ``params`` is a parameter tree on ``device``; without one the
-    server initializes its own from ``seed``.  The server keeps the weights
-    cast to the compute dtype once (``model.compute_params``)."""
+    ``params`` is a parameter tree on ``device`` (the full one); without
+    one the server initializes its own from ``seed``.  The server keeps the
+    weights cast to the compute dtype once (``model.compute_params``).
 
-    def __init__(self, cfg, slots: int = 4, max_len: int = 256,
+    On a ``mesh`` (every rank of it builds the same ``Server`` and submits
+    the same requests) each rank keeps its shards of the weights and its
+    heads' cache (``sharding.cache_specs``); the data axes split the
+    slots, each data rank decoding its own, and the next tokens are
+    all-gathered over them, so that every rank schedules the same way and
+    emits the same greedy tokens."""
+
+    def __init__(self, cfg, mesh=None, slots: int = 4, max_len: int = 256,
                  eos_id: Optional[int] = None, seed: int = 0, device=None,
                  params: Optional[dict] = None):
         self.cfg = cfg
@@ -51,16 +60,27 @@ class Server:
         self.slots = slots
         self.max_len = max_len
         self.eos_id = eos_id
-        self._step = make_serve_step(cfg)
+        self.mesh = mesh
+        self.ac = None if mesh is None else sharding.make_ac(mesh, cfg)
+        dp = 1 if self.ac is None else self.ac.dp
+        if slots % dp:
+            raise ValueError(f"{slots} slots do not split over {dp} data ranks")
+        self._local = slots // dp
+        self._lo = 0 if self.ac is None else self.ac.data_rank * self._local
+        self._step = make_serve_step(cfg, self.ac)
         self.load_params(params if params is not None else MD.init_params(
             cfg, torch.Generator(device=self.device).manual_seed(seed)))
-        self.cache = MD.init_cache(cfg, slots, max_len, self.device)
+        self.cache = MD.init_cache(cfg, self._local, max_len, self.device, self.ac)
         self.positions = np.zeros(slots, np.int64)
         self.active: List[Optional[Request]] = [None] * slots
         self.queue: List[Request] = []
         self.steps = 0
 
     def load_params(self, params):
+        """``params``: the full tree (a rank keeps its shards)."""
+        if self.ac is not None:
+            params = sharding.shard_params(self.cfg, params, self.mesh,
+                                           specs=self.ac.specs)
         self.params = MD.compute_params(self.cfg, params)
 
     def submit(self, req: Request):
@@ -71,8 +91,9 @@ class Server:
             if self.active[s] is None and self.queue:
                 self.active[s] = self.queue.pop(0)
                 self.positions[s] = 0
-                for c in self.cache.values():      # reset this slot's lanes
-                    c[:, s] = 0
+                if self._lo <= s < self._lo + self._local:
+                    for c in self.cache.values():  # reset this slot's lanes
+                        c[:, s - self._lo] = 0
 
     def _slot_token(self, s: int) -> int:
         req = self.active[s]
@@ -90,14 +111,18 @@ class Server:
         self._admit()
         if not any(self.active):
             return False
-        toks = torch.tensor([self._slot_token(s) for s in range(self.slots)],
+        mine = range(self._lo, self._lo + self._local)
+        toks = torch.tensor([self._slot_token(s) for s in mine],
                             dtype=torch.int64, device=self.device)
         if self.cfg.n_codebooks > 1:
             # as the reference: every codebook fed the request's token, the
             # first codebook's greedy token kept
-            toks = toks[:, None].expand(self.slots, self.cfg.n_codebooks)
-        pos = torch.from_numpy(self.positions).to(self.device)
+            toks = toks[:, None].expand(self._local, self.cfg.n_codebooks)
+        pos = torch.from_numpy(self.positions[self._lo:self._lo + self._local]
+                               ).to(self.device)
         nxt, _, self.cache = self._step(self.params, self.cache, toks, pos)
+        if self.ac is not None and self.ac.dp > 1:
+            nxt = self.ac._all_gather(nxt, 0, "data")
         nxt = nxt.cpu().numpy()
         for s in range(self.slots):
             req = self.active[s]

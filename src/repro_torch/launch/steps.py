@@ -17,22 +17,21 @@ from repro_torch.optim.adamw import (Optimizer, apply_updates,
 
 
 def value_and_grad(cfg: ModelConfig, params: dict, batch: dict,
-                   backend: str = "auto"):
-    """``(loss, grads)`` of ``MD.loss_fn`` at ``params`` (a model tree):
-    the loss detached, the gradients as a flat dict (``MD.flatten``'s
-    keys) in the parameters' dtype."""
+                   backend: str = "auto", ac=None):
+    """``(loss, grads)`` of ``MD.loss_fn`` at ``params`` (a model tree, a
+    rank's shards under ``ac``): the loss detached, the gradients as a flat
+    dict (``MD.flatten``'s keys) in the parameters' dtype."""
     leaves = {k: t.detach().requires_grad_()
               for k, t in MD.flatten(params).items()}
-    loss = MD.loss_fn(cfg, MD.unflatten(leaves), batch, backend)
+    loss = MD.loss_fn(cfg, MD.unflatten(leaves), batch, backend, ac)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
 
 
-def make_train_step(cfg: ModelConfig, opt: Optimizer,
+def make_train_step(cfg: ModelConfig, opt: Optimizer, ac=None,
                     grad_accum: Optional[int] = None, clip_norm: float = 1.0,
                     compress_fn: Optional[Callable] = None,
-                    backend: str = "auto",
-                    reduce_fn: Optional[Callable] = None):
+                    backend: str = "auto"):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``.
 
@@ -44,22 +43,24 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     consecutive rows, run one after the other: the gradients are summed as
     ``g / grad_accum`` in microbatch order, and ``metrics["loss"]`` is the
     last microbatch's loss, as in the reference (not the mean over the
-    microbatches).  Then, in order: ``reduce_fn(loss, grads) -> (loss, grads)`` (the data-parallel
-    mean over ranks, ``launch/mesh.pmean``; None on one rank),
-    ``compress_fn(grads) -> grads`` (e.g. ``runtime/compression``),
-    clipping to ``clip_norm`` (``grad_norm`` is the norm before it), the
-    optimizer update and ``apply_updates``.  ``backend`` routes the
+    microbatches).  Then, in order: under ``ac``, the data-parallel mean
+    over ranks (``ac.mean_grads``), ``compress_fn(grads) -> grads`` (e.g.
+    ``runtime/compression``), clipping to ``clip_norm`` (``grad_norm`` is
+    the norm before it), the optimizer update and ``apply_updates``.  ``backend`` routes the
     long-sequence attention (``models/layers``).
 
-    The reference also takes ``ac``, its activation-sharding constraint for
-    GSPMD; the port runs one model replica a rank and has no such
-    constraint."""
+    ``ac`` (the reference's argument) is a rank's
+    ``launch/sharding.ParallelContext``: ``params`` and ``opt_state`` are
+    then the rank's shards, and the clipping norm adds each leaf's squares
+    over the ranks that split it (``ac.leaf_sums``); a ``compress_fn``
+    that should see whole leaves takes them from ``ac`` too
+    (``launch/train.build``)."""
     if grad_accum is None:
         grad_accum = cfg.grad_accum
 
     def step(params, opt_state, batch):
         if grad_accum == 1:
-            loss, grads = value_and_grad(cfg, params, batch, backend)
+            loss, grads = value_and_grad(cfg, params, batch, backend, ac)
         else:
             n = batch["tokens"].shape[0]
             if n % grad_accum:
@@ -71,15 +72,16 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
                 # positions under M-RoPE are (3, B, S): rows on axis 1
                 mb = {k: (v[:, j * per:(j + 1) * per] if k == "positions"
                           else v[j * per:(j + 1) * per]) for k, v in batch.items()}
-                loss, g = value_and_grad(cfg, params, mb, backend)
+                loss, g = value_and_grad(cfg, params, mb, backend, ac)
                 grads = ({k: v / grad_accum for k, v in g.items()}
                          if grads is None else
                          {k: grads[k] + g[k] / grad_accum for k in grads})
-        if reduce_fn is not None:
-            loss, grads = reduce_fn(loss, grads)
+        if ac is not None:
+            loss, grads = ac.mean_grads(loss, grads)
         if compress_fn is not None:
             grads = compress_fn(grads)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, *(
+            () if ac is None else (ac.leaf_sums,)))
         flat = MD.flatten(params)
         updates, opt_state = opt.update(grads, opt_state, flat)
         params = MD.unflatten(apply_updates(flat, updates))
@@ -88,29 +90,32 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     return step
 
 
-def make_prefill_step(cfg: ModelConfig, backend: str = "auto"):
+def make_prefill_step(cfg: ModelConfig, ac=None, backend: str = "auto"):
     """Forward over the full prompt (``tokens``, and optionally
     ``vision_embeds`` and ``positions``); returns last-position logits (B,
-    V), of the first codebook for multi-codebook.  ``backend`` routes the
-    long-sequence attention (``layers``)."""
+    V), of the first codebook for multi-codebook, all-gathered over V under
+    a vocab-parallel ``ac``.  ``backend`` routes the long-sequence
+    attention (``layers``)."""
 
     @torch.no_grad()
     def prefill(params, batch):
         x = MD.forward(cfg, params, batch["tokens"], batch.get("positions"),
-                       backend, batch.get("vision_embeds"))
-        return MD.logits_fn(cfg, params, x[:, -1:])[:, 0]
+                       backend, batch.get("vision_embeds"), ac)
+        lg = MD.logits_fn(cfg, params, x[:, -1:], ac=ac)[:, 0]
+        return ac.gather_model(lg, -1) if ac is not None and ac.split["vocab"] else lg
 
     return prefill
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, ac=None):
     """One greedy decode iteration: logits -> next token -> updated cache
     (in place).  The tokens are (B,), or (B, n_codebooks) for
-    multi-codebook."""
+    multi-codebook; under ``ac`` every rank of the model group gets the
+    whole logits and the same token."""
 
     @torch.no_grad()
     def serve(params, cache, tokens, position):
-        lg, cache = MD.decode_step(cfg, params, cache, tokens, position)
+        lg, cache = MD.decode_step(cfg, params, cache, tokens, position, ac)
         return lg.argmax(dim=-1).to(torch.int32), lg, cache
 
     return serve

@@ -9,27 +9,34 @@ projector-in-the-loop CT step (``make_ct_dp_train_step``).
 
     # resume is automatic: re-running picks up from the latest checkpoint
 
-``train_loop`` runs one model replica a rank: on one device with
-``mesh=None``, or data-parallel over a mesh's ``data`` axis (each rank
-draws its own rows, the loss and gradients averaged in one all-reduce).
-A ``model`` axis larger than 1 (tensor parallelism, the reference's
-``launch/sharding.py``) and the reference's production meshes are not
-ported.
+    # two ranks of tensor parallelism (gloo, on the host)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+        --smoke --steps 3 --device cpu --world 2 --model-axis 2
+
+``train_loop`` runs on one device with ``mesh=None``, or on any
+``(pod, data, model)`` mesh (``launch/mesh``): the ``model`` axis splits
+the model (``launch/sharding``: tensor parallelism, and FSDP where the
+config asks), the data axes split the batch (each rank draws its own rows;
+the loss and gradients are averaged over the data axes only).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.core.projector import Projector
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import dp_size, pmean, tp_size
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import (make_local_mesh, make_production_mesh,
+                                     pmean, run_world)
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as MD
 from repro_torch.optim import adamw, warmup_cosine
@@ -38,12 +45,6 @@ from repro_torch.runtime import compression
 from repro_torch.runtime.fault import Supervisor
 
 __all__ = ["make_ct_dp_train_step", "build", "train_loop", "main"]
-
-UNPORTED_MESH = ("is not ported: tensor parallelism and the production "
-                 "meshes need launch/sharding.py and "
-                 "launch/mesh.py::make_production_mesh (ROADMAP.md queue 1 "
-                 "item 5)")
-
 
 def make_ct_dp_train_step(spec, mesh, apply_fn: Callable, lr: float = 1e-3,
                           axis: str = "data",
@@ -85,42 +86,44 @@ def make_ct_dp_train_step(spec, mesh, apply_fn: Callable, lr: float = 1e-3,
     return step
 
 
-def _reduce_fn(mesh):
-    """The data-parallel mean of (loss, grads) over ``mesh``'s ``data``
-    axis; None on one rank (no all-reduce, and no flat copy of the
-    gradients)."""
-    if mesh is None:
-        return None
-    if tp_size(mesh) > 1:
-        raise NotImplementedError(f"a model axis of {tp_size(mesh)} "
-                                  f"{UNPORTED_MESH}")
-    if dp_size(mesh) == 1:
-        return None
-    return lambda loss, grads: pmean(mesh, "data", loss, grads)
-
-
 def build(cfg, mesh, lr: float = 3e-4, total_steps: int = 10_000,
-          compress: bool = False):
+          compress: bool = False, ac=None):
     """The reference's optimizer and step: AdamW (weight decay 0.1) on a
     warmup-cosine schedule, warming up over ``min(100, total_steps // 10 +
     1)`` steps, and optionally 1-bit error-feedback compression of the
-    gradients (its residual kept in the step's closure, started at zero).
+    gradients (its residual kept in the step's closure, started at zero;
+    each leaf's scale its whole ``mean |x|`` over the ranks that split it).
+    On a ``mesh`` the step takes the rank's shards (``ac``, default
+    ``sharding.make_ac(mesh, cfg)``) and averages over the data axes.
     Returns ``(opt, step_fn)``."""
     opt = adamw(warmup_cosine(lr, min(100, total_steps // 10 + 1), total_steps),
                 weight_decay=0.1)
+    if mesh is not None and ac is None:
+        ac = sharding.make_ac(mesh, cfg)
     compress_fn = None
     if compress:
         comp_state = {"res": None}
+        leaf_sums = None if ac is None else ac.leaf_sums
 
         def compress_fn(grads):
             if comp_state["res"] is None:
                 comp_state["res"] = compression.init_state(grads)
-            q, comp_state["res"] = compression.compress(grads, comp_state["res"])
+            q, comp_state["res"] = compression.compress(grads, comp_state["res"],
+                                                        leaf_sums)
             return q
 
-    step_fn = make_train_step(cfg, opt, compress_fn=compress_fn,
-                              reduce_fn=_reduce_fn(mesh))
+    step_fn = make_train_step(cfg, opt, ac, compress_fn=compress_fn)
     return opt, step_fn
+
+
+def _relayout(fn, params, opt_state):
+    """``fn`` (a model tree -> the same tree in another layout:
+    ``sharding.gather_params`` or ``shard_params``) on the parameters and
+    on the optimizer's moments (flat dicts)."""
+    def flat(d):
+        return MD.flatten(fn(MD.unflatten(d)))
+    return fn(params), type(opt_state)(opt_state.step, flat(opt_state.mu),
+                                       flat(opt_state.nu))
 
 
 def _like(tree, template):
@@ -137,7 +140,7 @@ def train_loop(cfg, mesh, pipeline, steps: int, ckpt_dir: Optional[str] = None,
                ckpt_every: int = 20, log_every: int = 5, seed: int = 0,
                fail_at_step: Optional[int] = None,
                device: Optional[Union[str, torch.device]] = None,
-               lr: float = 3e-4):
+               lr: float = 3e-4, compress: bool = False):
     """Train ``cfg`` for ``steps`` steps on ``pipeline``'s batches; returns
     ``(params, losses)``, the losses of the steps this call ran.
 
@@ -152,34 +155,56 @@ def train_loop(cfg, mesh, pipeline, steps: int, ckpt_dir: Optional[str] = None,
     with zero ``vision_embeds`` for a VLM config, as the reference's loop.
     ``fail_at_step`` raises before that step (the fault-tolerance tests).
 
-    ``mesh=None`` runs on one device.  Over a mesh with a ``data`` axis of
-    n > 1 ranks, every rank starts from the same parameters, draws its own
-    rows (``pipeline`` must be ``TokenPipeline(..., shard_index=<the rank's
-    data coordinate>, shard_count=n)``), and the loss and gradients are
-    averaged over the axis; rank 0 writes the checkpoints.  The schedule
+    ``mesh=None`` runs on one device.  On a mesh, every rank draws the full
+    parameters from ``seed`` and keeps its shards (``sharding.
+    shard_params``), so every mesh starts from the same weights.  Over data
+    axes of n > 1 ranks each rank draws its own rows (``pipeline`` must be
+    ``TokenPipeline(..., shard_index=<the rank's data coordinate, row-major
+    over the data axes>, shard_count=n)``), and the loss and gradients are
+    averaged over them.  A checkpoint holds the global layout
+    (``sharding.gather_params`` of the parameters and of the optimizer's
+    moments), written by rank 0, so a run resumes onto another mesh.  The
+    schedule
     peaks at ``lr`` (``main``'s ``--lr``) and spans the run's ``steps``
     (:func:`build`'s ``total_steps``; the reference's loop parses ``--lr``,
-    ignores it and always schedules 10,000 steps)."""
+    ignores it and always schedules 10,000 steps).  ``compress`` turns on
+    :func:`build`'s 1-bit compression (its residual is not checkpointed)."""
     dev = resolve_device(device, "train_loop")
-    opt, step_fn = build(cfg, mesh, lr=lr, total_steps=steps)
+    ac = None if mesh is None else sharding.make_ac(mesh, cfg)
+    opt, step_fn = build(cfg, mesh, lr=lr, total_steps=steps, compress=compress,
+                         ac=ac)
     writer = mesh is None or mesh.rank == 0
-    if mesh is not None and dp_size(mesh) > 1:
-        want = (mesh.coord("data"), dp_size(mesh))
+    if ac is not None and ac.dp > 1:
+        want = (ac.data_rank, ac.dp)
         got = (pipeline.shard_index, pipeline.shard_count)
         if got != want:
             raise ValueError(f"data-parallel rank at data coordinate {want[0]} "
                              f"of {want[1]} needs a pipeline with (shard_index, "
                              f"shard_count) = {want}, got {got}")
     params = MD.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
-    opt_state = opt.init(MD.flatten(params))
-
     start = 0
-    ckpt = CKPT.AsyncCheckpointer(ckpt_dir) if ckpt_dir and writer else None
     if ckpt_dir and CKPT.latest_step(ckpt_dir) is not None:
-        (p, o), extra, start = CKPT.restore(ckpt_dir, (params, opt_state))
-        params, opt_state = _like(p, params), _like(o, opt_state)
+        like = (params, opt.init(MD.flatten(params)))
+        (p, o), extra, start = CKPT.restore(ckpt_dir, like)
+        params, opt_state = _like(p, like[0]), _like(o, like[1])
+        if ac is not None:
+            params, opt_state = _relayout(lambda t: sharding.shard_params(
+                cfg, t, mesh, specs=ac.specs), params, opt_state)
         pipeline.load_state_dict(extra["data"])
         print(f"[restore] resumed from step {start}")
+    else:
+        if ac is not None:
+            params = sharding.shard_params(cfg, params, mesh, specs=ac.specs)
+        opt_state = opt.init(MD.flatten(params))
+    ckpt = CKPT.AsyncCheckpointer(ckpt_dir) if ckpt_dir and writer else None
+
+    def save(step):
+        # every rank takes part in the gathers; rank 0 writes
+        state = (params, opt_state) if ac is None else _relayout(
+            lambda t: sharding.gather_params(cfg, t, mesh, specs=ac.specs),
+            params, opt_state)
+        if ckpt:
+            ckpt.save(step, state, {"data": pipeline.state_dict()})
 
     losses = []
     t0 = time.time()
@@ -202,19 +227,76 @@ def train_loop(cfg, mesh, pipeline, steps: int, ckpt_dir: Optional[str] = None,
             if log_every and i % log_every == 0:
                 print(f"step {i:5d}  loss {losses[-1]:.4f}  "
                       f"({(time.time()-t0)/max(i-start+1,1):.2f}s/step)")
-            if ckpt and (i + 1) % ckpt_every == 0:
-                ckpt.save(i + 1, (params, opt_state),
-                          {"data": pipeline.state_dict()})
-        if ckpt and not (steps > start and steps % ckpt_every == 0):
+            if ckpt_dir and (i + 1) % ckpt_every == 0:
+                save(i + 1)
+        if ckpt_dir and not (steps > start and steps % ckpt_every == 0):
             # the last step's state, unless the loop has just saved it
-            ckpt.save(steps, (params, opt_state),
-                      {"data": pipeline.state_dict()})
+            save(steps)
     finally:
         if ckpt:
             # a save in flight lands before a failure propagates, so that
             # the restart finds it
             ckpt.wait()
     return params, losses
+
+
+def _mesh(args):
+    """``main``'s mesh: None on one process; else the launched world's
+    (``torchrun``'s environment, or ``--world``'s spawned ranks), laid out
+    by ``--production-mesh`` / ``--multi-pod`` or as ``(world //
+    model_axis, model_axis)``."""
+    production = args.production_mesh or args.multi_pod
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group("nccl" if args.device in (None, "cuda")
+                                else "gloo")
+    if production:
+        return make_production_mesh(multi_pod=args.multi_pod)
+    if not dist.is_initialized():
+        if args.model_axis > 1:
+            raise ValueError(f"--model-axis {args.model_axis} needs a world of "
+                             f"ranks: --world N, or a torchrun launch")
+        return None
+    return make_local_mesh(args.model_axis)
+
+
+def _train(args):
+    """``main``'s run on this process (one rank of a world, or alone)."""
+    mesh = _mesh(args)
+    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
+    shard = {}
+    if mesh is not None:
+        ac = sharding.make_ac(mesh, cfg)
+        shard = {"shard_index": ac.data_rank, "shard_count": ac.dp}
+    pipe = TokenPipeline(cfg.vocab_size, args.seq, args.batch, **shard)
+    if cfg.n_codebooks > 1:
+        # the reference's stub: every codebook gets the same tokens
+        base = pipe.batch
+        pipe.batch = lambda step=None: np.stack(
+            [base(step)] * cfg.n_codebooks, axis=1)
+    attempts = {"n": 0}
+    out = {}
+
+    def loop(start):
+        attempts["n"] += 1
+        # inject the failure only on the first attempt (simulated node loss)
+        fail = args.fail_at if attempts["n"] == 1 else None
+        out["params"], out["losses"] = train_loop(
+            cfg, mesh, pipe, args.steps, args.ckpt_dir,
+            ckpt_every=args.ckpt_every, fail_at_step=fail, device=args.device,
+            lr=args.lr)
+        return args.steps
+
+    def restore():
+        if args.ckpt_dir:
+            return CKPT.latest_step(args.ckpt_dir) or 0
+        return 0
+
+    Supervisor(loop, restore, max_restarts=args.max_restarts).run()
+    return out.get("losses")
+
+
+def _world_rank(rank, world, args):
+    return _train(args)
 
 
 def main(argv=None):
@@ -230,43 +312,28 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", type=str, default=None)
-    ap.add_argument("--production-mesh", action="store_true")
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the (16, 16) mesh over the launched world")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (2, 16, 16) mesh over the launched world")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="tensor-parallel ranks (a (world // n, n) mesh)")
+    ap.add_argument("--world", type=int, default=None,
+                    help="spawn this many gloo ranks on this host (without "
+                         "it: torchrun's world, or one process)")
     ap.add_argument("--fail-at", type=int, default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--max-restarts", type=int, default=2)
     ap.add_argument("--device", default=None,
                     help="'cpu' trains on the host; the default is the card")
     args = ap.parse_args(argv)
-    if args.production_mesh or args.multi_pod:
-        raise NotImplementedError(f"--production-mesh / --multi-pod "
-                                  f"{UNPORTED_MESH}")
-
-    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
-    pipe = TokenPipeline(cfg.vocab_size, args.seq, args.batch)
-    if cfg.n_codebooks > 1:
-        # the reference's stub: every codebook gets the same tokens
-        base = pipe.batch
-        pipe.batch = lambda step=None: np.stack(
-            [base(step)] * cfg.n_codebooks, axis=1)
-    attempts = {"n": 0}
-
-    def loop(start):
-        attempts["n"] += 1
-        # inject the failure only on the first attempt (simulated node loss)
-        fail = args.fail_at if attempts["n"] == 1 else None
-        train_loop(cfg, None, pipe, args.steps, args.ckpt_dir,
-                   ckpt_every=args.ckpt_every, fail_at_step=fail,
-                   device=args.device, lr=args.lr)
-        return args.steps
-
-    def restore():
-        if args.ckpt_dir:
-            return CKPT.latest_step(args.ckpt_dir) or 0
-        return 0
-
-    Supervisor(loop, restore, max_restarts=args.max_restarts).run()
+    if args.world:
+        losses = run_world(_world_rank, args.world, backend="gloo",
+                           timeout=3600.0, args=(args,))[0]
+    else:
+        losses = _train(args)
     print("done.")
+    return losses
 
 
 if __name__ == "__main__":

@@ -98,15 +98,34 @@ def apply_mrope(x, positions3, sections: Tuple[int, ...],
 # --------------------------------------------------------------------------- #
 # Attention
 # --------------------------------------------------------------------------- #
-def _qkv(params, x, cfg: ModelConfig, positions):
+def _split(ac, part: str) -> bool:
+    """Whether ``part`` of the layer runs on this rank's columns."""
+    return ac is not None and ac.split[part]
+
+
+def _qkv(params, x, cfg: ModelConfig, positions, ac=None):
+    """q (B,S,H,hd) and k, v (B,S,KV,hd): the rank's heads where ``wq``
+    splits (``launch/sharding``): its own KV heads where ``wk`` splits too,
+    else the KV heads its query heads read (``ac.kv_heads``; ``_local_kv``
+    then gives each query head its own)."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = (x @ params["wq"]).reshape(B, S, H, hd)
-    k = (x @ params["wk"]).reshape(B, S, KV, hd)
-    v = (x @ params["wv"]).reshape(B, S, KV, hd)
+    hd = cfg.resolved_head_dim
+    wk, wv = params["wk"], params["wv"]
+    qn, kn = params.get("q_norm"), params.get("k_norm")
+    if _split(ac, "heads"):
+        # replicated leaves whose gradient each rank forms for its heads
+        kv = ac.kv_heads()
+        if kv is not None:
+            cols = slice(kv[0] * hd, kv[1] * hd)
+            wk, wv = ac.copy(wk)[:, cols], ac.copy(wv)[:, cols]
+        if cfg.qk_norm:
+            qn, kn = ac.copy(qn), ac.copy(kn)
+    q = (x @ params["wq"]).reshape(B, S, -1, hd)
+    k = (x @ wk).reshape(B, S, -1, hd)
+    v = (x @ wv).reshape(B, S, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, qn, cfg.norm_eps)
+        k = rms_norm(k, kn, cfg.norm_eps)
     if cfg.rope == "standard":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -114,6 +133,14 @@ def _qkv(params, x, cfg: ModelConfig, positions):
         q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
         k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
     return q, k, v
+
+
+def _local_kv(t, ac):
+    """``t`` (B, T, hi - lo, hd), the KV heads ``ac.kv_heads`` names, as
+    one KV head for each of this rank's query heads, where ``wq`` splits
+    and ``wk`` does not."""
+    kv = ac.kv_heads() if ac is not None else None
+    return t if kv is None else t.index_select(2, kv[2].to(t.device))
 
 
 def _sdpa(q, k, v, mask, cfg: ModelConfig):
@@ -171,19 +198,26 @@ def _flash(q, k, v, window: Optional[int], backend: str):
 
 
 def attention_train(params, x, cfg: ModelConfig, positions,
-                    window: Optional[int] = None, backend: str = "auto"):
+                    window: Optional[int] = None, backend: str = "auto",
+                    ac=None):
     """Full-sequence causal attention, over the last ``window`` keys of each
     query where ``window`` is given (a global layer of a windowed stack
     passes None).  ``S <= 2048``: dense masked softmax; longer: flash
     attention (memory O(S * chunk) instead of O(S^2)), whose
     chunks need ``S % 1024 == 0`` as in the reference, on ``backend``
-    (``"auto"`` or ``"ref"``, see the module's docstring)."""
+    (``"auto"`` or ``"ref"``, see the module's docstring).  With ``ac`` (a
+    rank's ``launch/sharding.ParallelContext``) the layer is a region
+    (``ac.enter`` / ``ac.exit``): where ``wq`` splits, the rank runs its own
+    heads and ``wo`` row-parallel, then one reduce."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; expected "
                          f"one of {BACKENDS}")
+    tp = _split(ac, "heads")
+    if ac is not None:
+        x = ac.enter(x, tp)
     B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.resolved_head_dim
-    q, k, v = _qkv(params, x, cfg, positions)
+    q, k, v = _qkv(params, x, cfg, positions, ac)
+    k, v = _local_kv(k, ac), _local_kv(v, ac)
     if S <= SDPA_MAX_SEQ:
         out = _sdpa(q, k, v, _causal_mask(S, S, window, device=x.device), cfg)
     else:
@@ -193,12 +227,13 @@ def attention_train(params, x, cfg: ModelConfig, positions,
                 f"path, which needs S to be a multiple of {FLASH_CHUNK}; got "
                 f"S={S}")
         out = _flash(q, k, v, window, backend)
-    return out.reshape(B, S, H * hd) @ params["wo"]
+    out = out.reshape(B, S, -1) @ params["wo"]
+    return out if ac is None else ac.exit(out, tp)
 
 
 def attention_decode(params, x, cfg: ModelConfig, cache_k, cache_v,
                      position, window: Optional[int] = None,
-                     is_global: Optional[bool] = None):
+                     is_global: Optional[bool] = None, ac=None):
     """One-token decode.  cache_k/v: (B, S_max, KV, hd), written in place at
     each sequence's slot; position: (B,) per-sequence write index
     (continuous batching: every slot may be at a different depth).  With a
@@ -206,16 +241,20 @@ def attention_decode(params, x, cfg: ModelConfig, cache_k, cache_v,
     ``is_global`` (a stack of windowed and global layers passes each layer's
     flag); where ``is_global`` is None and the cache is ``window`` long, the
     cache is a ring buffer written at ``position % window``.  Returns (out
-    (B,1,d), cache_k, cache_v)."""
+    (B,1,d), cache_k, cache_v).  With ``ac`` whose ``wq`` splits, the
+    rank runs its own heads on its heads' cache (where ``wk`` does not
+    split, the KV heads its query heads read) and reduces the output."""
     B = x.shape[0]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    if ac is not None:
+        x = ac.enter(x, _split(ac, "heads"))
     position = torch.as_tensor(position, dtype=torch.int64,
                                device=x.device).expand(B)
     pos = position[:, None]                                     # (B, 1)
     if cfg.rope == "mrope":
         # decode: all three M-RoPE sections advance with the token index
         pos = pos[None].expand(3, B, 1)
-    q, k, v = _qkv(params, x, cfg, pos)
+    q, k, v = _qkv(params, x, cfg, pos, ac)
     S_max = cache_k.shape[1]
     ring = window is not None and S_max == window and is_global is None
     slot = position % window if ring else position
@@ -229,26 +268,36 @@ def attention_decode(params, x, cfg: ModelConfig, cache_k, cache_v,
         valid = kp <= position[:, None]
         if window is not None and not is_global:
             valid &= kp > position[:, None] - window
+    ck, cv = _local_kv(cache_k, ac), _local_kv(cache_v, ac)
+    H, KV = q.shape[2], ck.shape[2]
     q = q.reshape(B, 1, KV, H // KV, hd)
-    s = torch.einsum("bskgh,btkh->bkgst", q, cache_k).float()
+    s = torch.einsum("bskgh,btkh->bkgst", q, ck).float()
     s = s / math.sqrt(hd)
     s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", w, cache_v).reshape(B, 1, H * hd)
-    return out @ params["wo"], cache_k, cache_v
+    out = torch.einsum("bkgst,btkh->bskgh", w, cv).reshape(B, 1, H * hd)
+    out = out @ params["wo"]
+    return (out if ac is None else ac.exit(out, _split(ac, "heads"))), cache_k, cache_v
 
 
 # --------------------------------------------------------------------------- #
 # MLPs
 # --------------------------------------------------------------------------- #
-def mlp_apply(params, x, kind: str):
+def mlp_apply(params, x, kind: str, ac=None):
+    """With ``ac`` whose ``w1`` splits: ``w1``/``w3`` column-parallel,
+    ``w2`` row-parallel, then one reduce."""
+    tp = _split(ac, "mlp")
+    if ac is not None:
+        x = ac.enter(x, tp)
     if kind == "swiglu":
-        return (F.silu(x @ params["w1"]) * (x @ params["w3"])) @ params["w2"]
-    if kind == "sq_relu":
-        return torch.relu(x @ params["w1"]).square() @ params["w2"]
-    if kind == "gelu":
-        return F.gelu(x @ params["w1"], approximate="tanh") @ params["w2"]
-    raise ValueError(kind)
+        y = (F.silu(x @ params["w1"]) * (x @ params["w3"])) @ params["w2"]
+    elif kind == "sq_relu":
+        y = torch.relu(x @ params["w1"]).square() @ params["w2"]
+    elif kind == "gelu":
+        y = F.gelu(x @ params["w1"], approximate="tanh") @ params["w2"]
+    else:
+        raise ValueError(kind)
+    return y if ac is None else ac.exit(y, tp)
 
 
 # --------------------------------------------------------------------------- #

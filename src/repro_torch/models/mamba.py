@@ -15,6 +15,15 @@ does the port.
 
 Decode: O(1) per token, on a ``conv`` state (the last ``d_conv - 1``
 inputs) and an f32 ``ssm`` state.
+
+Under tensor parallelism (``ac``, a rank's ``launch/sharding.
+ParallelContext``, whose ``in_proj`` splits) the rank holds its channels
+of ``d_inner``: ``in_proj`` column-parallel (its slices of ``x`` and
+``z``), the conv, ``dt_bias``, ``A_log`` and ``D`` by channel, ``x_proj``
+row-parallel with one reduce before ``dt``, ``B`` and ``C`` (whose
+gradient is reduced in turn), ``dt_proj`` column-parallel, the scan on the
+rank's channels, ``out_proj`` row-parallel and one reduce; the decode
+states hold the rank's channels.
 """
 from __future__ import annotations
 
@@ -60,27 +69,37 @@ def _ssm_core(params, xc, dt, Bs, Cs, h0, cfg: ModelConfig):
     return y, h[:, -1]
 
 
-def _dt_B_C(params, x, cfg: ModelConfig):
+def _tp(ac) -> bool:
+    return ac is not None and ac.split["ssm"]
+
+
+def _dt_B_C(params, x, cfg: ModelConfig, ac=None):
     """x: (B,*,di) -> dt (B,*,di) f32, Bs/Cs (B,*,N) f32."""
     N = cfg.ssm.d_state
     R = cfg.ssm.resolved_dt_rank(cfg.d_model)
     proj = x @ params["x_proj"]                              # (B,*,R+2N)
+    if _tp(ac):
+        # partial sums over the rank's channels; every rank then uses the
+        # whole of dt_r, B and C on its own channels
+        proj = ac.copy(ac.reduce(proj))
     dt_r, Bs, Cs = torch.split(proj, [R, N, N], dim=-1)
     dt = F.softplus(dt_r @ params["dt_proj"] + params["dt_bias"]).float()
     return dt, Bs.float(), Cs.float()
 
 
-def mamba_train(params, x, cfg: ModelConfig, chunk: int = CHUNK):
+def mamba_train(params, x, cfg: ModelConfig, chunk: int = CHUNK, ac=None):
     """x: (B, S, d) -> (B, S, d)."""
+    if ac is not None:
+        x = ac.enter(x, _tp(ac))
     B, S, d = x.shape
-    di = cfg.d_inner
     K = cfg.ssm.d_conv
     xs, z = (x @ params["in_proj"]).chunk(2, dim=-1)          # (B,S,di) each
+    di = xs.shape[-1]
     # causal depthwise conv along S: the sum of K shifted products, in order
     xpad = F.pad(xs, (0, 0, K - 1, 0))
     xc = sum(xpad[:, i:i + S] * params["conv_w"][i] for i in range(K))
     xc = F.silu(xc + params["conv_b"])
-    dt, Bs, Cs = _dt_B_C(params, xc, cfg)
+    dt, Bs, Cs = _dt_B_C(params, xc, cfg, ac)
     xcf = xc.float()
 
     C = min(chunk, S)
@@ -96,18 +115,21 @@ def mamba_train(params, x, cfg: ModelConfig, chunk: int = CHUNK):
                          Cs[:, part], h, cfg)
         ys.append(y)
     y = torch.cat(ys, dim=1).to(x.dtype) * F.silu(z)
-    return y @ params["out_proj"]
+    y = y @ params["out_proj"]
+    return y if ac is None else ac.exit(y, _tp(ac))
 
 
-def mamba_decode(params, x, cfg: ModelConfig, conv_state, ssm_state):
+def mamba_decode(params, x, cfg: ModelConfig, conv_state, ssm_state, ac=None):
     """One-token decode.  x: (B, 1, d); conv_state (B, K-1, di);
     ssm_state (B, di, N) f32.  Returns (y (B,1,d), conv_state, ssm_state),
     new tensors."""
+    if ac is not None:
+        x = ac.enter(x, _tp(ac))
     xs, z = (x @ params["in_proj"]).chunk(2, dim=-1)          # (B,1,di)
     hist = torch.cat([conv_state, xs], dim=1)                 # (B,K,di)
     xc = torch.einsum("bkd,kd->bd", hist, params["conv_w"])[:, None]
     xc = F.silu(xc + params["conv_b"])                        # (B,1,di)
-    dt, Bs, Cs = _dt_B_C(params, xc, cfg)
+    dt, Bs, Cs = _dt_B_C(params, xc, cfg, ac)
     A = -torch.exp(params["A_log"].float())
     Abar = torch.exp(dt[..., None] * A)[:, 0]                 # (B,di,N)
     Bx = ((dt * xc.float())[..., None] * Bs[:, :, None, :])[:, 0]
@@ -115,4 +137,5 @@ def mamba_decode(params, x, cfg: ModelConfig, conv_state, ssm_state):
     y = torch.einsum("bdn,bn->bd", ssm_state, Cs[:, 0])
     y = y + params["D"].float() * xc[:, 0].float()
     y = y[:, None].to(x.dtype) * F.silu(z)
-    return y @ params["out_proj"], hist[:, 1:], ssm_state
+    y = y @ params["out_proj"]
+    return (y if ac is None else ac.exit(y, _tp(ac))), hist[:, 1:], ssm_state

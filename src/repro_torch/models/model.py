@@ -35,6 +35,20 @@ policy changes a bit of the loss or the gradients; on the card ``"full"``
 launches the attention's forward kernel twice a layer.  ``backend``
 (``"auto"`` or ``"ref"``) picks the route of the long-sequence attention, as
 in ``layers.attention_train``.
+
+``forward``, ``loss_fn``, ``logits_fn`` and ``decode_step`` take the
+reference's ``ac``: here a rank's ``launch/sharding.ParallelContext``
+(None: one device, no collective), with ``params`` the rank's shards
+(``sharding.shard_params``).  Each part that splits runs on the rank's
+columns and reduces its output (``layers``, ``moe``, ``mamba``); a part
+the divisibility guard leaves replicated runs whole on every rank and its
+output is not reduced (Hymba's 25 heads beside its split Mamba branch).
+The embedding is vocab-parallel (ids outside the rank's range masked, then
+one reduce), the head column-parallel (a tied head on the embedding's V
+shard), the loss a vocab-parallel f32 cross entropy (the max, the sum of
+exps and the target logit reduced over ``model``), and the serving logits
+all-gathered over V.  FSDP leaves are gathered over the data axes where
+they are used (a layer's inside its remat region).
 """
 from __future__ import annotations
 
@@ -225,44 +239,77 @@ def _layer_windows(cfg: ModelConfig) -> np.ndarray:
     return g
 
 
+def _ln(scale, ac):
+    """A norm's scale on the residual stream: under sequence parallelism
+    a rank applies it to its positions only (``ac.seq_shared``)."""
+    return scale if ac is None else ac.seq_shared(scale)
+
+
 def _block_train(cfg: ModelConfig, lp, x, positions, window: Optional[int],
-                 backend: str):
+                 backend: str, ac=None):
     """One layer; ``window`` is this layer's (None: global)."""
+    if ac is not None:
+        lp = ac.unshard_layer(lp)
     lp = _cast_layer(lp, _dtype(cfg.compute_dtype))
     if cfg.family == "ssm":
-        h = L.rms_norm(x, lp["ssm"]["ln"], cfg.norm_eps)
-        return x + M.mamba_train(lp["ssm"], h, cfg)
-    h = L.rms_norm(x, lp["attn"]["ln"], cfg.norm_eps)
+        h = L.rms_norm(x, _ln(lp["ssm"]["ln"], ac), cfg.norm_eps)
+        return x + M.mamba_train(lp["ssm"], h, cfg, ac=ac)
+    h = L.rms_norm(x, _ln(lp["attn"]["ln"], ac), cfg.norm_eps)
     a = L.attention_train(lp["attn"], h, cfg, positions, window=window,
-                          backend=backend)
+                          backend=backend, ac=ac)
     if cfg.family == "hybrid":
-        s = M.mamba_train(lp["ssm"], L.rms_norm(x, lp["ssm"]["ln"], cfg.norm_eps),
-                          cfg)
+        s = M.mamba_train(lp["ssm"], L.rms_norm(x, _ln(lp["ssm"]["ln"], ac),
+                                                cfg.norm_eps), cfg, ac=ac)
         x = x + 0.5 * (a + s)
     else:
         x = x + a
     if "moe" in lp:
-        h = L.rms_norm(x, lp["moe"]["ln"], cfg.norm_eps)
-        y, _ = MOE.moe_apply(lp["moe"], h, cfg)    # the aux loss is not added
+        h = L.rms_norm(x, _ln(lp["moe"]["ln"], ac), cfg.norm_eps)
+        y, _ = MOE.moe_apply(lp["moe"], h, cfg, ac)    # the aux loss is not added
         x = x + y
     elif "mlp" in lp:
-        h = L.rms_norm(x, lp["mlp"]["ln"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], h, cfg.mlp)
+        h = L.rms_norm(x, _ln(lp["mlp"]["ln"], ac), cfg.norm_eps)
+        x = x + L.mlp_apply(lp["mlp"], h, cfg.mlp, ac)
     return x
 
 
 # --------------------------------------------------------------------------- #
 # Forward (training / prefill)
 # --------------------------------------------------------------------------- #
-def _embed(cfg: ModelConfig, params, tokens, vision_embeds=None):
+def _top(params, key: str, ac):
+    """A top-level leaf, gathered over the data axes where FSDP split it."""
+    if ac is None:
+        return params[key]
+    return ac.unshard(ac.specs[key], params[key])
+
+
+def _vocab_split(ac) -> bool:
+    return ac is not None and ac.split["vocab"]
+
+
+def _embed(cfg: ModelConfig, params, tokens, vision_embeds=None, ac=None):
     """tokens: (B, S) or (B, nq, S) for multi-codebook, (B,) or (B, nq) in
     decode; the codebooks' embeddings summed, ``vision_embeds`` (B, n_vis,
-    d) put before the text."""
-    emb = params["embed"]
-    if cfg.n_codebooks > 1:
-        x = sum(emb[q][tokens[:, q]] for q in range(cfg.n_codebooks))
+    d) put before the text.  Vocab-parallel under ``ac``: each rank looks
+    up the ids of its vocabulary range, zeros elsewhere, and one reduce
+    adds the ranks' rows (each id's row comes from one rank)."""
+    emb = _top(params, "embed", ac)
+    if _vocab_split(ac):
+        lo, hi = ac.vocab_range()
+
+        def look(e, t):
+            inside = (t >= lo) & (t < hi)
+            rows = e[torch.where(inside, t - lo, 0)]
+            return torch.where(inside[..., None], rows, 0)
     else:
-        x = emb[0][tokens]
+        def look(e, t):
+            return e[t]
+    if cfg.n_codebooks > 1:
+        x = sum(look(emb[q], tokens[:, q]) for q in range(cfg.n_codebooks))
+    else:
+        x = look(emb[0], tokens)
+    if _vocab_split(ac):
+        x = ac.reduce(x)
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
     return x.to(_dtype(cfg.compute_dtype))
@@ -296,38 +343,67 @@ def _remat(cfg: ModelConfig, block):
 
 
 def forward(cfg: ModelConfig, params, tokens, positions=None,
-            backend: str = "auto", vision_embeds=None):
+            backend: str = "auto", vision_embeds=None, ac=None):
     """Final-normed hidden states (B, n_vis + S, d) in the compute dtype.
-    ``positions``: (B, n_vis + S), or (3, B, n_vis + S) under M-RoPE."""
-    x = _embed(cfg, params, tokens, vision_embeds)
+    ``positions``: (B, n_vis + S), or (3, B, n_vis + S) under M-RoPE.
+    Under ``ac`` with ``cfg.seq_shard`` (sequence parallelism, where the
+    sequence splits over ``model``) the layers' residual stream holds the
+    rank's positions: each region gathers the sequence on entry and
+    reduce-scatters it on exit, the norms run on the rank's positions, and
+    the final states are gathered whole."""
+    x = _embed(cfg, params, tokens, vision_embeds, ac)
     B, S, _ = x.shape
     if positions is None:
         positions = _positions(cfg, B, S, x.device)
+    if ac is not None:
+        # sequence parallelism: the residual stream holds S / tp positions
+        ac = ac.for_seq(S)
+        x = ac.exit(x, False)
     block = _remat(cfg, functools.partial(_block_train, cfg))
     for i, is_global in enumerate(_layer_windows(cfg)):
         x = block(_layer(params, i), x, positions,
-                  None if is_global else cfg.sliding_window, backend)
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+                  None if is_global else cfg.sliding_window, backend, ac)
+    x = L.rms_norm(x, _ln(_top(params, "final_norm", ac), ac), cfg.norm_eps)
+    return x if ac is None else ac.enter(x, False)
 
 
-def logits_fn(cfg: ModelConfig, params, x, codebook: int = 0):
-    head = (params["embed"].transpose(1, 2) if cfg.tie_embeddings
-            else params["head"])
+def logits_fn(cfg: ModelConfig, params, x, codebook: int = 0, ac=None):
+    """Logits of ``codebook``; under a vocab-parallel ``ac``, this rank's
+    columns of V (column-parallel head)."""
+    head = (_top(params, "embed", ac).transpose(1, 2) if cfg.tie_embeddings
+            else _top(params, "head", ac))
+    if _vocab_split(ac):
+        x = ac.copy(x)
     return x @ head[codebook].to(x.dtype)
 
 
-def loss_fn(cfg: ModelConfig, params, batch, backend: str = "auto"):
+def _vocab_parallel_ce(logits, labels, ac):
+    """Per-position cross entropy of f32 ``logits`` (this rank's columns of
+    V): the global max (no gradient), the sum of exps and the target logit
+    reduced over ``model``."""
+    lo, hi = ac.vocab_range()
+    m = ac.reduce_max(logits.detach().amax(dim=-1))
+    lse = m + torch.log(ac.reduce(torch.exp(logits - m[..., None]).sum(dim=-1)))
+    inside = (labels >= lo) & (labels < hi)
+    gold = torch.gather(logits, -1,
+                        torch.where(inside, labels - lo, 0)[..., None].long())[..., 0]
+    return lse - ac.reduce(torch.where(inside, gold, 0))
+
+
+def loss_fn(cfg: ModelConfig, params, batch, backend: str = "auto", ac=None):
     """batch: {'tokens': (B, S) or (B, nq, S), ['vision_embeds'],
     ['positions']}.  Next-token cross entropy in f32, over the text
     positions only (a VLM's vision embeddings have no labels), the mean
     over codebooks."""
     tokens = batch["tokens"]
     ve = batch.get("vision_embeds")
-    x = forward(cfg, params, tokens, batch.get("positions"), backend, ve)
+    x = forward(cfg, params, tokens, batch.get("positions"), backend, ve, ac)
     x = x[:, 0 if ve is None else ve.shape[1]:]
 
     def ce(q, labels):
-        logits = logits_fn(cfg, params, x[:, :-1], q).float()
+        logits = logits_fn(cfg, params, x[:, :-1], q, ac).float()
+        if _vocab_split(ac):
+            return _vocab_parallel_ce(logits, labels, ac).mean()
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
         return (lse - gold).mean()
@@ -341,57 +417,72 @@ def loss_fn(cfg: ModelConfig, params, batch, backend: str = "auto"):
 # --------------------------------------------------------------------------- #
 # Decode (serving)
 # --------------------------------------------------------------------------- #
-def cache_shapes(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+def cache_shapes(cfg: ModelConfig, batch: int, seq_len: int, ac=None) -> dict:
     """The decode cache's entries as ``(shape, dtype name)``: ``k``/``v``
     (n_layers, batch, s, KV, hd) where attention runs, with ``s`` the window
     where every layer is windowed (a ring buffer) and ``seq_len`` otherwise;
     ``conv`` (n_layers, batch, d_conv - 1, d_inner) and ``ssm`` (n_layers,
-    batch, d_inner, d_state) in f32 where an SSM runs."""
+    batch, d_inner, d_state) in f32 where an SSM runs.  Under ``ac``, a
+    rank's: its KV heads where ``wk`` splits, else the KV heads its query
+    heads read (``ac.kv_heads``) where ``wq`` splits; its channels where
+    ``in_proj`` splits (``sharding.cache_specs``)."""
     cdt = cfg.compute_dtype
     Lc = cfg.n_layers
+    kv = cfg.n_kv_heads
+    if ac is not None and ac.split["kv"]:
+        kv //= ac.tp
+    elif ac is not None and ac.kv_heads() is not None:
+        kv = ac.kv_heads()[1] - ac.kv_heads()[0]
+    di_n = ac.tp if ac is not None and ac.split["ssm"] else 1
     out = {}
     if cfg.uses_attention:
         s = seq_len
         if cfg.sliding_window is not None and cfg.global_attn_every <= 0:
             s = min(seq_len, cfg.sliding_window)
-        shape = (Lc, batch, s, cfg.n_kv_heads, cfg.resolved_head_dim)
+        shape = (Lc, batch, s, kv, cfg.resolved_head_dim)
         out["k"] = out["v"] = (shape, cdt)
     if cfg.uses_ssm:
-        out["conv"] = ((Lc, batch, cfg.ssm.d_conv - 1, cfg.d_inner), cdt)
-        out["ssm"] = ((Lc, batch, cfg.d_inner, cfg.ssm.d_state), "float32")
+        di = cfg.d_inner // di_n
+        out["conv"] = ((Lc, batch, cfg.ssm.d_conv - 1, di), cdt)
+        out["ssm"] = ((Lc, batch, di, cfg.ssm.d_state), "float32")
     return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device=None) -> dict:
+               device=None, ac=None) -> dict:
     dev = resolve_device(device, "init_cache")
     return {n: torch.zeros(s, dtype=_dtype(dt), device=dev)
-            for n, (s, dt) in cache_shapes(cfg, batch, seq_len).items()}
+            for n, (s, dt) in cache_shapes(cfg, batch, seq_len, ac).items()}
 
 
-def decode_step(cfg: ModelConfig, params, cache: dict, tokens, position):
+def decode_step(cfg: ModelConfig, params, cache: dict, tokens, position,
+                ac=None):
     """One decoding step for the whole stack.
 
     tokens: (B,) or (B, nq); position: scalar or (B,) write indices
     (per-sequence: continuous-batching slots may be at different depths).
     The cache is updated in place (the reference returns a new one; in
     place saves a copy of the cache per step).  Returns (logits (B, V), or
-    (B, nq, V) for multi-codebook, in the compute dtype, cache)."""
+    (B, nq, V) for multi-codebook, in the compute dtype, cache); under a
+    vocab-parallel ``ac`` the logits are all-gathered over V."""
     cdt = _dtype(cfg.compute_dtype)
-    x = _embed(cfg, params, tokens)[:, None]
+    x = _embed(cfg, params, tokens, ac=ac)[:, None]
     windowed = cfg.global_attn_every > 0
     for i, is_global in enumerate(_layer_windows(cfg)):
-        lp = _cast_layer(_layer(params, i), cdt)
+        lp = _layer(params, i)
+        if ac is not None:
+            lp = ac.unshard_layer(lp)
+        lp = _cast_layer(lp, cdt)
         if cfg.uses_attention:
             h = L.rms_norm(x, lp["attn"]["ln"], cfg.norm_eps)
             a, _, _ = L.attention_decode(
                 lp["attn"], h, cfg, cache["k"][i], cache["v"][i], position,
                 window=cfg.sliding_window,
-                is_global=bool(is_global) if windowed else None)
+                is_global=bool(is_global) if windowed else None, ac=ac)
         if cfg.uses_ssm:
             h = L.rms_norm(x, lp["ssm"]["ln"], cfg.norm_eps)
             s, conv, ssm = M.mamba_decode(lp["ssm"], h, cfg, cache["conv"][i],
-                                          cache["ssm"][i])
+                                          cache["ssm"][i], ac=ac)
             cache["conv"][i] = conv
             cache["ssm"][i] = ssm
         if cfg.family == "hybrid":
@@ -402,15 +493,17 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens, position):
             x = x + a
         if "moe" in lp:
             h = L.rms_norm(x, lp["moe"]["ln"], cfg.norm_eps)
-            x = x + MOE.moe_apply(lp["moe"], h, cfg)[0]
+            x = x + MOE.moe_apply(lp["moe"], h, cfg, ac)[0]
         elif "mlp" in lp:
             h = L.rms_norm(x, lp["mlp"]["ln"], cfg.norm_eps)
-            x = x + L.mlp_apply(lp["mlp"], h, cfg.mlp)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)[:, 0]
+            x = x + L.mlp_apply(lp["mlp"], h, cfg.mlp, ac)
+    x = L.rms_norm(x, _top(params, "final_norm", ac), cfg.norm_eps)[:, 0]
     if cfg.n_codebooks > 1:
-        return torch.stack([logits_fn(cfg, params, x, q)
-                            for q in range(cfg.n_codebooks)], dim=1), cache
-    return logits_fn(cfg, params, x), cache
+        lg = torch.stack([logits_fn(cfg, params, x, q, ac)
+                          for q in range(cfg.n_codebooks)], dim=1)
+    else:
+        lg = logits_fn(cfg, params, x, ac=ac)
+    return (ac.gather_model(lg, -1) if _vocab_split(ac) else lg), cache
 
 
 # --------------------------------------------------------------------------- #

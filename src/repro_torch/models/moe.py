@@ -15,8 +15,14 @@ Three implementations, selected by ``cfg.moe.impl``:
 
 Every path sums a token's ``k`` expert outputs in slot order (un-sorted to
 ``(T, k, d)`` and summed over ``k``), not by scatter-adds, whose order on
-the card is not fixed.  The reference's sharding hook ``ac`` has no
-counterpart: the port runs one replica a device.
+the card is not fixed.
+
+Under tensor parallelism (``ac``, a rank's ``launch/sharding.
+ParallelContext``, whose expert ``w1`` splits) the expert ``d_ff`` is on
+the ``model`` axis (EP == TP, as in the reference): every rank routes
+every token with the replicated router, runs its slice of every expert's
+FFN, adds up the gated partial outputs, and one reduce sums them
+(``_route``).
 """
 from __future__ import annotations
 
@@ -76,11 +82,37 @@ def _inverse(order):
     return inv.scatter_(-1, order, idx)
 
 
-def moe_dense(params, x, cfg: ModelConfig):
-    """x: (B, S, d).  All-experts path."""
+def _tp(ac) -> bool:
+    return ac is not None and ac.split["moe"]
+
+
+def _route(params, x, cfg: ModelConfig, ac):
+    """The router's output for x (B, S, d) on a rank, and the experts'
+    input (the region's, ``ac.enter``).  The router runs on the rank's
+    positions (all of them but under sequence parallelism, where its
+    outputs are then gathered); the gates enter the region as the
+    experts' input does, since under tensor parallelism each rank forms
+    only its part of their gradient."""
+    tp = _tp(ac)
+    B, S, d = x.shape
+    router = {"router": ac.seq_shared(params["router"])}
+    gates, experts, probs = _router(router, x.reshape(B * S, d), cfg)
+    k = gates.shape[-1]
+    gates = ac.enter(gates.reshape(B, S, k), tp)
+    if ac.seq:
+        experts = ac.gather_model(experts.reshape(B, S, k), 1)
+        probs = ac.gather_model(probs.reshape(B, S, -1), 1)
+    T = gates.shape[0] * gates.shape[1]
+    return ((gates.reshape(T, k), experts.reshape(T, k), probs.reshape(T, -1)),
+            ac.enter(x, tp))
+
+
+def moe_dense(params, x, cfg: ModelConfig, routed=None):
+    """x: (B, S, d).  All-experts path.  ``routed``: the router's
+    ``(gates, experts, probs)`` for x, made by the caller (else here)."""
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
-    gates, experts, probs = _router(params, xt, cfg)
+    gates, experts, probs = routed or _router(params, xt, cfg)
     E = cfg.moe.n_experts
     ye = _expert_ffn(params, xt[None].expand(E, B * S, d), cfg.mlp)   # (E, T, d)
     # combine: one-hot over the small E axis only (T x k x E)
@@ -90,13 +122,13 @@ def moe_dense(params, x, cfg: ModelConfig):
     return y.reshape(B, S, d), _aux_loss(probs, experts, E)
 
 
-def moe_ragged(params, x, cfg: ModelConfig):
+def moe_ragged(params, x, cfg: ModelConfig, routed=None):
     """Sorted/grouped-matmul path: FLOPs ~ active params only."""
     B, S, d = x.shape
     k, E = cfg.moe.top_k, cfg.moe.n_experts
     T = B * S
     xt = x.reshape(T, d)
-    gates, experts, probs = _router(params, xt, cfg)
+    gates, experts, probs = routed or _router(params, xt, cfg)
     flat_e = experts.reshape(T * k)
     order = torch.argsort(flat_e, stable=True)
     xs = xt[order // k]                                     # (T*k, d) sorted
@@ -120,7 +152,7 @@ def capacity(cfg: ModelConfig, S: int) -> int:
     return max(4, int(round((m.top_k * S / m.n_experts) * CAPACITY_FACTOR)))
 
 
-def moe_gather(params, x, cfg: ModelConfig, stats=None):
+def moe_gather(params, x, cfg: ModelConfig, stats=None, routed=None):
     """Grouped capacity-based gather dispatch (GShard-style): each sequence
     puts its token slots, sorted stably by expert, into a per-expert buffer
     of ``capacity(cfg, S)`` rows; a slot past its expert's capacity is
@@ -129,7 +161,7 @@ def moe_gather(params, x, cfg: ModelConfig, stats=None):
     B, S, d = x.shape
     k, E = cfg.moe.top_k, cfg.moe.n_experts
     C = capacity(cfg, S)
-    gates, experts, probs = _router(params, x.reshape(B * S, d), cfg)
+    gates, experts, probs = routed or _router(params, x.reshape(B * S, d), cfg)
     flat_e = experts.reshape(B, S * k)
     order = torch.argsort(flat_e, dim=1, stable=True)      # per-group sort
     sorted_e = torch.gather(flat_e, 1, order)
@@ -166,12 +198,19 @@ def _expert_ffn_grouped(params, gecd, kind):
     return torch.einsum("gecf,efd->gecd", h, params["w2"])
 
 
-def moe_apply(params, x, cfg: ModelConfig):
-    """``(y, aux_loss)`` of ``cfg.moe.impl``'s path."""
+def moe_apply(params, x, cfg: ModelConfig, ac=None):
+    """``(y, aux_loss)`` of ``cfg.moe.impl``'s path; under ``ac`` the layer
+    is a region (``ParallelContext.enter`` / ``exit``) and the router runs
+    as ``_route`` says."""
     if cfg.moe.impl not in IMPLS:
         raise ValueError(f"unknown moe impl {cfg.moe.impl!r}; expected one of {IMPLS}")
+    kw = {}
+    if ac is not None:
+        kw["routed"], x = _route(params, x, cfg, ac)
     if cfg.moe.impl == "ragged":
-        return moe_ragged(params, x, cfg)
-    if cfg.moe.impl == "gather":
-        return moe_gather(params, x, cfg)
-    return moe_dense(params, x, cfg)
+        y, aux = moe_ragged(params, x, cfg, **kw)
+    elif cfg.moe.impl == "gather":
+        y, aux = moe_gather(params, x, cfg, **kw)
+    else:
+        y, aux = moe_dense(params, x, cfg, **kw)
+    return (y if ac is None else ac.exit(y, _tp(ac))), aux

@@ -94,8 +94,14 @@ def apply_updates(params, updates):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in grads.values()))
+def clip_by_global_norm(grads, max_norm: float, leaf_sums=lambda sq: sq):
+    """``grads`` scaled to a global norm of at most ``max_norm``, and the
+    norm before.  ``leaf_sums`` (a sharded model's
+    ``ParallelContext.leaf_sums``; on one device the identity) adds each
+    leaf's sum of squares over the ranks that split it, so that the norm
+    is the whole model's."""
+    sq = leaf_sums({k: torch.sum(torch.square(g.to(torch.float32)))
+                    for k, g in grads.items()})
+    gn = torch.sqrt(sum(sq.values()))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return {k: g * scale.to(g.dtype) for k, g in grads.items()}, gn

@@ -43,13 +43,23 @@ def init_state(params):
 
 
 @torch.no_grad()
-def compress(grads, residual) -> Tuple[dict, dict]:
+def compress(grads, residual, leaf_sums=None) -> Tuple[dict, dict]:
     """Returns (decompressed-equivalent grads, new residual).
 
     The returned grads are what the receiving side reconstructs
     (sign * scale), in each gradient's dtype; in a real deployment only
     (sign bits, scale) cross the link, and the arithmetic here is the
-    same."""
+    same.  ``leaf_sums`` (a sharded model's ``ParallelContext.leaf_sums``,
+    on a flat dict of gradients) adds each leaf's sum of |x| and count over
+    the ranks that split it, so that the scale is the whole leaf's
+    ``mean |x|``."""
+    if leaf_sums is not None:
+        xs = {k: g.to(torch.float32) + residual[k] for k, g in grads.items()}
+        st = leaf_sums({k: torch.stack([x.abs().sum(), torch.tensor(
+            float(x.numel()), device=x.device)]) for k, x in xs.items()})
+        qs = {k: torch.sign(x) * (st[k][0] / st[k][1]) for k, x in xs.items()}
+        return ({k: q.to(grads[k].dtype) for k, q in qs.items()},
+                {k: xs[k] - q for k, q in qs.items()})
     if isinstance(grads, dict):
         pairs = {k: compress(g, residual[k]) for k, g in grads.items()}
         return ({k: q for k, (q, _) in pairs.items()},

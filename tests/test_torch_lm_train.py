@@ -325,8 +325,13 @@ def test_data_parallel_matches_one_process(lm_dp):
 def test_data_parallel_refusals(lm_dp):
     kind, msg = lm_dp[0][0]["unsharded_pipeline"]
     assert kind == "ValueError" and "shard_index" in msg
-    kind, msg = lm_dp[0][0]["model_axis"]
-    assert kind == "NotImplementedError" and "ROADMAP" in msg
+    # a model axis of 2 trains, and as one process does on the same batches
+    cfg = W.lm_dp_cfg()
+    _, want = TT.train_loop(cfg, None, TokenPipeline(cfg.vocab_size, W.LM_DP["seq"],
+                                                     W.LM_DP["batch"]),
+                            W.LM_DP["steps"], device="cpu", log_every=0)
+    for r in lm_dp[0]:
+        np.testing.assert_allclose(r["model_axis"], want, rtol=1e-5)
 
 
 def test_main_runs_smoke_in_process(tmp_path, capsys):
@@ -335,9 +340,12 @@ def test_main_runs_smoke_in_process(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "step     0" in out and out.rstrip().endswith("done.")
     assert CKPT.latest_step(str(tmp_path)) == 3
-    for flag in ("--production-mesh", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for flag, n in (("--production-mesh", 256), ("--multi-pod", 512)):
+        with pytest.raises(ValueError, match=f"world of {n} ranks; this world has 1"):
             TT.main(["--arch", "qwen3-0.6b", "--smoke", flag])
+    losses = TT.main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "2",
+                      "--device", "cpu", "--world", "2", "--model-axis", "2"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_example_runs_on_the_host():

@@ -432,7 +432,7 @@ def lm_dp_run(mesh, pipe) -> dict:
 
 def world_lm_dp(rank, world):
     from repro_torch.data.tokens import TokenPipeline
-    from repro_torch.launch.train import build, train_loop
+    from repro_torch.launch.train import train_loop
     cfg = lm_dp_cfg()
     mesh = make_local_mesh()
     pipe = TokenPipeline(cfg.vocab_size, LM_DP["seq"], LM_DP["batch"],
@@ -442,5 +442,196 @@ def world_lm_dp(rank, world):
     out["unsharded_pipeline"] = _err(lambda: train_loop(
         cfg, mesh, TokenPipeline(cfg.vocab_size, LM_DP["seq"], LM_DP["batch"]),
         1, device="cpu"))
-    out["model_axis"] = _err(lambda: build(cfg, Mesh((1, 2))))
+    # a model axis of 2: tensor parallelism on the same two ranks
+    out["model_axis"] = train_loop(
+        cfg, Mesh((1, 2)), TokenPipeline(cfg.vocab_size, LM_DP["seq"],
+                                         LM_DP["batch"]),
+        LM_DP["steps"], device="cpu", log_every=0)[1]
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Tensor, FSDP and TP x DP parallelism of the LM (launch/sharding.py)
+# --------------------------------------------------------------------------- #
+TP_BATCH = dict(B=4, S=16, seed=1)
+
+
+def tp_cfg(arch: str, **change):
+    """An arch's smoke config in f32 (the two layouts' differently ordered
+    sums then agree to ~1e-7)."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_smoke(arch), compute_dtype="float32",
+                               **change)
+
+
+def tp_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """numpy: tokens (B, S) or (B, nq, S); a VLM's vision embeddings and
+    M-RoPE positions whose three sections differ (``tests/
+    test_torch_families.py``'s batch)."""
+    rng = np.random.default_rng(seed)
+    shape = (B, cfg.n_codebooks, S) if cfg.n_codebooks > 1 else (B, S)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32)}
+    if cfg.vision_tokens:
+        nv = cfg.vision_tokens
+        out["vision_embeds"] = (0.01 * rng.normal(size=(B, nv, cfg.d_model))).astype(np.float32)
+        i = np.arange(nv)
+        grid = np.stack([np.zeros(nv), i // 4, i % 4]).astype(np.int64)
+        text = np.broadcast_to(np.arange(S) + grid.max() + 1, (3, S))
+        out["positions"] = np.ascontiguousarray(np.broadcast_to(
+            np.concatenate([grid, text], 1)[:, None], (3, B, nv + S)))
+    return out
+
+
+def _rows(batch: dict, idx: int, n: int) -> dict:
+    """A data rank's rows of a batch (positions: rows on axis 1)."""
+    out = {}
+    for k, v in batch.items():
+        axis = 1 if k == "positions" else 0
+        per = v.shape[axis] // n
+        out[k] = torch.from_numpy(np.take(v, range(idx * per, (idx + 1) * per),
+                                          axis=axis))
+    return out
+
+
+def tp_loss_and_grads(cfg, mesh, fsdp=None, one=False) -> dict:
+    """The loss and the gradients, gathered to the global layout, of one
+    batch on ``mesh`` (averaged over its data axes), from ``init_params``'s
+    weights of seed 0; with ``one``, also one device's on the whole batch
+    and the weights (numpy)."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import model as MD
+    full = MD.init_params(cfg, torch.Generator().manual_seed(0))
+    ac = SH.make_ac(mesh, cfg, fsdp=fsdp)
+    shards = SH.shard_params(cfg, full, mesh, specs=ac.specs)
+    b = tp_batch(cfg, **TP_BATCH)
+    loss, g = value_and_grad(cfg, shards, _rows(b, ac.data_rank, ac.dp), ac=ac)
+    loss, g = ac.mean_grads(loss, g)
+    g = MD.flatten(SH.gather_params(cfg, MD.unflatten(g), mesh, specs=ac.specs))
+    out = {"loss": float(loss), "grads": {k: _np(v) for k, v in g.items()},
+           "split": ac.split}
+    if one:
+        loss1, g1 = value_and_grad(cfg, full, _rows(b, 0, 1))
+        out["one"] = {"loss": float(loss1),
+                      "grads": {k: _np(v) for k, v in g1.items()}}
+        out["params"] = {k: _np(v) for k, v in MD.flatten(full).items()}
+    return out
+
+
+def world_tp(rank, world, shape, cases, fsdp=None):
+    """Every case of ``cases`` (name: (arch, config changes)) on a
+    ``shape`` mesh (``make_production_mesh(shape=shape)``: three axes are
+    ``("pod", "data", "model")``): rank 0 also runs one device."""
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh(shape=shape)
+    return {name: tp_loss_and_grads(tp_cfg(arch, **change), mesh, fsdp,
+                                    one=rank == 0)
+            for name, (arch, change) in cases.items()}
+
+
+def world_tp_bf16(rank, world, archs):
+    """Each of ``archs``' smoke configs in its own compute dtype (bf16) on a
+    (1, world) mesh, so that the ``model`` collectives (under
+    ``seq_shard``, the sequence's all-gathers and reduce-scatters) carry
+    bf16 tensors; rank 0 also runs one device."""
+    from repro_torch import configs
+    mesh = Mesh((1, world))
+    return {a: tp_loss_and_grads(configs.get_smoke(a), mesh, one=rank == 0)
+            for a in archs}
+
+
+TP_TRAIN = dict(seq=32, batch=4, steps=3, resumed=5)
+
+
+class GlobalPipeline:
+    """The global batch of ``n`` data ranks: each rank's rows
+    (``TokenPipeline(shard_index=r, shard_count=n)``) in rank order, with a
+    pipeline's state, so that one device trains on what the ranks do."""
+
+    def __init__(self, cfg, n: int):
+        from repro_torch.data.tokens import TokenPipeline
+        self.parts = [TokenPipeline(cfg.vocab_size, TP_TRAIN["seq"],
+                                    TP_TRAIN["batch"], shard_index=r,
+                                    shard_count=n) for r in range(n)]
+        self.step = 0
+        self.shard_index, self.shard_count = 0, 1
+
+    def batch(self, step):
+        return np.concatenate([p.batch(step) for p in self.parts])
+
+    def state_dict(self):
+        return {"seed": self.parts[0].seed, "step": self.step}
+
+    def load_state_dict(self, d):
+        self.step = int(d["step"])
+
+
+def tp_train_run(cfg, mesh, pipe, steps, **kw) -> dict:
+    """``train_loop``'s losses and final parameters, gathered to the global
+    layout on a mesh."""
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model as MD
+    params, losses = train_loop(cfg, mesh, pipe, steps, device="cpu",
+                                log_every=0, **kw)
+    if mesh is not None:
+        params = SH.gather_params(cfg, params, mesh)
+    return {"losses": losses,
+            "params": {k: _np(v) for k, v in MD.flatten(params).items()}}
+
+
+def tp_serve_run(cfg, mesh) -> dict:
+    """A 4-slot ``Server`` on ``mesh`` (None: one device) answering four
+    requests from ``init_params``'s weights of seed 0: the tokens."""
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import model as MD
+    full = MD.init_params(cfg, torch.Generator().manual_seed(0))
+    srv = Server(cfg, mesh, slots=4, max_len=32, device="cpu", params=full)
+    rng = np.random.default_rng(3)
+    for rid in range(5):
+        srv.submit(Request(rid, rng.integers(0, cfg.vocab_size,
+                                             size=rng.integers(3, 9)).tolist(), 8))
+    return {r.rid: r.out for r in srv.run()}
+
+
+def world_tp_train(rank, world, arch, ckpt_dir, serve_archs):
+    """On a (2, 2) mesh: ``train_loop`` with compression (and clipping, as
+    always); a ``train_loop`` of ``TP_TRAIN["resumed"]`` steps that writes a
+    checkpoint at step 3 and fails there (``fail_at_step``); a Server of
+    each of ``serve_archs`` whose slots split over the data axis."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import sharding as SH
+    cfg = tp_cfg(arch)
+    mesh = Mesh((2, 2))
+    ac = SH.make_ac(mesh, cfg)
+
+    def pipe():
+        return TokenPipeline(cfg.vocab_size, TP_TRAIN["seq"], TP_TRAIN["batch"],
+                             shard_index=ac.data_rank, shard_count=ac.dp)
+    return {"compressed": tp_train_run(cfg, mesh, pipe(), TP_TRAIN["steps"],
+                                       compress=True),
+            "failed": _err(lambda: tp_train_run(
+                cfg, mesh, pipe(), TP_TRAIN["resumed"], ckpt_dir=ckpt_dir,
+                ckpt_every=TP_TRAIN["steps"], fail_at_step=TP_TRAIN["steps"])),
+            "serve": {a: tp_serve_run(tp_cfg(a), mesh) for a in serve_archs}}
+
+
+def world_tp_resume(rank, world, arch, ckpt_dir):
+    """The checkpoint of the (2, 2) run resumed on a (1, 1) mesh."""
+    cfg = tp_cfg(arch)
+    return tp_train_run(cfg, Mesh((1, 1)), GlobalPipeline(cfg, 2),
+                        TP_TRAIN["resumed"], ckpt_dir=ckpt_dir,
+                        ckpt_every=TP_TRAIN["steps"])
+
+
+def world_tp_serve(rank, world, archs):
+    """A Server of each arch on a (1, world) mesh; rank 0 also on one
+    device."""
+    mesh = Mesh((1, world))
+    out = {}
+    for a in archs:
+        cfg = tp_cfg(a)
+        out[a] = {"tp": tp_serve_run(cfg, mesh)}
+        if rank == 0:
+            out[a]["one"] = tp_serve_run(cfg, None)
     return out
